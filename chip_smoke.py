@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (structured_latent_odes_tpu_torch) on one
-CUDA card: the quickest proof that the port builds and serves on the GPU.
+CUDA card: the quickest proof that the port builds, serves and trains on the
+GPU.
 
     python3 chip_smoke.py              # on the card
     python3 chip_smoke.py --rehearse   # on the CPU: plain versions, tiny sizes
@@ -10,21 +11,38 @@ Phases, each fatal on any fault:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source, all started together;
    prints nvcc's -Xptxas -v report.
-3. kernels: K1 (affine scan) and K2 (fused semilinear solve) against their
-   plain PyTorch versions on the card at the serving shapes and at
-   B = 16,411; then timed at both sizes beside the plain version and the
-   bound on an H100 SXM: the kernel's own device time from a torch.profiler
-   trace, and the wrapper call (argument preparation included) and the plain
+3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
+   semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
+   versions on the card at the serving and training shapes and at
+   B = 16,411; then timed beside the plain version and the bound on an H100
+   SXM: the kernel's device time from a CUDA event pair right around each
+   launch (queued behind a device-side sleep, so no host gap falls inside),
+   and the wrapper call (argument preparation included) and the plain
    version with CUDA events after warm-up.
-4. main path: generates CVS with the port's make_dataset on the card, writes
+4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
    --classify, and the ensemble mean of both, on the backends semilinear
    (K1), semilinear_pallas (K1), semilinear_fused (K2) and semilinear_seq
    (plain), plus one Gauss-model request. Launch counts are zeroed just before
-   and read just after; outputs are checked for shape, finiteness and
-   agreement across backends. Then a served request is timed at B = 100 and
+   each backend's requests and read just after: each backend must launch its
+   own forward kernel and no other. Outputs are checked for shape,
+   finiteness and agreement across backends. Then a served request is timed at B = 100 and
    B = 16,411 per backend.
+5. training path: training_cvs.main at full width (--num-epochs 1: epochs 0
+   and 1, 14 dual steps, per-epoch val/train statistics, the final test
+   evaluation) on the same data with the backends semilinear (K1, K1-bwd),
+   semilinear_fused (K2, K3) and semilinear_seq (plain), plus one Gauss-model
+   run. Launch counts are zeroed just before each run and read just after:
+   each run must launch its backend's forward and backward kernels and no
+   other (semilinear_seq none). Every logged loss must be finite, the
+   artifacts must have the JAX package's shapes, and the trained checkpoint
+   is served through serve.main. Then the first dual step's losses and
+   gradients are compared across the three backends from one set of params
+   and one seed, with the counts read per backend as above, and one dual
+   step at B = 128 is timed per backend.
+
+TF32 stays off for matrix products and cuDNN convolutions throughout.
 
 Prints a {"kernels": [...]} line, then the nvidia-smi line, then the last
 line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -45,17 +63,18 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-from structured_latent_odes_tpu_torch import serve
+from structured_latent_odes_tpu_torch import serve, training_cvs
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
+from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state
 from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
-from structured_latent_odes_tpu_torch.train import checkpoint
+from structured_latent_odes_tpu_torch.train import checkpoint, svi
+from structured_latent_odes_tpu_torch.train.driver import device_batch
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -63,19 +82,57 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
-K1_TOL = 1e-6  # K1 does the plain version's float32 operations exactly
+K1_TOL = 1e-6  # K1 and K1-bwd do their plain versions' float32 operations exactly
 # K2 and the backends, elementwise |out - ref| <= ATOL + RTOL*|ref|, the JAX
 # package's own tolerance for its fused kernel (tests/test_fused_step.py):
 # at random weights trajectories reach |x| of tens, where float32 roundoff
 # accumulated over 85 steps differs by up to ~1e-6 relative between two
 # summation orders (measured on the H100: 6.9e-5 abs at |x| = 78)
 ATOL, RTOL = 1e-5, 1e-5
+# K3's weight gradients (w_t, W_a, b_a, W_d, b_d) are sums over the batch,
+# the steps and the stages: up to 16,411 * 85 * 4 = 5.6M float32 terms, summed
+# per thread, per block and across blocks here and per step over the batch in
+# the plain version. Each leaf is held to max|out - ref| <= WGRAD_RTOL *
+# max|ref| of that leaf; phase 3 prints each error / tolerance.
+WGRAD_RTOL = 1e-5
+# K3's du (per trajectory) is a sum over the 85 * S stages of terms that
+# cancel: its float32 error follows the terms, not the result, so K2's purely
+# elementwise 1e-5 + 1e-5*|ref| failed by 1.6x at euler, B = 128 (H100). du is
+# held to |out - ref| <= DU_ATOL * max|ref| + RTOL * |ref|; phase 3 prints
+# both ratios, and the kernels line the one held.
+DU_ATOL = 1e-5
+# each kernel's outputs: (name, rule as printed in the kernels line)
+TOLERANCE_RULES = {
+    "K1": {"xs": f"|out - ref| <= {K1_TOL:g}"},
+    "K1-bwd": {name: f"|out - ref| <= {K1_TOL:g}" for name in ("dA", "dB", "dx0")},
+    "K2": {"xs": f"|out - ref| <= {ATOL:g} + {RTOL:g}*|ref|, elementwise"},
+    "K3": {
+        "du": f"|out - ref| <= {DU_ATOL:g}*max|ref| + {RTOL:g}*|ref|, elementwise",
+        **{name: f"max|out - ref| <= {WGRAD_RTOL:g}*max|ref| of the leaf"
+           for name in ("dwt", "dwa", "dba", "dwd", "dbd")},
+        "dx0": f"|out - ref| <= {ATOL:g} + {RTOL:g}*|ref|, elementwise",
+    },
+}
+# first-step gradients across the three backends: max|g - g_seq| /
+# max(max|g_seq|, 1) over every leaf, the JAX package's own fused-vs-autodiff
+# bound (tests/test_fused_step.py): float32 accumulation order
+STEP_GRAD_TOL = 5e-3
 BIG_B = 16411
+TRAIN_B = 128
 
 K1_SOURCE = "structured_latent_odes_tpu_torch/csrc/affine_scan.cu"
 K2_SOURCE = "structured_latent_odes_tpu_torch/csrc/fused_semilinear_fwd.cu"
+K3_SOURCE = "structured_latent_odes_tpu_torch/csrc/fused_semilinear_bwd.cu"
 K1_REPLACES = "structured_latent_odes_tpu/ops/recurrence.py:39"
+K1_BWD_REPLACES = "structured_latent_odes_tpu/ops/recurrence.py:87"
 K2_REPLACES = "structured_latent_odes_tpu/ops/fused_step.py:143"
+K3_REPLACES = "structured_latent_odes_tpu/ops/fused_step.py:171"
+KERNELS = {  # key: wrapper, which counts its launches
+    "K1": recurrence.affine_scan_fwd,
+    "K1-bwd": recurrence.affine_scan_bwd,
+    "K2": fused_step.fused_semilinear_fwd,
+    "K3": fused_step.fused_semilinear_bwd,
+}
 
 
 def fail(msg: str):
@@ -87,9 +144,10 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def excess(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float) -> float:
-    """max(|out - ref| - rtol*|ref|) / atol: <= 1 within tolerance."""
-    return float(((out - ref).abs() - rtol * ref.abs()).max()) / atol
+def ratio(out: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float = 0.0) -> float:
+    """Worst error / tolerance, max(|out - ref| / (atol + rtol*|ref|)): <= 1
+    within tolerance."""
+    return float(((out - ref).abs() / (atol + rtol * ref.abs())).max())
 
 
 class Clock:
@@ -120,20 +178,49 @@ class Clock:
         return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, kernel: str, iters: int = 20) -> float:
-    """Device time of the kernel named ``kernel`` per call of ``fn``, from a
-    torch.profiler trace: the kernel alone, without the wrapper's host work
-    or its argument preparation."""
+def kernel_device_ms(key: str, fn, iters: int = 20) -> float:
+    """Device time per launch of kernel ``key`` over ``iters`` calls of
+    ``fn``: a CUDA event pair recorded on the stream right before and after
+    each launch, without the wrapper's other work. A device-side sleep holds
+    the stream back until every call is enqueued, so no pair waits on the
+    host; the sleep doubles until the host finishes enqueueing inside it. The
+    wrapper's count must rise by exactly ``iters``, each launch bracketed."""
+    wrapper = KERNELS[key]
+    launch = _build.launch
+    pairs = []
+
+    def bracketed(name, f, *args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(name, f, *args)
+        end.record()
+        pairs.append((start, end))
+
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    cycles = 1 << 22
+    for _ in range(6):
+        pairs.clear()
+        before = wrapper.launches
+        sleep0, sleep1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        _build.launch = bracketed
+        try:
+            sleep0.record()
+            torch.cuda._sleep(cycles)
+            sleep1.record()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            _build.launch = launch
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and kernel in e.name]
-    check(len(us) == iters, f"profiler saw {len(us)} launches of {kernel}, expected {iters}")
-    return sum(us) / iters / 1e3
+        n = wrapper.launches - before
+        check(n == iters == len(pairs), f"{key}: {n} launches counted, {len(pairs)} bracketed, expected {iters}")
+        if host_ms < sleep0.elapsed_time(sleep1):
+            return sum(a.elapsed_time(b) for a, b in pairs) / iters
+        cycles *= 2
+    fail(f"{key}: the host took longer to enqueue {iters} calls than the longest sleep")
 
 
 def k1_bound_ms(T: int, M: int):
@@ -142,9 +229,30 @@ def k1_bound_ms(T: int, M: int):
     return bound(nbytes, ops)
 
 
+def k1_bwd_bound_ms(T: int, M: int):
+    """A, g and xs read once (xs rows 0..T-1: the kernel never reads row T);
+    dA, dB, dx0 written once; 3 flops per lane-step."""
+    nbytes = 4 * (T * M + (T + 1) * M + T * M + 2 * T * M + M)
+    return bound(nbytes, 3 * T * M)
+
+
+def k_params(H: int, D: int) -> int:
+    """The fused kernels' packed weights: w_t, W_a, b_a, W_d, b_d."""
+    return H + 2 * D * H + 2 * D
+
+
 def k2_bound_ms(B: int, T: int, S: int, H: int, D: int):
-    nbytes = 4 * (B * H + B * D + (H + 2 * D * H + 2 * D) + (T - 1) * (S + 1) + T * D * B)
+    nbytes = 4 * (B * H + B * D + k_params(H, D) + (T - 1) * (S + 1) + T * D * B)
     ops = B * (T - 1) * S * (4 * D * H + 2 * H)
+    return bound(nbytes, ops)
+
+
+def k3_bound_ms(B: int, T: int, S: int, H: int, D: int):
+    """u, the weights, the tables, xs and g read once; du, dx0 and the weight
+    gradients written once. The stage recompute is S(4DH + 2H) flops per
+    trajectory-step and the VJP S(8DH + 4H)."""
+    nbytes = 4 * (B * H + k_params(H, D) + (T - 1) * (S + 1) + 2 * T * D * B + B * H + B * D + k_params(H, D))
+    ops = B * (T - 1) * S * (12 * D * H + 6 * H)
     return bound(nbytes, ops)
 
 
@@ -171,34 +279,63 @@ def phase_device(rehearse: bool):
 
 def phase_build(H: int, D: int):
     t0 = time.perf_counter()
-    logs = _build.build([("affine_scan", ()), ("fused_semilinear_fwd", (("SLODE_H", H), ("SLODE_D", D)))])
+    widths = (("SLODE_H", H), ("SLODE_D", D))
+    logs = _build.build([("affine_scan", ()), ("fused_semilinear_fwd", widths), ("fused_semilinear_bwd", widths)])
     print(f"== build: {len(logs)} libraries in {time.perf_counter() - t0:.1f} s (into {_build.BUILD_DIR})")
     for (name, defines), log in logs.items():
         print(f"-- nvcc -Xptxas -v: {name} {dict(defines)}\n{log.strip()}", flush=True)
+
+
+def _time(clock: Clock, rehearse: bool, key: str, call, plain, bound_ms, shape: str, plain_iters: int = 3):
+    """Kernel device time, wrapper call and plain version (CUDA events),
+    beside the bound."""
+    wrapper_ms = clock.ms(call, iters=20)
+    ms = wrapper_ms if rehearse else kernel_device_ms(key, call)
+    plain_ms = clock.ms(plain, iters=plain_iters, warmup=1)
+    bms, by = bound_ms
+    print(f"time {key} {shape}: kernel {ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
+    return dict(shape=shape, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
 def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
     """Each kernel against its plain version; returns per-kernel results."""
     T = 86
     big_b = 64 if rehearse else BIG_B
-    res = {"K1": {"err": 0.0}, "K2": {"err": 0.0}}
+    res = {k: {"err": 0.0, "worst": dict.fromkeys(TOLERANCE_RULES[k], 0.0)} for k in KERNELS}
+
+    def held(key, name, out, ref, atol, rtol=0.0):
+        res[key]["err"] = max(res[key]["err"], float((out - ref).abs().max()))
+        r = ratio(out, ref, atol, rtol)
+        res[key]["worst"][name] = max(res[key]["worst"][name], r)
+        return r
 
     def k1_inputs(M, seed):
         gen = torch.Generator().manual_seed(seed)
         A = torch.rand((T - 1, M), generator=gen) * 0.5 + 0.5
         B = (torch.rand((T - 1, M), generator=gen) - 0.5) * 0.2
         x0 = torch.rand((M,), generator=gen) * 2 - 1
-        return A.to(device), B.to(device), x0.to(device)
+        g = torch.rand((T, M), generator=gen) - 0.5
+        return A.to(device), B.to(device), x0.to(device), g.to(device)
 
-    for M in (5 * 100, 5 * big_b, 777):
-        args = k1_inputs(M, M)
-        out = recurrence.affine_scan_tm(*args)
+    for M in (5 * 100, 5 * TRAIN_B, 5 * big_b, 777):
+        A, B, x0, g = k1_inputs(M, M)
+        xs = recurrence.affine_scan_fwd(A, B, x0)
         clock.sync()
-        err = float((out - recurrence.affine_scan_plain(*args)).abs().max())
-        clock.sync()
-        res["K1"]["err"] = max(res["K1"]["err"], err)
+        ref = recurrence.affine_scan_plain(A, B, x0)
+        err = float((xs - ref).abs().max())
+        r = held("K1", "xs", xs, ref, K1_TOL)
         print(f"K1 affine_scan_fwd T={T - 1} M={M}: max_abs_err {err:.3e} (tol {K1_TOL:g})", flush=True)
-        check(err <= K1_TOL, f"K1 disagrees with its plain version at M={M}: {err}")
+        check(r <= 1.0, f"K1 disagrees with its plain version at M={M}: {err}")
+        if M == 5 * 100:
+            continue  # the backward runs at the training shapes
+        out = recurrence.affine_scan_bwd(A, xs, g)
+        clock.sync()
+        ref = recurrence.affine_scan_bwd_plain(A, xs, g)
+        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+        r = max(held("K1-bwd", name, o, rf, K1_TOL) for name, o, rf in zip(("dA", "dB", "dx0"), out, ref))
+        print(f"K1-bwd affine_scan_bwd T={T - 1} M={M}: max_abs_err {err:.3e} (tol {K1_TOL:g})", flush=True)
+        check(r <= 1.0, f"K1-bwd disagrees with its plain version at M={M}: {err}")
 
     grids = {
         "uniform": torch.arange(float(T)),
@@ -214,9 +351,14 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
         return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
                 initialize_state(ode, z), grids[grid].to(device))
 
+    def k3_inputs(args, method):
+        xs = fused_step.fused_semilinear_fwd(*args, method)
+        g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device)
+        return (*args[:6], xs, g, args[7])
+
     with torch.inference_mode():
         for method in fused_step.METHODS:
-            for B in (100, big_b):
+            for B in (100, TRAIN_B, big_b):
                 for grid in grids:
                     args = k2_inputs(B, grid)
                     out = fused_step.fused_semilinear_fwd(*args, method)
@@ -224,38 +366,92 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
                     ref = fused_step.fused_semilinear_fwd_plain(*args, method)
                     clock.sync()
                     err = float((out - ref).abs().max())
-                    ratio = excess(out, ref, ATOL, RTOL)
-                    res["K2"]["err"] = max(res["K2"]["err"], err)
+                    r = held("K2", "xs", out, ref, ATOL, RTOL)
                     print(f"K2 fused_semilinear_fwd {method} B={B} T={T} {grid}: max_abs_err {err:.3e} "
                           f"max|x| {float(ref.abs().max()):.3g} (tol {ATOL:g} + {RTOL:g}*|x|)", flush=True)
-                    check(ratio <= 1.0, f"K2 disagrees with its plain version ({method}, B={B}, {grid})")
+                    check(r <= 1.0, f"K2 disagrees with its plain version ({method}, B={B}, {grid})")
+                    if B == 100:
+                        continue  # the backward runs at the training shapes
+                    bargs = k3_inputs(args, method)
+                    outs = fused_step.fused_semilinear_bwd(*bargs, method)
+                    clock.sync()
+                    refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
+                    clock.sync()
+                    # dx0 elementwise as K2; du elementwise with its absolute
+                    # part scaled by max|du| (DU_ATOL); each weight gradient
+                    # against its leaf's largest value
+                    worst = {}
+                    for name, o, r in zip(TOLERANCE_RULES["K3"], outs, refs):
+                        if name == "dx0":
+                            worst[name] = held("K3", name, o, r, ATOL, RTOL)
+                        elif name == "du":
+                            worst[name] = held("K3", name, o, r, DU_ATOL * float(r.abs().max()), RTOL)
+                            worst["du elementwise as K2"] = ratio(o, r, ATOL, RTOL)  # printed, not held
+                        else:
+                            worst[name] = held("K3", name, o, r, max(WGRAD_RTOL * float(r.abs().max()), 1e-30))
+                    print(f"K3 fused_semilinear_bwd {method} B={B} T={T} {grid}: max_abs_err "
+                          f"{max(float((o - r).abs().max()) for o, r in zip(outs, refs)):.3e}; "
+                          f"error / tolerance: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()),
+                          flush=True)
+                    check(max(v for k, v in worst.items() if k != "du elementwise as K2") <= 1.0,
+                          f"K3 disagrees with its plain version ({method}, B={B}, {grid}): {worst}")
 
-    # times at the serving shapes (first) and at B = 16,411, midpoint for K2
-    for label, M in (("serve", 5 * 100), ("big", 5 * big_b)):
-        args = k1_inputs(M, 1)
-        call = lambda: recurrence.affine_scan_tm(*args)  # noqa: E731
-        wrapper_ms = clock.ms(call, iters=50)
-        ms = wrapper_ms if rehearse else kernel_device_ms(call, "affine_scan_fwd_kernel")
-        plain_ms = clock.ms(lambda: recurrence.affine_scan_plain(*args), iters=5)
-        bms, by = k1_bound_ms(T - 1, M)
-        res["K1"][label] = dict(shape=f"T={T - 1} M={M}", ms=ms, wrapper_ms=wrapper_ms,
-                                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        print(f"time K1 T={T - 1} M={M}: kernel {ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
+    # times at the serving, training and large shapes; midpoint for K2 and K3
     S = 2
-    for label, B in (("serve", 100), ("big", big_b)):
-        args = k2_inputs(B, "uniform")
-        call = lambda: fused_step.fused_semilinear_fwd(*args, "midpoint")  # noqa: E731
-        with torch.inference_mode():
-            wrapper_ms = clock.ms(call, iters=20)
-            ms = wrapper_ms if rehearse else kernel_device_ms(call, "fused_semilinear_fwd_kernel")
-            plain_ms = clock.ms(lambda: fused_step.fused_semilinear_fwd_plain(*args, "midpoint"), iters=3, warmup=1)
-        bms, by = k2_bound_ms(B, T, S, H, D)
-        res["K2"][label] = dict(shape=f"midpoint B={B} T={T} H={H} D={D}", ms=ms, wrapper_ms=wrapper_ms,
-                                plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-        print(f"time K2 midpoint B={B} T={T}: kernel {ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
+    for label, M in (("serve", 5 * 100), ("train", 5 * TRAIN_B), ("big", 5 * big_b)):
+        A, B, x0, g = k1_inputs(M, 1)
+        res["K1"][label] = _time(clock, rehearse, "K1", lambda: recurrence.affine_scan_fwd(A, B, x0),
+                                 lambda: recurrence.affine_scan_plain(A, B, x0), k1_bound_ms(T - 1, M),
+                                 f"T={T - 1} M={M}")
+        if label == "serve":
+            continue
+        xs = recurrence.affine_scan_fwd(A, B, x0)
+        res["K1-bwd"][label] = _time(clock, rehearse, "K1-bwd", lambda: recurrence.affine_scan_bwd(A, xs, g),
+                                     lambda: recurrence.affine_scan_bwd_plain(A, xs, g),
+                                     k1_bwd_bound_ms(T - 1, M), f"T={T - 1} M={M}")
+    with torch.inference_mode():
+        for label, B in (("serve", 100), ("train", TRAIN_B), ("big", big_b)):
+            args = k2_inputs(B, "uniform")
+            res["K2"][label] = _time(clock, rehearse, "K2", lambda: fused_step.fused_semilinear_fwd(*args, "midpoint"),
+                                     lambda: fused_step.fused_semilinear_fwd_plain(*args, "midpoint"),
+                                     k2_bound_ms(B, T, S, H, D), f"midpoint B={B} T={T} H={H} D={D}")
+            if label == "serve":
+                continue
+            bargs = k3_inputs(args, "midpoint")
+            res["K3"][label] = _time(clock, rehearse, "K3", lambda: fused_step.fused_semilinear_bwd(*bargs, "midpoint"),
+                                     lambda: fused_step.fused_semilinear_bwd_plain(*bargs, "midpoint"),
+                                     k3_bound_ms(B, T, S, H, D), f"midpoint B={B} T={T} H={H} D={D}")
     return res
+
+
+def zero_counts():
+    for wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {key: wrapper.launches for key, wrapper in KERNELS.items()}
+
+
+# the kernels each ODE backend launches: its forward kernel when serving, and
+# its backward kernel too when training
+FORWARD = {"semilinear": ("K1",), "semilinear_pallas": ("K1",), "semilinear_fused": ("K2",), "semilinear_seq": ()}
+TRAINING = {"semilinear": ("K1", "K1-bwd"), "semilinear_fused": ("K2", "K3"), "semilinear_seq": ()}
+
+
+def counted(paths: dict, name: str, expected, rehearse: bool, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after, into ``paths[name]``: each kernel of ``expected`` must have
+    launched, and no other kernel (on the CPU none launches)."""
+    zero_counts()
+    out = fn()
+    paths[name] = counts = read_counts()
+    print(f"launches {name}: {counts}", flush=True)
+    for key, n in counts.items():
+        want = key in expected and not rehearse
+        check(n > 0 if want else n == 0,
+              f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
+    return out
 
 
 def _config(data_dir: str, backend: str, model: str = "Mechanistic"):
@@ -266,13 +462,14 @@ def _config(data_dir: str, backend: str, model: str = "Mechanistic"):
     return cfg
 
 
-def phase_main_path(device, workdir: str, rehearse: bool):
-    """Serve requests through serve.main; returns the launch counts."""
+def phase_serving(device, workdir: str, rehearse: bool, paths: dict):
+    """Serve requests through serve.main, counting launches per backend
+    into ``paths``."""
     data_dir = os.path.join(workdir, "cvs")
     data_size = 40 if rehearse else 1000
     t0 = time.perf_counter()
     make_dataset(data_dir, data_size=data_size, device=device)
-    print(f"== main path: CVS data_size={data_size} generated on {device} in "
+    print(f"== serving path: CVS data_size={data_size} generated on {device} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     n_test = data_size - int(round(data_size * 0.9))
     spec = cvs_spec(_config(data_dir, "semilinear"))
@@ -287,11 +484,9 @@ def phase_main_path(device, workdir: str, rehearse: bool):
         "prior+classify": ["--checkpoint", ckpts[0], "--prior", "--classify"],
         "ensemble-mean": ["--checkpoint", *ckpts, "--classify"],
     }
-    backends = ("semilinear", "semilinear_pallas", "semilinear_fused", "semilinear_seq")
-    recurrence.affine_scan_tm.launches = 0
-    fused_step.fused_semilinear_fwd.launches = 0
     outs = {}
-    for backend in backends:
+
+    def serve_all(backend):
         for name, argv in requests.items():
             if backend == "semilinear_pallas" and name != "posterior":
                 continue
@@ -300,16 +495,17 @@ def phase_main_path(device, workdir: str, rehearse: bool):
                 ["--dataset", "cvs", *argv, "--device", str(device), "--output", out_path],
                 config=_config(data_dir, backend),
             )
+
+    for backend, expected in FORWARD.items():
+        counted(paths, f"serve {backend}", expected, rehearse, lambda: serve_all(backend))
     gauss_cfg = _config(data_dir, "semilinear", "MechanisticGauss")
     gauss_ckpt = os.path.join(workdir, "gauss.npz")
     checkpoint.save(gauss_ckpt, params_to_jax(init_params(cvs_spec(gauss_cfg), 2, device=device)))
-    gauss = serve.main(
+    gauss = counted(paths, "serve semilinear Gauss", FORWARD["semilinear"], rehearse, lambda: serve.main(
         ["--dataset", "cvs", "--checkpoint", gauss_ckpt, "--device", str(device),
          "--output", os.path.join(workdir, "gauss-posterior.npz")],
         config=gauss_cfg,
-    )
-    launches = {"K1": recurrence.affine_scan_tm.launches, "K2": fused_step.fused_semilinear_fwd.launches}
-    print(f"main path launches: K1 {launches['K1']}, K2 {launches['K2']}", flush=True)
+    ))
 
     for out in list(outs.values()) + [gauss]:
         check(out["mu_50"].shape == (n_test, 3, 86), f"mu_50 shape {out['mu_50'].shape}")
@@ -329,10 +525,7 @@ def phase_main_path(device, workdir: str, rehearse: bool):
                   f"{backend} {name} {k} disagrees with semilinear_seq: {diff} (max |ref| {scale})")
             worst = max(worst, diff)
         print(f"{backend:18s} {name:15s} max |diff| vs semilinear_seq {worst:.3e}", flush=True)
-    if not rehearse:
-        check(launches["K1"] > 0, "K1 was not launched on the main path")
-        check(launches["K2"] > 0, "K2 was not launched on the main path")
-    return launches, ckpts, data_dir
+    return ckpts, data_dir
 
 
 def phase_request_times(device, clock: Clock, ckpts, data_dir: str, rehearse: bool, smi: str):
@@ -361,6 +554,111 @@ def phase_request_times(device, clock: Clock, ckpts, data_dir: str, rehearse: bo
             print(f"request {backend:16s} B={B:6d}: {ms:.3f} ms ({smi})", flush=True)
 
 
+# the JAX package's artifact contract at CVS (test split of 100): file, shape
+ARTIFACTS = {
+    "observations.npy": (3, 86), "times.npy": None, "iext.npy": (), "rtpr.npy": (),
+    **{f"{k}_{tag}.npy": (3, 86) for k in ("mu_50", "mu_75", "mu_25") for tag in ("post", "prior")},
+    **{f"solution_xt_{tag}.npy": (86, 5) for tag in ("post", "prior")},
+    **{f"z_{tag}.npy": (15,) for tag in ("post", "prior")},
+}
+
+
+def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
+    """training_cvs.main at full width per backend, plus one Gauss run,
+    counting launches per run into ``paths``."""
+    n_test = (40 if rehearse else 1000) - int(round((40 if rehearse else 1000) * 0.9))
+    runs = [(b, "Mechanistic") for b in TRAINING] + [("semilinear", "MechanisticGauss")]
+    results = {}
+    for backend, model in runs:
+        root = os.path.join(workdir, f"train-{backend}-{model}")
+        t0 = time.perf_counter()
+        name = f"train {backend}" + (" Gauss" if model == "MechanisticGauss" else "")
+        results[backend, model] = counted(paths, name, TRAINING[backend], rehearse, lambda: training_cvs.main([
+            "--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
+            "--data-path", data_dir, "--results-root", root, "--device", str(device),
+        ]))
+        print(f"== trained {model} on {backend}: 2 epochs in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    for (backend, model), out in results.items():
+        rd = out["out_dir"]
+        with open(os.path.join(rd, "model.log")) as f:
+            losses = [float(line.split("loss=")[1].split()[0]) for line in f if "loss=" in line]
+        check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"{backend} {model} losses {losses}")
+        check(all(math.isfinite(v) for v in out["test_post"].elbo + out["test_prior"].elbo),
+              f"{backend} {model}: non-finite test ELBO")
+        for name, shape in ARTIFACTS.items():
+            arr = np.load(os.path.join(rd, name))
+            want = (86,) if shape is None else (n_test,) + shape
+            check(arr.shape == want and np.isfinite(arr).all(), f"{backend} {model} {name}: {arr.shape} != {want}")
+        print(f"{backend:18s} {model:17s} epoch losses {losses}, test ELBO post {out['test_post'].elbo}, "
+              f"artifacts ok", flush=True)
+
+    # the trained checkpoint, served by the port
+    rd = results["semilinear", "Mechanistic"]["out_dir"]
+    served = serve.main(
+        ["--dataset", "cvs", "--checkpoint", os.path.join(rd, "best_model.npz"), "--device", str(device),
+         "--output", os.path.join(workdir, "trained-posterior.npz")],
+        config=_config(data_dir, "semilinear"),
+    )
+    check(served["mu_50"].shape == (n_test, 3, 86) and np.isfinite(served["mu_50"]).all(), "trained model serve")
+
+
+def _first_step(spec, params, batch, ts):
+    """The first dual step's main loss and gradients at ``params``, then the
+    aux loss and gradients after the main update (svi.make_dual_step's
+    order), at fixed seeds."""
+    cfg = load_cvs_config()
+    optim = svi.make_dual_optimizer(spec, params, cfg.learning_rate)
+    main_loss, aux_loss = svi.make_losses(spec, ts)
+    loss_m, _, g_m = svi.value_and_grad(main_loss, params, 7, batch)
+    params2, _ = optim.update_main(g_m, optim.init(params), params)
+    loss_a, _, g_a = svi.value_and_grad(aux_loss, params2, 8, batch)
+    return [loss_m, loss_a], tree_leaves(g_m) + tree_leaves(g_a)
+
+
+def phase_train_checks(device, clock: Clock, data_dir: str, rehearse: bool, smi: str, paths: dict):
+    """First-step agreement across the backends (launches counted per
+    backend into ``paths``), then one dual step timed."""
+    cfg = _config(data_dir, "semilinear")
+    splits, _ = training_cvs.build_splits(cfg, device=device)
+    batches = device_batch(stacked_minibatches(splits["train"], TRAIN_B, shuffle=False), device)
+    batch = {k: v[0] for k, v in batches.items()}
+    ts = torch.arange(86.0, device=device)
+    params = init_params(cvs_spec(cfg), 0, device=device)
+    first = {b: counted(paths, f"first step {b}", TRAINING[b], rehearse,
+                        lambda: _first_step(cvs_spec(_config(data_dir, b)), params, batch, ts))
+             for b in TRAINING}
+    losses_ref, grads_ref = first["semilinear_seq"]
+    scale = max(max(float(g.abs().max()) for g in grads_ref), 1.0)
+    for backend in ("semilinear", "semilinear_fused"):
+        losses, grads = first[backend]
+        loss_ratio = max(float((l - r).abs()) / (ATOL + RTOL * float(r.abs())) for l, r in zip(losses, losses_ref))
+        grad_err = max(float((g - r).abs().max()) for g, r in zip(grads, grads_ref)) / scale
+        leaf_err = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1.0) for g, r in zip(grads, grads_ref))
+        print(f"first dual step {backend} vs semilinear_seq: losses {[float(l) for l in losses]} "
+              f"(error / tolerance {loss_ratio:.3f}); gradients max|diff| / max(max|g_seq|, 1) "
+              f"{grad_err:.3e} (tol {STEP_GRAD_TOL:g}; worst leaf by its own scale {leaf_err:.3e})", flush=True)
+        check(loss_ratio <= 1.0, f"first-step losses of {backend} disagree with semilinear_seq")
+        check(grad_err < STEP_GRAD_TOL, f"first-step gradients of {backend} disagree with semilinear_seq")
+
+    step_ms = {}
+    for backend in TRAINING:
+        spec = cvs_spec(_config(data_dir, backend))
+        init_state, train_step, _ = svi.make_train_step(spec, ts, cfg.learning_rate, params)
+        state = init_state(params, 0)
+        for _ in range(2):  # warm-up
+            state, _m = train_step(state, batch)
+        clock.sync()
+        n = 2 if rehearse else 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _m = train_step(state, batch)
+        clock.sync()
+        step_ms[backend] = (time.perf_counter() - t0) * 1e3 / n
+        print(f"dual step {backend:16s} B={TRAIN_B}: {step_ms[backend]:.3f} ms ({smi})", flush=True)
+    return step_ms
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--rehearse", action="store_true", help="CPU dry run with the plain versions")
@@ -379,25 +677,37 @@ def main(argv=None):
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
+    paths = {}  # path name -> launch counts of that path's run
     try:
-        launches, ckpts, data_dir = phase_main_path(device, workdir, args.rehearse)
+        ckpts, data_dir = phase_serving(device, workdir, args.rehearse, paths)
         phase_request_times(device, clock, ckpts, data_dir, args.rehearse, smi)
+        phase_training(device, workdir, data_dir, args.rehearse, paths)
+        phase_train_checks(device, clock, data_dir, args.rehearse, smi, paths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    # times at the training shapes (B = 128, the training path); the
+    # serving and large shapes beside them. "launches" is the count of the
+    # kernel's main path, the full-width training run on its backend; every
+    # path's count stands beside it.
     kernels = []
-    for key, name, source, replaces, atol, rtol in (
-        ("K1", "affine_scan_fwd", K1_SOURCE, K1_REPLACES, K1_TOL, 0.0),
-        ("K2", "fused_semilinear_fwd", K2_SOURCE, K2_REPLACES, ATOL, RTOL),
+    for key, name, source, replaces, main_path in (
+        ("K1", "affine_scan_fwd", K1_SOURCE, K1_REPLACES, "train semilinear"),
+        ("K1-bwd", "affine_scan_bwd", K1_SOURCE, K1_BWD_REPLACES, "train semilinear"),
+        ("K2", "fused_semilinear_fwd", K2_SOURCE, K2_REPLACES, "train semilinear_fused"),
+        ("K3", "fused_semilinear_bwd", K3_SOURCE, K3_REPLACES, "train semilinear_fused"),
     ):
-        serve_t = res[key]["serve"]
+        t = res[key]["train"]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[key], "max_abs_err": res[key]["err"], "atol": atol, "rtol": rtol,
-            "ms": serve_t["ms"], "wrapper_ms": serve_t["wrapper_ms"], "plain_ms": serve_t["plain_ms"],
-            "bound_ms": serve_t["bound_ms"],
-            "bound_by": serve_t["bound_by"], "library_ms": None, "shape": serve_t["shape"],
-            "big": res[key]["big"],
+            "launches": paths[main_path][key], "main_path": main_path,
+            "launches_by_path": {path: counts[key] for path, counts in paths.items()},
+            "max_abs_err": res[key]["err"],
+            "tolerance": {out: {"rule": rule, "worst_error_over_tolerance": res[key]["worst"][out]}
+                          for out, rule in TOLERANCE_RULES[key].items()},
+            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+            **{label: res[key][label] for label in ("serve", "big") if label in res[key]},
         })
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     if args.rehearse:

@@ -10,7 +10,7 @@ torch.profiler trace of REPEATS requests after warm-up. Per request it
 reports the wall time (host clock, ending in a synchronize), the device busy
 time (the sum of the device operations on the one stream), the device idle
 share, the number of device operations, the kernels that take the most
-device time, and the device time of the port's own kernels (K1, K2). Needs
+device time, and the device time of the port's own kernels (K1 to K3). Needs
 a CUDA card; imports nothing of JAX.
 """
 
@@ -41,7 +41,8 @@ from structured_latent_odes_tpu_torch.training_cvs import build_splits  # noqa: 
 
 REPEATS = 5
 BACKENDS = ("semilinear", "semilinear_fused", "semilinear_seq")
-PORT_KERNELS = ("affine_scan_fwd_kernel", "fused_semilinear_fwd_kernel")
+PORT_KERNELS = ("affine_scan_fwd_kernel", "affine_scan_bwd_kernel",
+                "fused_semilinear_fwd_kernel", "fused_semilinear_bwd_kernel")
 
 
 def profile_request(request, repeats: int):

@@ -9,7 +9,8 @@ The port imports neither ``jax`` nor any module of the JAX package: what it
 needs of the latter's numpy-only code (configs, tableaus, transforms, loader
 helpers) it keeps as its own copy.
 
-Slice status: the CVS serving path (``serve.py``) end to end, with the two
-forward kernels of the ODE solve (``ops/recurrence.py``, ``ops/fused_step.py``).
-Training and the backward kernels are the next slice (see ROADMAP.md).
+Status: CVS serving (``serve.py``) and CVS training (``training_cvs.py``)
+end to end, with the four kernels of the ODE solve, forward and backward
+(``ops/recurrence.py``, ``ops/fused_step.py``). What is left is listed in
+ROADMAP.md.
 """

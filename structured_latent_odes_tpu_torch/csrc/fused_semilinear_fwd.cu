@@ -10,17 +10,16 @@
 // x = 1 (B = run(0), A = run(1) - B), and x_{t+1} = A * x_t + B.
 //
 // Replaces the Pallas TPU kernel structured_latent_odes_tpu/ops/fused_step.py
-// ::_fwd_kernel, launched by _fwd_call (forward only: _bwd_kernel is the
-// training slice's work).
+// ::_fwd_kernel, launched by _fwd_call. Its backward is K3
+// (fused_semilinear_bwd.cu).
 //
 // Design: one trajectory per thread. The thread keeps its row of u (H floats)
 // and its state (D floats) in registers for the whole solve; the head weights
 // and biases (H + 2DH + 2D floats) and the stage-time and step tables live in
 // shared memory, read by every thread of the block at the same address (a
 // broadcast). The stages are unrolled at compile time from the tableau: one
-// template instance per method. H and D are compile-time constants
-// (-DSLODE_H, -DSLODE_D) so the per-thread arrays stay in registers;
-// ops/_build.py compiles one library per (H, D).
+// template instance per method. The widths, tableaus and the stage code are in
+// fused_semilinear.cuh, shared with K3.
 //
 // Output layout: time-major (T, D, B). Thread b writes element b of each
 // (t, d) row, so a warp's stores are 32 neighbouring floats and coalesce; the
@@ -37,114 +36,13 @@
 
 #include <cuda_runtime.h>
 
-#ifndef SLODE_H
-#error "compile with -DSLODE_H=<hidden width> -DSLODE_D=<state width>"
-#endif
+#include "fused_semilinear.cuh"
 
 namespace {
 
-constexpr int H = SLODE_H;
-constexpr int D = SLODE_D;
-constexpr int kParams = H + 2 * D * H + 2 * D;  // w_t, W_a, b_a, W_d, b_d
+using namespace slode;
+
 constexpr int kThreads = 128;
-constexpr int kDefaultSmem = 48 * 1024;
-
-// The order of the methods is the wrapper's METHODS tuple.
-enum Method { kEuler = 0, kMidpoint = 1, kHeun = 2, kRk4 = 3 };
-
-// Butcher tableaus (structured_latent_odes_tpu_torch/ode/tableaus.py). Stage
-// times are not needed here: they come precomputed in the sts table.
-template <int M> struct Tableau;
-template <> struct Tableau<kEuler> {
-  static constexpr int S = 1;
-  __host__ __device__ static constexpr float a(int, int) { return 0.f; }
-  __host__ __device__ static constexpr float b(int) { return 1.f; }
-};
-template <> struct Tableau<kMidpoint> {
-  static constexpr int S = 2;
-  __host__ __device__ static constexpr float a(int i, int j) {
-    return (i == 1 && j == 0) ? 0.5f : 0.f;
-  }
-  __host__ __device__ static constexpr float b(int i) { return i == 1 ? 1.f : 0.f; }
-};
-template <> struct Tableau<kHeun> {
-  static constexpr int S = 2;
-  __host__ __device__ static constexpr float a(int i, int j) {
-    return (i == 1 && j == 0) ? 1.f : 0.f;
-  }
-  __host__ __device__ static constexpr float b(int) { return 0.5f; }
-};
-template <> struct Tableau<kRk4> {
-  static constexpr int S = 4;
-  __host__ __device__ static constexpr float a(int i, int j) {
-    return j == i - 1 ? (i == 3 ? 1.f : 0.5f) : 0.f;
-  }
-  __host__ __device__ static constexpr float b(int i) {
-    return (i == 0 || i == 3) ? static_cast<float>(1.0 / 6.0)
-                              : static_cast<float>(1.0 / 3.0);
-  }
-};
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// One dynamics-net stage at time tau for this thread's trajectory.
-__device__ __forceinline__ void stage(const float (&u)[H], float tau,
-                                      const float* __restrict__ w,
-                                      float (&a)[D], float (&d)[D]) {
-  const float* wt = w;
-  const float* wa = wt + H;
-  const float* ba = wa + D * H;
-  const float* wd = ba + D;
-  const float* bd = wd + D * H;
-  // Compiler barriers: read the weights from shared memory afresh, one head
-  // row at a time. Without them nvcc hoists the loads of all 285 weights out
-  // of the loops into registers and spills at every method (euler: 255
-  // registers, 256 bytes of spill stores; with them 83 and none, -Xptxas -v
-  // for sm_90a). Midpoint, heun and rk4 still reach 255 registers with 48 to
-  // 360 bytes of spill stores: nvcc interleaves their independent stages.
-  asm volatile("" ::: "memory");
-  float h[H];
-#pragma unroll
-  for (int j = 0; j < H; ++j) h[j] = fmaxf(u[j] + tau * wt[j], 0.f);
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    asm volatile("" ::: "memory");
-    float sa = 0.f;
-    float sd = 0.f;
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      sa = fmaf(wa[i * H + j], h[j], sa);
-      sd = fmaf(wd[i * H + j], h[j], sd);
-    }
-    a[i] = sigmoid(sa + ba[i]);
-    d[i] = sigmoid(sd + bd[i]);
-  }
-}
-
-// The RK update of state element i started from the constant x0c, with the
-// stage rates k_s = a_s - d_s * y_s (ode/semilinear.py::rk_affine_coeffs).
-template <int M>
-__device__ __forceinline__ float rk_run(float x0c, float hstep, int i,
-                                        const float (&a)[Tableau<M>::S][D],
-                                        const float (&d)[Tableau<M>::S][D]) {
-  using Tab = Tableau<M>;
-  float k[Tab::S];
-#pragma unroll
-  for (int s = 0; s < Tab::S; ++s) {
-    float y = x0c;
-#pragma unroll
-    for (int j = 0; j < s; ++j) {
-      if (Tab::a(s, j) != 0.f) y = y + (hstep * Tab::a(s, j)) * k[j];
-    }
-    k[s] = a[s][i] - d[s][i] * y;
-  }
-  float out = x0c;
-#pragma unroll
-  for (int s = 0; s < Tab::S; ++s) {
-    if (Tab::b(s) != 0.f) out = out + (hstep * Tab::b(s)) * k[s];
-  }
-  return out;
-}
 
 template <int M>
 __global__ void __launch_bounds__(kThreads)
@@ -185,8 +83,9 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
     float* row = out + static_cast<size_t>(t + 1) * D * Bs + b;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      const float Bc = rk_run<M>(0.f, hstep, i, a, d);
-      const float Ac = rk_run<M>(1.f, hstep, i, a, d) - Bc;
+      float ys[S];  // unused here: the forward needs only the run's result
+      const float Bc = rk_run<M>(0.f, hstep, i, a, d, ys);
+      const float Ac = rk_run<M>(1.f, hstep, i, a, d, ys) - Bc;
       x[i] = Ac * x[i] + Bc;
       row[i * Bs] = x[i];
     }

@@ -1,7 +1,7 @@
 """Dataset configuration factories: ``load_cvs_config`` copied from the JAX
 package's ``data/configs.py`` with the same keys and defaults.
 
-Only CVS is ported in this slice; proc and challenge wait for ROADMAP A13 and
+Only CVS is ported so far; proc and challenge wait for ROADMAP A13 and
 A12.
 """
 

@@ -1,7 +1,10 @@
 from structured_latent_odes_tpu_torch.models.slode import (
     classifier,
+    elbo_aux,
+    elbo_main,
     encode,
     init_params,
+    param_masks,
     prior_params,
     recon,
     sample_prior_z,
@@ -15,8 +18,11 @@ __all__ = [
     "ModelSpec",
     "classifier",
     "cvs_spec",
+    "elbo_aux",
+    "elbo_main",
     "encode",
     "init_params",
+    "param_masks",
     "prior_params",
     "recon",
     "sample_prior_z",

@@ -1,6 +1,6 @@
-"""The structured latent-ODE VAE (the JAX package's ``models/slode.py``),
-serving half: parameters, the encoder, the conditional priors, ``classifier``
-and ``recon``. The ELBOs and ``param_masks`` belong to the training slice.
+"""The structured latent-ODE VAE (the JAX package's ``models/slode.py``):
+parameters and ``param_masks``, the encoder, the conditional priors, the two
+losses ``elbo_main`` and ``elbo_aux``, ``classifier`` and ``recon``.
 
 Randomness: each function takes an integer ``seed``; every sampling site
 draws with :func:`~structured_latent_odes_tpu_torch.prob.sample_normal_ps`,
@@ -12,6 +12,9 @@ site name:
 - ``recon`` prior / ``sample_prior_z``: one entry per latent block name
   (for CVS ``iext``, ``rtpr``, ``epsilon``)
 - ``classifier``: one entry per label name
+- ``elbo_main``: one entry per labeled block name (``z_u`` for the joint
+  prior) and one for the epsilon block
+- ``elbo_aux``: one entry per labeled block name
 """
 
 from __future__ import annotations
@@ -29,7 +32,17 @@ from structured_latent_odes_tpu_torch.nn.layers import (
     mlp_apply,
     mlp_init,
 )
-from structured_latent_odes_tpu_torch.prob import sample_normal_ps
+from structured_latent_odes_tpu_torch.prob import (
+    Trace,
+    bernoulli_logpmf,
+    laplace_logpdf,
+    masked_l1_per_channel,
+    normal_logpdf,
+    onehot_categorical_logpmf,
+    quantile_laplace_logprob,
+    sample_normal_ps,
+)
+from structured_latent_odes_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
 Batch = Dict[str, Tensor]
@@ -55,15 +68,32 @@ def init_params(spec: ModelSpec, seed: int, device="cuda"):
         params["aux"][label.name] = mlp_init(gen, spec.aux_head_spec(label))
         if label.kind == "continuous":
             params["aux_std"][label.name] = torch.full((label.dim,), 1e-2)
-    return _to_device(params, device)
+    return tree_map(lambda p: p.to(device), params)
 
 
-def _to_device(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+def param_masks(spec: ModelSpec, params) -> Tuple[Dict, Dict]:
+    """Bool trees of which parameter groups each loss updates: the main loss
+    touches encoder, decoder and priors (and the aux heads when
+    ``spec.aux_in_model``), the aux loss the encoder and the aux heads. The
+    shared Adam steps only those, as Pyro's per-parameter Adam does."""
+    def fill(group, value: bool):
+        return tree_map(lambda _: value, params[group])
+
+    main = {
+        "encoder": fill("encoder", True),
+        "decoder": fill("decoder", True),
+        "priors": fill("priors", True),
+        "aux": fill("aux", spec.aux_in_model),
+        "aux_std": fill("aux_std", spec.aux_in_model),
+    }
+    aux = {
+        "encoder": fill("encoder", True),
+        "decoder": fill("decoder", False),
+        "priors": fill("priors", False),
+        "aux": fill("aux", True),
+        "aux_std": fill("aux_std", True),
+    }
+    return main, aux
 
 
 def encode(spec: ModelSpec, params, obs: Tensor) -> Tuple[Tensor, Tensor]:
@@ -121,6 +151,47 @@ def _aux_head(spec: ModelSpec, params, label: LabelSpec, z_block: Tensor):
     return mlp_apply(spec.aux_head_spec(label), params["aux"][label.name], z_block)
 
 
+def _aux_mult(spec: ModelSpec, batch: Batch):
+    """Aux site scale: the spec constant, overridable per batch with an
+    ``aux_mult`` scalar (annealing schedules)."""
+    return batch.get("aux_mult", spec.aux_loss_multiplier)
+
+
+def _aux_site(spec: ModelSpec, params, tr: Trace, label: LabelSpec, z_block: Tensor,
+              target: Tensor, mult) -> None:
+    """Score one q(u|z) head as a scaled observed site."""
+    if label.kind == "bernoulli":
+        tr.obs(bernoulli_logpmf(target, _aux_head(spec, params, label, z_block)), scale=mult)
+    elif label.kind == "onehot":
+        tr.obs(onehot_categorical_logpmf(target, _aux_head(spec, params, label, z_block)), scale=mult)
+    else:  # continuous
+        loc, _ = _aux_head(spec, params, label, z_block)
+        std = F.softplus(params["aux_std"][label.name]) + 1e-6
+        tr.obs(laplace_logpdf(target, loc, std), scale=mult)
+
+
+def _aux_obs_terms(spec: ModelSpec, params, tr: Trace, z: Tensor, batch: Batch) -> None:
+    """The aux heads scored in the main loss (``spec.aux_in_model``); z is
+    the full latent, split per block."""
+    mult = _aux_mult(spec, batch)
+    for label in spec.labels:
+        _aux_site(spec, params, tr, label, z[:, spec.block_slice(label.block)], batch[label.name], mult)
+
+
+def _observation_terms(spec: ModelSpec, tr: Trace, obs: Tensor, decoded,
+                       sample_mask: Optional[Tensor]) -> Tensor:
+    """Likelihood sites, and the reference's side-channel L1 metric."""
+    if spec.likelihood == "quantile":
+        _, mu_75, mu_50, mu_25, std = decoded
+        taus = (0.5, 0.5 + spec.quantile_diff, 0.5 - spec.quantile_diff)
+        for mu, tau in ((mu_50, taus[0]), (mu_75, taus[1]), (mu_25, taus[2])):
+            tr.obs(quantile_laplace_logprob(obs, mu, std, tau), event_dims=2)
+        return masked_l1_per_channel(obs, mu_50, sample_mask)
+    _, mean, std = decoded
+    tr.obs(normal_logpdf(obs, mean, std), event_dims=2)
+    return _masked_mean_abs(obs - mean, sample_mask)
+
+
 def _masked_mean_abs(err: Tensor, sample_mask: Optional[Tensor]) -> Tensor:
     if sample_mask is None:
         return torch.mean(torch.abs(err))
@@ -128,6 +199,71 @@ def _masked_mean_abs(err: Tensor, sample_mask: Optional[Tensor]) -> Tensor:
     return torch.sum(torch.abs(err) * w) / torch.clamp(
         torch.sum(w) * err.shape[1] * err.shape[2], min=1.0
     )
+
+
+def elbo_main(spec: ModelSpec, params, seed: int, batch: Batch, ts,
+              noise: Noise = None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """-ELBO of the generative model/guide pair (one Trace_ELBO particle),
+    summed over the unmasked samples, and the in-model L1 metric.
+
+    Guide: q(z|x) from the conv encoder, drawn per labeled block; model: the
+    conditional priors p(z_u|u), N(0, I) epsilon and the ODE-decoded
+    likelihood (plus the aux sites when ``spec.aux_in_model``).
+    """
+    obs = batch["observations"]
+    mask = batch.get("mask")
+    sids = _sample_ids(batch)
+    loc, scale = encode(spec, params, obs)
+    tr = Trace()
+    pp = prior_params(spec, params, batch)
+
+    if spec.prior == "separate":
+        parts = []
+        for block in spec.labeled_blocks:
+            s = spec.block_slice(block.name)
+            z_b = _draw(seed, f"main/{block.name}", sids, loc[:, s], scale[:, s], noise, block.name)
+            p_loc, p_scale = pp[block.name]
+            tr.latent_normal(z_b, loc[:, s], scale[:, s], p_loc, p_scale)
+            parts.append(z_b)
+        z_u = torch.cat(parts, dim=-1) if parts else obs.new_zeros((obs.shape[0], 0))
+    else:
+        n = spec.z_u_dim
+        z_u = _draw(seed, "main/z_u", sids, loc[:, :n], scale[:, :n], noise, "z_u")
+        p_loc, p_scale = pp["z_u"]
+        tr.latent_normal(z_u, loc[:, :n], scale[:, :n], p_loc, p_scale)
+
+    eps_name, eps_dim = spec.epsilon_block.name, spec.epsilon_block.dim
+    q_loc_e, q_scale_e = loc[:, -eps_dim:], scale[:, -eps_dim:]
+    z_eps = _draw(seed, f"main/{eps_name}", sids, q_loc_e, q_scale_e, noise, eps_name)
+    tr.latent_normal(z_eps, q_loc_e, q_scale_e, torch.zeros_like(q_loc_e), torch.ones_like(q_scale_e))
+    z = torch.cat([z_u, z_eps], dim=-1)
+
+    if spec.aux_in_model:
+        _aux_obs_terms(spec, params, tr, z, batch)
+    decoded = decoder_apply(spec.decoder, params["decoder"], z, ts)
+    l1 = _observation_terms(spec, tr, obs, decoded, mask)
+    return tr.loss(mask), {"l1": l1}
+
+
+def elbo_aux(spec: ModelSpec, params, seed: int, batch: Batch, noise: Noise = None) -> Tensor:
+    """-ELBO of the auxiliary loss (the reference's ``model_meta`` with its
+    no-op guide): per labeled block, z_b drawn from the encoder posterior in
+    the model trace (so its log-prob counts), then the scaled classifier or
+    regressor sites."""
+    obs = batch["observations"]
+    sids = _sample_ids(batch)
+    loc, scale = encode(spec, params, obs)
+    tr = Trace()
+    z_parts = {}
+    for block in spec.labeled_blocks:
+        s = spec.block_slice(block.name)
+        z_b = _draw(seed, f"aux/{block.name}", sids, loc[:, s], scale[:, s], noise, block.name)
+        tr.model_sampled_normal(z_b, loc[:, s], scale[:, s])
+        z_parts[block.name] = z_b
+    mult = _aux_mult(spec, batch)
+    for label in spec.labels:
+        _aux_site(spec, params, tr, label, z_parts[label.block], batch[label.name], mult)
+    return tr.loss(batch.get("mask"))
 
 
 def classifier(spec: ModelSpec, params, seed: int, obs: Tensor,

@@ -9,10 +9,14 @@
 Port layout: ``dyn_hidden.W`` is ``(H, L+1)`` and its column 0 is the time
 weight (row 0 of the JAX package's ``(L+1, H)`` kernel).
 
-``solve_ode`` serves the four semilinear backends of this slice:
-'semilinear' and 'semilinear_pallas' run kernel K1 (PyTorch has no
-associative scan, and both compute the same recurrence), 'semilinear_seq'
-the plain loop, 'semilinear_fused' kernel K2. The other backends raise.
+``solve_ode`` runs the four semilinear backends, forward and backward:
+'semilinear' and 'semilinear_pallas' run kernels K1 and K1-bwd (PyTorch has
+no associative scan, and both compute the same recurrence),
+'semilinear_seq' the plain loop under autograd, 'semilinear_fused' kernels
+K2 and K3. Outside the kernels (the latent projection, ``initialize_state``,
+the stage heads of the scan backends, the RK coefficients) gradients come
+from torch autograd, as the JAX package leaves them to XLA. The other
+backends raise.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ evaluated at all RK stage times at once, every explicit RK step is extracted
 exactly as an elementwise affine map ``x_{n+1} = A_n x_n + B_n`` by running the
 RK recurrence at ``x = 0`` and ``x = 1``, and the recurrence is solved by a
 scan. PyTorch has no associative scan, so the scan is either the plain loop
-(``backend='seq'``) or kernel K1 (``backend='kernel'``, ops/recurrence.py),
-which on the CPU is K1's plain version.
+under autograd (``backend='seq'``) or kernels K1 and K1-bwd
+(``backend='kernel'``, ops/recurrence.py), which on the CPU are their plain
+versions. Everything here is differentiable.
 """
 
 from __future__ import annotations

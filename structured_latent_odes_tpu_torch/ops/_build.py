@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from typing import Dict, Iterable, List, Sequence, Tuple
 
+import torch
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cuda")
@@ -55,8 +57,13 @@ def _plan(target: Target) -> Tuple[str, List[str], str]:
     name, defines = target
     src = os.path.join(CSRC_DIR, name + ".cu")
     flags = list(_FLAGS) + [f"-D{k}={int(v)}" for k, v in defines]
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    # the source and every shared header (a header change rebuilds its users)
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     return src, flags, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
@@ -110,3 +117,23 @@ def function(name: str, symbol: str, argtypes: Sequence, defines: Defines = ()):
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """A kernel takes float32 tensors on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {dev}")
+    if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{name} takes float32 tensors on one device")
+
+
+def launch(name: str, fn, *args) -> None:
+    """Call the C entry point ``fn`` with each tensor as its data pointer and
+    the current stream of the tensors' device last; raise on a CUDA error."""
+    device = next(a.device for a in args if isinstance(a, torch.Tensor))
+    with torch.cuda.device(device):
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
+                 torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {err}")

@@ -1,6 +1,8 @@
-"""Per-sample reparameterized normal draws for serving (the sampling half of
-the JAX package's ``prob/distributions.py``; the log-probs and the ``Trace``
-belong to the training slice).
+"""Distribution log-probabilities and per-sample reparameterized normal draws
+(the JAX package's ``prob/distributions.py``).
+
+The log-probs are elementwise, broadcast like torch, and keep the JAX
+package's 1e-7 clips; ``sum_event`` applies Pyro's ``to_event`` reduction.
 
 The JAX package folds each sample's identity into the site key
 (``per_sample_keys``), so a draw depends only on (key, site, sample_id) and
@@ -9,6 +11,12 @@ property with a counter-based generator: a 32-bit integer hash of
 (seed, site, sample_id, element) feeds Box-Muller, computed elementwise on
 integer tensors on the caller's device. It does not reproduce JAX's threefry
 bits; tests feed both packages the same draws instead.
+
+JAX threads keys by splitting them; here a seed for each (step, loss) or
+(epoch, split) comes from :func:`fold_seed`, through the same hash, so a
+training draw depends only on (seed, step, site, sample_id). The JAX key-based
+samplers ``sample_laplace``, ``sample_bernoulli`` and
+``sample_onehot_categorical`` are on no path of the port yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -22,6 +30,42 @@ import torch
 Tensor = torch.Tensor
 
 _MASK32 = 0xFFFFFFFF
+_LOG_2PI = math.log(2.0 * math.pi)
+_EPS = 1e-7
+
+
+def normal_logpdf(x: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
+    z = (x - loc) / scale
+    return -0.5 * (z * z) - torch.log(scale) - 0.5 * _LOG_2PI
+
+
+def laplace_logpdf(x: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
+    return -torch.abs(x - loc) / scale - torch.log(2.0 * scale)
+
+
+def bernoulli_logpmf(x: Tensor, probs: Tensor) -> Tensor:
+    p = torch.clamp(probs, _EPS, 1.0 - _EPS)
+    return x * torch.log(p) + (1.0 - x) * torch.log1p(-p)
+
+
+def onehot_categorical_logpmf(x: Tensor, probs: Tensor) -> Tensor:
+    """Elementwise ``x * log p`` of a one-hot ``x`` under normalized class
+    ``probs``; summing the trailing dim gives the categorical log-pmf."""
+    return x * torch.log(torch.clamp(probs, _EPS, 1.0))
+
+
+def kl_normal_normal(loc_q: Tensor, scale_q: Tensor, loc_p: Tensor, scale_p: Tensor) -> Tensor:
+    """Analytic KL(q || p) between diagonal normals (elementwise)."""
+    var_ratio = (scale_q / scale_p) ** 2
+    t1 = ((loc_q - loc_p) / scale_p) ** 2
+    return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
+
+def sum_event(logp: Tensor, event_dims: int = 1) -> Tensor:
+    """Sum the trailing ``event_dims`` axes (Pyro's ``.to_event``)."""
+    if event_dims == 0:
+        return logp
+    return torch.sum(logp, dim=tuple(range(-event_dims, 0)))
 
 
 def _mul32(x: Tensor, c: int) -> Tensor:
@@ -41,11 +85,20 @@ def _mix32(x: Tensor) -> Tensor:
 
 
 def _site_word(seed: int, site: str) -> int:
+    """32-bit hash of (seed, site); _mix32 on Python ints, host-side."""
     words = (seed & _MASK32, (seed >> 32) & _MASK32, zlib.crc32(site.encode()))
-    h = torch.tensor(0x9E3779B9, dtype=torch.int64)
+    h = 0x9E3779B9
     for w in words:
         h = _mix32(h ^ w)
-    return int(h)
+    return h
+
+
+def fold_seed(seed: int, *words) -> int:
+    """A 64-bit seed from ``seed`` and ``words`` (ints or strings), e.g. the
+    training step and the loss, through the draws' own hash."""
+    for w in words:
+        seed = (_site_word(seed, f"fold/{w}") << 32) | _site_word(seed, f"fold/{w}/lo")
+    return seed
 
 
 def standard_normal_ps(seed: int, site: str, sample_ids: Tensor, event_shape: Sequence[int],

@@ -33,27 +33,9 @@ from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_
 from structured_latent_odes_tpu_torch.models import classifier, cvs_spec, init_params, recon
 from structured_latent_odes_tpu_torch.train import checkpoint
 from structured_latent_odes_tpu_torch.training_cvs import build_splits
+from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 
 _NOT_PORTED = {"proc": "ROADMAP A13", "challenge": "ROADMAP A12"}
-
-
-def _resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without a card fails
-    loudly instead of falling back to the CPU."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device} requested but no CUDA card is available; "
-            "pass device='cpu' (CLI: --device cpu) to serve on the CPU"
-        )
-    return device
-
-
-def _full_fp32() -> None:
-    """Serve in full float32: cuDNN runs float32 convolutions in TF32 by
-    default, which would change the encoder's result."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def _build(dataset: str, config, device):
@@ -72,7 +54,7 @@ def _like(spec):
 
 def load_model(dataset: str, checkpoint_path: str, config=None, device="cuda"):
     """Restore a trained model. Returns (spec, params, times, splits)."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     if dataset in _NOT_PORTED:
         raise NotImplementedError(f"dataset {dataset!r} is not ported yet ({_NOT_PORTED[dataset]})")
     config = config or LOADERS[dataset]()
@@ -83,8 +65,8 @@ def load_model(dataset: str, checkpoint_path: str, config=None, device="cuda"):
 
 def make_predict_fns(spec, times, device="cuda"):
     """(recon_fn, classify_fn) for serving, on tensors on ``device``."""
-    _full_fp32()
-    ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=_resolve_device(device))
+    full_fp32()
+    ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=resolve_device(device))
 
     @torch.inference_mode()
     def recon_fn(params, seed, batch, is_post):
@@ -140,7 +122,7 @@ def main(argv=None, config=None):
     p.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
     args = p.parse_args(argv)
 
-    device = _resolve_device(args.device)
+    device = resolve_device(args.device)
     spec, params, times, splits = load_model(args.dataset, args.checkpoint[0], config, device)
     like = _like(spec)
     params_list = [params] + [

@@ -1,2 +1,3 @@
-"""Checkpoints in the JAX package's format; the SVI trainer is the training
-slice's work."""
+"""Training: the SVI engine (shared per-parameter Adam, dual step, eval
+epoch), the epoch driver, metrics, the artifact contract and checkpoints in
+the JAX package's format."""

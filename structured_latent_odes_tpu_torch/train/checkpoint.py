@@ -17,6 +17,8 @@ from typing import Any, List, Tuple
 
 import numpy as np
 
+from structured_latent_odes_tpu_torch.utils.tree import tree_unflatten
+
 
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     if isinstance(tree, dict):
@@ -38,14 +40,6 @@ def _structure(tree: Any) -> str:
     if isinstance(tree, (list, tuple)):
         return "[" + ", ".join(_structure(v) for v in tree) + "]"
     return "*"
-
-
-def _unflatten(like: Any, leaves) -> Any:
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
-    if isinstance(like, (list, tuple)):
-        return [_unflatten(v, leaves) for v in like]
-    return next(leaves)
 
 
 def _to_numpy(x: Any) -> np.ndarray:
@@ -107,4 +101,9 @@ def restore(path: str, like: Any) -> Any:
     for i, (a, (p, b)) in enumerate(zip(leaves, ref)):
         if tuple(a.shape) != tuple(b.shape):
             raise ValueError(f"leaf {i} ({p}) shape {a.shape} != expected {tuple(b.shape)}")
-    return _unflatten(like, iter(leaves))
+    return tree_unflatten(like, leaves)
+
+
+def load_metadata(path: str) -> dict:
+    with open(path + ".json") as f:
+        return json.load(f).get("metadata", {})

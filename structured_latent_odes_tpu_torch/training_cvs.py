@@ -1,12 +1,51 @@
-"""CVS workload (the JAX package's ``training_cvs.py``). This slice holds
-``build_splits``, which serving uses; the training loop is the next slice
-(ROADMAP A9)."""
+"""CVS training driver (the JAX package's ``training_cvs.py``), on a CUDA card
+unless the caller asks for the CPU.
+
+Run: ``python -m structured_latent_odes_tpu_torch.training_cvs
+[--model Mechanistic] [--num-epochs N] [--no-plot] [--device cuda] ...``.
+The same flags as the JAX driver: dataset build, dual-loss SVI training,
+per-epoch val/train posterior and prior statistics, val-ELBO model selection,
+and the final test evaluation with the ``.npy`` artifact contract and
+``best_model.npz`` (the JAX package's checkpoint format), which the JAX
+package's eval CLI scores and both packages' ``serve.py`` serve. Logs go to
+``results_<Model>/model.log``. On the card it runs in full float32: TF32 is
+off for matrix products and cuDNN convolutions.
+
+Parameters come from the port's own ``init_params(spec, seed)``, and every
+draw from the port's counter hash: JAX's threefry bits are not reproduced, so
+a run is not the JAX run of the same seed, draw for draw.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
+plotting (A11; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
+(A10-rest), ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
+(A17), ``--prior-refit-epochs`` (A16) and ``--reference-data-dir`` (A8-rest).
+"""
 
 from __future__ import annotations
 
+import argparse
+import logging
+import os
+
+import numpy as np
+import torch
+
 from structured_latent_odes_tpu_torch.data import cvs as cvs_data
+from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.data.loader import normalize_split, to_model_layout
 from structured_latent_odes_tpu_torch.data.transforms import create_transforms
+from structured_latent_odes_tpu_torch.interop import params_to_jax
+from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
+from structured_latent_odes_tpu_torch.prob import fold_seed
+from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
+from structured_latent_odes_tpu_torch.train.backend import make_training_backend
+from structured_latent_odes_tpu_torch.train.driver import final_test_eval, run_training_epochs
+from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
+from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
+from structured_latent_odes_tpu_torch.utils.rng import set_seed
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+log = logging.getLogger("slode")
 
 
 def build_splits(config, device="cuda"):
@@ -15,9 +54,203 @@ def build_splits(config, device="cuda"):
     if config.get("reference_data_dir"):
         raise NotImplementedError(
             "reading the reference's torch pickles (reference_data_dir) is not "
-            "ported yet (ROADMAP A8)"
+            "ported yet (ROADMAP A8-rest)"
         )
     splits, norm_params = cvs_data.load_splits(config, device=device)
     transforms = create_transforms(config.norm, norm_params)
     out = {name: to_model_layout(normalize_split(split, transforms)) for name, split in splits.items()}
     return out, norm_params
+
+
+def train(config, device="cuda"):
+    if config.get("plot", True):
+        raise NotImplementedError("plotting is not ported yet (ROADMAP A11): pass --no-plot")
+    if int(config.get("prior_refit_epochs") or 0):
+        raise NotImplementedError("--prior-refit-epochs is not ported yet (ROADMAP A16)")
+    device = resolve_device(device)
+    full_fp32()
+    print(config.to_json())
+    log.debug(config.to_json())
+    seed = set_seed(config.seed)
+    rng = np.random.RandomState(config.seed)
+
+    splits, _ = build_splits(config, device=device)
+    for name in ("train", "val", "test"):
+        print(name.upper(), "obs=", splits[name]["observations"].shape)
+
+    times = np.arange(0.0, config.seq_len * config.delta_t, config.delta_t, dtype=np.float32)
+    ts = torch.as_tensor(times, device=device)
+    spec = cvs_spec(config)
+    params = init_params(spec, fold_seed(seed, "init"), device=device)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    print(f"Model: {config.model} - with {n_params} parameters.")
+
+    init_state, train_epoch, put_batch = make_training_backend(spec, ts, config, params)
+    eval_fns = make_eval_fns(spec, ts)
+    state = init_state(params, fold_seed(seed, "train"))
+    out_dir = artifacts.results_dir(config.model, config.get("results_root", "."))
+
+    def select_best(epoch, val, train_s, best, params_now, epoch_losses):
+        val_elbo = sum(val["post"].elbo) * len(val["post"].elbo)
+        if best["criterion"] >= val_elbo:
+            return {"params": params_now, "epoch": epoch, "criterion": val_elbo}
+        return best
+
+    state, best = run_training_epochs(
+        spec=spec,
+        state=state,
+        train_epoch=train_epoch,
+        eval_epoch=make_eval_epoch(spec, ts),
+        splits=splits,
+        config=config,
+        rng=rng,
+        eval_seed=fold_seed(seed, "eval"),
+        select_best=select_best,
+        eval_train_stats=config.get("eval_train_stats", True),
+        put_batch=put_batch,
+        eval_every=config.get("eval_every", 1),
+        checkpoint_every=config.get("checkpoint_every", 0),
+        resume=config.get("resume", False),
+        profile_dir=config.get("profile_dir"),
+    )
+
+    # final test on the best params (posterior and prior), with the artifacts
+    test_post, test_prior = final_test_eval(
+        spec, best["params"], fold_seed(seed, "test"), splits["test"], eval_fns, config.mini_batch_size
+    )
+    artifacts.dump_common(
+        out_dir,
+        test_post.observations,
+        times,
+        {"iext": test_post.labels["iext"].squeeze(-1), "rtpr": test_post.labels["rtpr"].squeeze(-1)},
+    )
+    artifacts.dump_recon(out_dir, "post", test_post.recon)
+    artifacts.dump_recon(out_dir, "prior", test_prior.recon)
+    checkpoint.save(
+        os.path.join(out_dir, "best_model.npz"),
+        params_to_jax(best["params"]),
+        metadata={"epoch": best["epoch"], "criterion": float(best["criterion"])},
+    )
+
+    final = "FINAL TEST: iext_acc=(%.4f,%.4f)  rtpr_acc=(%.4f,%.4f) l1=(%.6f,%.6f)" % (
+        test_post.label_metrics["iext"],
+        test_prior.label_metrics["iext"],
+        test_post.label_metrics["rtpr"],
+        test_prior.label_metrics["rtpr"],
+        test_post.l1,
+        test_prior.l1,
+    )
+    print(final)
+    log.debug(final)
+    elbo_line = "ELBO: best_epoch: {} post: {} prior: {}".format(
+        best["epoch"], test_post.elbo, test_prior.elbo
+    )
+    print(elbo_line)
+    log.debug(elbo_line)
+    return {"best": best, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", choices=["Mechanistic", "MechanisticGauss"], default=None)
+    p.add_argument("--num-epochs", type=int, default=None)
+    p.add_argument("--aux-mult-final", type=float, default=None,
+                   help="anneal the aux multiplier to this value")
+    p.add_argument("--aux-anneal-epochs", type=int, default=None,
+                   help="epochs over which to anneal the aux multiplier")
+    p.add_argument("--aux-mult-start", type=float, default=None,
+                   help="warm the aux multiplier up from this value")
+    p.add_argument("--aux-warmup-epochs", type=int, default=None,
+                   help="epochs over which to warm the aux multiplier up")
+    p.add_argument("--prior-lr-mult", type=float, default=None,
+                   help="conditional-prior net learning-rate multiplier "
+                        "(>1 keeps p(z_u|u) tracking the posterior)")
+    p.add_argument("--lr-final", type=float, default=None,
+                   help="linear lr decay target (with --lr-decay-start)")
+    p.add_argument("--lr-decay-start", type=int, default=None,
+                   help="epoch at which linear lr decay begins")
+    p.add_argument("--prior-refit-epochs", type=int, default=None,
+                   help="after training, refit only the conditional-prior nets "
+                        "(not ported yet: ROADMAP A16)")
+    p.add_argument("--aux-loss-multiplier", type=float, default=None,
+                   help="aux classifier site scale (reference: 46)")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--mini-batch-size", type=int, default=None)
+    p.add_argument("--learning-rate", type=float, default=None)
+    p.add_argument("--optimizer", choices=["shared", "split"], default=None,
+                   help="shared per-param Adam (Pyro parity) or two split Adams")
+    p.add_argument("--data-parallel", type=int, default=None,
+                   help="shard the batch over N devices (not ported yet: ROADMAP A17)")
+    p.add_argument("--time-parallel", type=int, default=None,
+                   help="shard the ODE horizon over K devices (not ported yet: ROADMAP A17)")
+    p.add_argument("--quantile-diff", type=float, default=None)
+    p.add_argument("--num-particles", type=int, default=None,
+                   help="ELBO particles averaged per step (Trace_ELBO(num_particles))")
+    p.add_argument("--solver", default=None)
+    p.add_argument("--ode-backend", default=None)
+    p.add_argument("--ode-rtol", type=float, default=None)
+    p.add_argument("--ode-atol", type=float, default=None)
+    p.add_argument("--data-path", default=None)
+    p.add_argument("--reference-data-dir", default=None,
+                   help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")
+    p.add_argument("--results-root", default=".")
+    p.add_argument("--no-plot", action="store_true", help="required until plotting is ported (ROADMAP A11)")
+    p.add_argument("--eval-every", type=int, default=1,
+                   help="evaluate val/train stats every N epochs (faster)")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help="persist full training state every N epochs (not ported yet: ROADMAP A10-rest)")
+    p.add_argument("--profile-dir", default=None,
+                   help="capture a profiler trace of one epoch (not ported yet: ROADMAP A17)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from results_<Model>/train_state.npz (not ported yet: ROADMAP A10-rest)")
+    p.add_argument("--no-eval-train", action="store_true",
+                   help="skip per-epoch train-split statistics (faster)")
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    config = load_cvs_config()
+    for k, v in vars(args).items():
+        if v is not None and k in config:
+            config[k] = v
+    if args.reference_data_dir:
+        config.reference_data_dir = args.reference_data_dir
+    config.results_root = args.results_root
+    config.plot = not args.no_plot
+    config.eval_train_stats = not args.no_eval_train
+    config.eval_every = args.eval_every
+    config.aux_mult_final = args.aux_mult_final
+    config.aux_anneal_epochs = args.aux_anneal_epochs
+    config.aux_mult_start = args.aux_mult_start
+    config.aux_warmup_epochs = args.aux_warmup_epochs
+    config.prior_refit_epochs = args.prior_refit_epochs
+    config.lr_final = args.lr_final
+    config.lr_decay_start = args.lr_decay_start
+    config.checkpoint_every = args.checkpoint_every
+    config.resume = args.resume
+    config.profile_dir = args.profile_dir
+
+    out_dir = artifacts.results_dir(config.model, config.results_root)
+    setup_logging(out_dir)
+    return train(config, device=args.device)
+
+
+def setup_logging(out_dir: str) -> None:
+    """File logging to results_<Model>/model.log for the 'slode' logger only.
+    A handler from an earlier run in the same process is replaced, not
+    added to."""
+    logger = logging.getLogger("slode")
+    logger.setLevel(logging.DEBUG)
+    for h in [h for h in logger.handlers if getattr(h, "slode_model_log", False)]:
+        logger.removeHandler(h)
+        h.close()
+    handler = logging.FileHandler(os.path.join(out_dir, "model.log"), mode="w")
+    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    handler.slode_model_log = True
+    logger.addHandler(handler)
+
+
+if __name__ == "__main__":
+    main()

@@ -113,3 +113,44 @@ def test_loader_helpers_match_jax(norm):
     assert sorted(out) == sorted(ref) == ["iext", "mask", "observations"]
     for k in ref:
         np.testing.assert_array_equal(out[k], ref[k])
+
+
+def _split(n, seed):
+    r = np.random.RandomState(seed)
+    return {
+        "observations": r.rand(n, 3, 12).astype(np.float32),
+        "iext": (r.rand(n, 1) > 0.5).astype(np.float32),
+        "rtpr": (r.rand(n, 1) > 0.5).astype(np.float32),
+    }
+
+
+def _assert_equal_batches(ours, ref):
+    assert sorted(ours) == sorted(ref)
+    for k in ref:
+        np.testing.assert_array_equal(ours[k], ref[k], err_msg=k)
+        assert ours[k].dtype == ref[k].dtype, k
+
+
+@pytest.mark.parametrize("shuffle,crop_len", [(False, None), (True, None), (True, 7)])
+def test_minibatch_iterators_match_jax(shuffle, crop_len):
+    """iter_minibatches and stacked_minibatches (the port gathers with numpy
+    where the JAX package may call its ctypes packer): the same batches,
+    padding, masks and sample ids from the same RandomState."""
+    split = _split(11, 3)
+    ours = list(port_loader.iter_minibatches(split, 4, shuffle=shuffle, rng=np.random.RandomState(1),
+                                             crop_len=crop_len))
+    ref = list(jax_loader.iter_minibatches(split, 4, shuffle=shuffle, rng=np.random.RandomState(1),
+                                           crop_len=crop_len))
+    assert len(ours) == len(ref) == 3
+    for a, b in zip(ours, ref):
+        _assert_equal_batches(a, b)
+    _assert_equal_batches(
+        port_loader.stacked_minibatches(split, 4, shuffle=shuffle, rng=np.random.RandomState(2), crop_len=crop_len),
+        jax_loader.stacked_minibatches(split, 4, shuffle=shuffle, rng=np.random.RandomState(2), crop_len=crop_len),
+    )
+
+
+@pytest.mark.parametrize("pad_to_size", [None, 16])
+def test_full_batch_matches_jax(pad_to_size):
+    split = _split(11, 4)
+    _assert_equal_batches(port_loader.full_batch(split, pad_to_size), jax_loader.full_batch(split, pad_to_size))

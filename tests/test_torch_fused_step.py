@@ -1,7 +1,7 @@
-"""K2 (ops/fused_step.py) in the PyTorch port: its plain version, which the
-wrapper takes for CPU tensors, against the JAX package's fused whole-solve
-Pallas kernel (interpret mode off-TPU), for every method it supports, on a
-uniform and on a non-uniform time grid.
+"""K2 and K3 (ops/fused_step.py) in the PyTorch port: their plain versions,
+which the wrappers take for CPU tensors, against the JAX package's fused
+whole-solve Pallas kernels and their custom VJP (interpret mode off-TPU), for
+every method they support, on a uniform and on a non-uniform time grid.
 
 Tolerance 1e-5, as the JAX package's own fused-vs-sequential test: the
 stage heads' sums and the sigmoids round differently in the two packages.
@@ -16,11 +16,16 @@ import torch
 from structured_latent_odes_tpu.nn.ode_model import OdeModelSpec, initialize_state, ode_model_init
 from structured_latent_odes_tpu.ops.fused_step import fused_semilinear_solve
 from structured_latent_odes_tpu_torch.interop import params_from_jax
+from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state as port_initialize_state
 from structured_latent_odes_tpu_torch.ops import fused_step as port
 
 L, D, H = 15, 5, 25
 B, T = 13, 21
 TOL = 1e-5
+# gradients: max|port - JAX| / max(max|JAX|, 1) per leaf, the JAX package's
+# own measure (tests/test_fused_step.py); the weight gradients are sums over
+# B*(T-1)*S terms taken in another order (measured: at most 7e-7)
+GRAD_TOL = 1e-5
 
 GRIDS = {
     "uniform": np.arange(0.0, float(T), dtype=np.float32),
@@ -49,14 +54,88 @@ def test_fused_plain_matches_jax_kernel(method, grid):
     np.testing.assert_allclose(out, ref, rtol=0, atol=TOL)
 
 
-def test_fused_rejects_unsupported_method_and_autograd():
+def test_fused_rejects_unsupported_method():
     params, z, x0 = _setup()
     p_port = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
-    z_t, x0_t = torch.from_numpy(z), torch.from_numpy(x0)
     with pytest.raises(ValueError, match="supports"):
-        port.fused_semilinear_solve(p_port, z_t, x0_t, GRIDS["uniform"], "dopri5")
-    with pytest.raises(RuntimeError, match="training slice"):
-        port.fused_semilinear_solve(p_port, z_t.requires_grad_(), x0_t, GRIDS["uniform"], "midpoint")
+        port.fused_semilinear_solve(p_port, torch.from_numpy(z), torch.from_numpy(x0), GRIDS["uniform"], "dopri5")
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _leaves(v, f"{prefix}/{i}")]
+    return [(prefix, tree)]
+
+
+def _jax_grads(params, z, ts, w, method):
+    """jax.grad of sum(w * fused_semilinear_solve(params, z, x0(z), ts)) into
+    every OdeModel param leaf (port layout) and z."""
+    def loss(p, zz):
+        x0 = initialize_state(p, zz)
+        return jnp.sum(jnp.asarray(w) * fused_semilinear_solve(p, zz, x0, ts, method=method))
+
+    gp, gz = jax.grad(loss, argnums=(0, 1))(params, jnp.asarray(z))
+    leaves = _leaves(params_from_jax(jax.tree.map(np.asarray, gp), device="cpu"))
+    return {name: g.numpy() for name, g in leaves}, np.asarray(gz)
+
+
+def _port_grads(params, z, ts, w, method, solve):
+    p = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    leaves = _leaves(p)
+    for _, t in leaves:
+        t.requires_grad_()
+    z_t = torch.from_numpy(z).requires_grad_()
+    sol = solve(p, z_t, port_initialize_state(p, z_t), torch.from_numpy(ts), method)
+    grads = torch.autograd.grad((sol * torch.from_numpy(w)).sum(), [t for _, t in leaves] + [z_t])
+    return {name: g.numpy() for (name, _), g in zip(leaves, grads[:-1])}, grads[-1].numpy()
+
+
+def _plain_solve(p, z, x0, ts, method):
+    """The forward's plain version under torch autograd: gradients derived by
+    autograd, independent of K3's hand-written sweep."""
+    W = p["dyn_hidden"]["W"]
+    u = torch.nn.functional.linear(z, W[:, 1:], p["dyn_hidden"]["b"])
+    xs = port.fused_semilinear_fwd_plain(u, W[:, 0], p["prod"]["W"], p["prod"]["b"],
+                                         p["degr"]["W"], p["degr"]["b"], x0, ts, method)
+    return xs.permute(2, 0, 1)
+
+
+def _assert_grads_close(got, ref, what):
+    (gp, gz), (rp, rz) = got, ref
+    assert set(gp) == set(rp)
+    for name in rp:
+        err = float(np.abs(gp[name] - rp[name]).max()) / max(float(np.abs(rp[name]).max()), 1.0)
+        assert err < GRAD_TOL, (what, name, err)
+    assert float(np.abs(gz - rz).max()) / max(float(np.abs(rz).max()), 1.0) < GRAD_TOL, (what, "z")
+
+
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+def test_fused_gradients_match_jax(method, grid):
+    """K3's plain sweep, reached through the autograd.Function of
+    fused_semilinear_solve, against jax.grad of the JAX package's fused solve
+    (its hand-derived Pallas backward, interpret mode); and the same
+    gradients by torch autograd of K2's plain version."""
+    params, z, _ = _setup()
+    ts = GRIDS[grid]
+    w = np.random.RandomState(2).uniform(-1, 1, (B, T, D)).astype(np.float32)
+    ref = _jax_grads(params, z, ts, w, method)
+    _assert_grads_close(_port_grads(params, z, ts, w, method, port.fused_semilinear_solve), ref, "K3 plain")
+    _assert_grads_close(_port_grads(params, z, ts, w, method, _plain_solve), ref, "autograd of K2 plain")
+
+
+def test_fused_gradients_padding_edges():
+    """B not a multiple of 128 (the Pallas lane tile) and T = 2, one step, as
+    tests/test_fused_step.py::test_fused_padding_edges."""
+    spec = OdeModelSpec(latent_dim=L, ode_state_dim=D, ode_hidden_dim=H)
+    params = ode_model_init(jax.random.key(3), spec)
+    z = np.random.RandomState(4).randn(130, L).astype(np.float32)
+    ts = np.arange(0.0, 2.0, dtype=np.float32)
+    w = np.random.RandomState(5).uniform(-1, 1, (130, 2, D)).astype(np.float32)
+    ref = _jax_grads(params, z, ts, w, "midpoint")
+    _assert_grads_close(_port_grads(params, z, ts, w, "midpoint", port.fused_semilinear_solve), ref, "K3 plain")
 
 
 def test_fused_plain_layout_is_time_major():

@@ -1,17 +1,22 @@
-"""Kernels K1 and K2 of the PyTorch port against their plain PyTorch versions,
-on a CUDA card. Marked ``gpu``; each test skips when no card is present.
+"""Kernels K1, K1-bwd, K2 and K3 of the PyTorch port against their plain
+PyTorch versions, on a CUDA card. Marked ``gpu``; each test skips when no
+card is present.
 
 This file imports no JAX: the machine with the card has none. Run it there
 with (``--noconftest`` skips tests/conftest.py, which imports JAX)::
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-Tolerances: K1 computes exactly the plain version's float32 operations, so
-1e-6 abs (the measured gap is 0). K2 sums the heads in another order and
-uses CUDA's expf: 1e-5 abs plus 1e-5 relative, the JAX package's own
-tolerance for its fused kernel (tests/test_fused_step.py). Trajectories at
-random weights reach |x| of tens, where float32 roundoff accumulated over 85
-steps differs by about 1e-6 relative between two summation orders.
+Tolerances: K1 and K1-bwd compute exactly their plain versions' float32
+operations, so 1e-6 abs (the measured gap is 0). K2 and K3 sum the heads in
+another order and use CUDA's expf: 1e-5 abs plus 1e-5 relative, the JAX
+package's own tolerance for its fused kernel (tests/test_fused_step.py), on
+the trajectory and on K3's dx0; K3's du sums 85 * S stage terms that cancel,
+so its absolute part is scaled by max|du|. Trajectories at random
+weights reach |x| of tens, where float32 roundoff accumulated over 85 steps
+differs by about 1e-6 relative between two summation orders. K3's weight
+gradients are sums over the batch, steps and stages in another order: each
+leaf within 1e-5 of its largest value.
 """
 
 import numpy as np
@@ -39,20 +44,18 @@ def test_affine_scan_kernel_matches_plain(cuda, M):
     A = (torch.rand((85, M), generator=gen) * 0.5 + 0.5).to(cuda)
     B = ((torch.rand((85, M), generator=gen) - 0.5) * 0.2).to(cuda)
     x0 = (torch.rand((M,), generator=gen) * 2 - 1).to(cuda)
-    before = recurrence.affine_scan_tm.launches
-    out = recurrence.affine_scan_tm(A, B, x0)
+    before = recurrence.affine_scan_fwd.launches
+    out = recurrence.affine_scan_fwd(A, B, x0)
     torch.cuda.synchronize()
-    assert recurrence.affine_scan_tm.launches == before + 1
+    assert recurrence.affine_scan_fwd.launches == before + 1
     ref = recurrence.affine_scan_plain(A, B, x0)
     assert float((out - ref).abs().max()) <= 1e-6
 
 
-@pytest.mark.parametrize("grid", ["uniform", "nonuniform"])
-@pytest.mark.parametrize("method", fused_step.METHODS)
-def test_fused_kernel_matches_plain(cuda, method, grid):
+def _fused_args(cuda, grid, B=100):
     spec = cvs_spec(load_cvs_config())
     ode = init_params(spec, 0, device=cuda)["decoder"]["ode"]
-    z = torch.randn((100, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
+    z = torch.randn((B, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
     x0 = initialize_state(ode, z)
     if grid == "uniform":
         ts = torch.arange(86.0, device=cuda)
@@ -61,13 +64,85 @@ def test_fused_kernel_matches_plain(cuda, method, grid):
                           dtype=torch.float32, device=cuda)
     W = ode["dyn_hidden"]["W"]
     u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
-    args = (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"], x0, ts)
+    return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"], x0, ts)
+
+
+@pytest.mark.parametrize("grid", ["uniform", "nonuniform"])
+@pytest.mark.parametrize("method", fused_step.METHODS)
+def test_fused_kernel_matches_plain(cuda, method, grid):
+    args = _fused_args(cuda, grid)
     before = fused_step.fused_semilinear_fwd.launches
     out = fused_step.fused_semilinear_fwd(*args, method)
     torch.cuda.synchronize()
     assert fused_step.fused_semilinear_fwd.launches == before + 1
     ref = fused_step.fused_semilinear_fwd_plain(*args, method)
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("M", [640, 777, 5 * 16411])
+def test_affine_scan_bwd_kernel_matches_plain(cuda, M):
+    gen = torch.Generator().manual_seed(M)
+    A = (torch.rand((85, M), generator=gen) * 0.5 + 0.5).to(cuda)
+    xs = (torch.rand((86, M), generator=gen) * 2 - 1).to(cuda)
+    g = (torch.rand((86, M), generator=gen) - 0.5).to(cuda)
+    before = recurrence.affine_scan_bwd.launches
+    out = recurrence.affine_scan_bwd(A, xs, g)
+    torch.cuda.synchronize()
+    assert recurrence.affine_scan_bwd.launches == before + 1
+    for o, r in zip(out, recurrence.affine_scan_bwd_plain(A, xs, g)):
+        assert float((o - r).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("B", [128, 130])
+@pytest.mark.parametrize("grid", ["uniform", "nonuniform"])
+@pytest.mark.parametrize("method", fused_step.METHODS)
+def test_fused_bwd_kernel_matches_plain(cuda, method, grid, B):
+    args = _fused_args(cuda, grid, B)
+    xs = fused_step.fused_semilinear_fwd(*args, method)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    bargs = (*args[:6], xs, g, args[7])
+    before = fused_step.fused_semilinear_bwd.launches
+    outs = fused_step.fused_semilinear_bwd(*bargs, method)
+    torch.cuda.synchronize()
+    assert fused_step.fused_semilinear_bwd.launches == before + 1
+    refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
+    for name, o, r in zip(("du", "dwt", "dwa", "dba", "dwd", "dbd", "dx0"), outs, refs):
+        assert o.shape == r.shape, name
+        if name == "dx0":
+            torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5, msg=name)
+        elif name == "du":  # a sum of stage terms that cancel: atol scaled by max|du|
+            torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()), msg=name)
+        else:
+            assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+
+
+def test_training_backends_agree_on_card(cuda):
+    """Autograd through K1/K1-bwd and K2/K3 gives the plain backend's
+    gradients: max|diff| / max(max|g_seq|, 1) < 5e-3 over every leaf, the
+    JAX package's fused-vs-autodiff bound."""
+    from structured_latent_odes_tpu_torch.models import elbo_main
+    from structured_latent_odes_tpu_torch.train.svi import value_and_grad
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_cvs_config()
+    gen = torch.Generator().manual_seed(2)
+    batch = {"observations": torch.rand((64, 3, 86), generator=gen).to(cuda),
+             "iext": (torch.rand((64, 1), generator=gen) > 0.5).float().to(cuda),
+             "rtpr": (torch.rand((64, 1), generator=gen) > 0.5).float().to(cuda)}
+    ts = torch.arange(86.0, device=cuda)
+    grads = {}
+    for backend in ("semilinear", "semilinear_seq", "semilinear_fused"):
+        cfg.ode_backend = backend
+        spec = cvs_spec(cfg)
+        params = init_params(spec, 0, device=cuda)
+        _, _, g = value_and_grad(lambda p: elbo_main(spec, p, 0, batch, ts), params)
+        grads[backend] = tree_leaves(g)
+    scale = max(max(float(g.abs().max()) for g in grads["semilinear_seq"]), 1.0)
+    for backend in ("semilinear", "semilinear_fused"):
+        err = max(float((a - b).abs().max()) for a, b in zip(grads[backend], grads["semilinear_seq"]))
+        assert err / scale < 5e-3, backend
 
 
 def test_served_backends_agree_on_card(cuda):
@@ -89,9 +164,3 @@ def test_served_backends_agree_on_card(cuda):
         for k, v in outs[backend].items():
             ref = outs["semilinear_seq"][k]
             assert float((v - ref).abs().max()) <= 1e-5 + 1e-5 * float(ref.abs().max()), (backend, k)
-
-
-def test_kernels_refuse_autograd_on_card(cuda):
-    A = torch.rand((4, 8), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        recurrence.affine_scan_tm(A, A.detach(), A.detach()[0])

@@ -1,6 +1,7 @@
 """Import guard: no module of the PyTorch port, and nothing ``chip_smoke.py``
-imports, loads ``jax`` or any module of the JAX package. Run in a subprocess
-with ``jax`` blocked, so an import of it fails loudly."""
+imports, loads ``jax``, ``optax`` or any module of the JAX package. Run in a
+subprocess with ``jax`` and ``optax`` blocked, so an import of either fails
+loudly; every module of the port is walked, the training slice's included."""
 
 import os
 import subprocess
@@ -16,6 +17,7 @@ _CHILD = textwrap.dedent(
     """
     import importlib, pkgutil, sys
     sys.modules["jax"] = None  # any import of jax now raises
+    sys.modules["optax"] = None
     import structured_latent_odes_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
@@ -25,7 +27,7 @@ _CHILD = textwrap.dedent(
                  if m == "structured_latent_odes_tpu" or m.startswith("structured_latent_odes_tpu."))
     assert not bad, bad
     assert "jaxlib" not in sys.modules
-    print(len(names))
+    print(" ".join(names))
     """
 )
 
@@ -36,4 +38,8 @@ def test_port_never_imports_jax_or_the_jax_package():
         env={**os.environ, "PYTHONPATH": REPO},
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20  # every module of the port was imported
+    walked = set(proc.stdout.split())
+    assert len(walked) >= 38  # every module of the port was imported
+    training = {"prob.elbo", "train.svi", "train.driver", "train.backend", "train.artifacts",
+                "train.metrics", "utils.rng", "utils.device", "training_cvs"}
+    assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked
