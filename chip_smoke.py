@@ -14,7 +14,9 @@ Phases, each fatal on any fault:
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
    versions on the card at the serving and training shapes and at
-   B = 16,411; then timed beside the plain version and the bound on an H100
+   B = 16,411, and K2 and K3 at the edges of their layout (B = 1, 2, 130 by
+   T = 2, 86, 200, every method); then timed beside the plain version and the
+   bound on an H100
    SXM: the kernel's device time from a CUDA event pair right around each
    launch (queued behind a device-side sleep, so no host gap falls inside),
    and the wrapper call (argument preparation included) and the plain
@@ -337,64 +339,76 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
         print(f"K1-bwd affine_scan_bwd T={T - 1} M={M}: max_abs_err {err:.3e} (tol {K1_TOL:g})", flush=True)
         check(r <= 1.0, f"K1-bwd disagrees with its plain version at M={M}: {err}")
 
-    grids = {
-        "uniform": torch.arange(float(T)),
-        "nonuniform": torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(T)) * 0.2 + 0.05),
-                                   dtype=torch.float32),
-    }
+    def grid(name: str, steps_plus_one: int = T):
+        if name == "uniform":
+            return torch.arange(float(steps_plus_one))
+        return torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(steps_plus_one)) * 0.2 + 0.05),
+                            dtype=torch.float32)
 
-    def k2_inputs(B, grid):
+    def k2_inputs(B, grid_name, steps_plus_one: int = T):
         z = torch.randn((B, ode["latent_to_ode"][0]["W"].shape[1]),
                         generator=torch.Generator().manual_seed(B)).to(device)
         W = ode["dyn_hidden"]["W"]
         u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
         return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
-                initialize_state(ode, z), grids[grid].to(device))
+                initialize_state(ode, z), grid(grid_name, steps_plus_one).to(device))
 
     def k3_inputs(args, method):
         xs = fused_step.fused_semilinear_fwd(*args, method)
         g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device)
         return (*args[:6], xs, g, args[7])
 
+    def check_fused(args, method, where, backward=True):
+        """K2 and (unless not backward) K3 against their plain versions."""
+        out = fused_step.fused_semilinear_fwd(*args, method)
+        clock.sync()
+        ref = fused_step.fused_semilinear_fwd_plain(*args, method)
+        clock.sync()
+        err = float((out - ref).abs().max())
+        r = held("K2", "xs", out, ref, ATOL, RTOL)
+        print(f"K2 fused_semilinear_fwd {method} {where}: max_abs_err {err:.3e} "
+              f"max|x| {float(ref.abs().max()):.3g} (tol {ATOL:g} + {RTOL:g}*|x|)", flush=True)
+        check(r <= 1.0, f"K2 disagrees with its plain version ({method}, {where})")
+        if not backward:
+            return
+        bargs = k3_inputs(args, method)
+        outs = fused_step.fused_semilinear_bwd(*bargs, method)
+        clock.sync()
+        refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
+        clock.sync()
+        # dx0 elementwise as K2; du elementwise with its absolute part scaled
+        # by max|du| (DU_ATOL); each weight gradient against its leaf's
+        # largest value
+        worst = {}
+        for name, o, r in zip(TOLERANCE_RULES["K3"], outs, refs):
+            if name == "dx0":
+                worst[name] = held("K3", name, o, r, ATOL, RTOL)
+            elif name == "du":
+                worst[name] = held("K3", name, o, r, DU_ATOL * float(r.abs().max()), RTOL)
+                worst["du elementwise as K2"] = ratio(o, r, ATOL, RTOL)  # printed, not held
+            else:
+                worst[name] = held("K3", name, o, r, max(WGRAD_RTOL * float(r.abs().max()), 1e-30))
+        print(f"K3 fused_semilinear_bwd {method} {where}: max_abs_err "
+              f"{max(float((o - r).abs().max()) for o, r in zip(outs, refs)):.3e}; "
+              f"error / tolerance: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()),
+              flush=True)
+        check(max(v for k, v in worst.items() if k != "du elementwise as K2") <= 1.0,
+              f"K3 disagrees with its plain version ({method}, {where}): {worst}")
+
     with torch.inference_mode():
         for method in fused_step.METHODS:
             for B in (100, TRAIN_B, big_b):
-                for grid in grids:
-                    args = k2_inputs(B, grid)
-                    out = fused_step.fused_semilinear_fwd(*args, method)
-                    clock.sync()
-                    ref = fused_step.fused_semilinear_fwd_plain(*args, method)
-                    clock.sync()
-                    err = float((out - ref).abs().max())
-                    r = held("K2", "xs", out, ref, ATOL, RTOL)
-                    print(f"K2 fused_semilinear_fwd {method} B={B} T={T} {grid}: max_abs_err {err:.3e} "
-                          f"max|x| {float(ref.abs().max()):.3g} (tol {ATOL:g} + {RTOL:g}*|x|)", flush=True)
-                    check(r <= 1.0, f"K2 disagrees with its plain version ({method}, B={B}, {grid})")
-                    if B == 100:
-                        continue  # the backward runs at the training shapes
-                    bargs = k3_inputs(args, method)
-                    outs = fused_step.fused_semilinear_bwd(*bargs, method)
-                    clock.sync()
-                    refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
-                    clock.sync()
-                    # dx0 elementwise as K2; du elementwise with its absolute
-                    # part scaled by max|du| (DU_ATOL); each weight gradient
-                    # against its leaf's largest value
-                    worst = {}
-                    for name, o, r in zip(TOLERANCE_RULES["K3"], outs, refs):
-                        if name == "dx0":
-                            worst[name] = held("K3", name, o, r, ATOL, RTOL)
-                        elif name == "du":
-                            worst[name] = held("K3", name, o, r, DU_ATOL * float(r.abs().max()), RTOL)
-                            worst["du elementwise as K2"] = ratio(o, r, ATOL, RTOL)  # printed, not held
-                        else:
-                            worst[name] = held("K3", name, o, r, max(WGRAD_RTOL * float(r.abs().max()), 1e-30))
-                    print(f"K3 fused_semilinear_bwd {method} B={B} T={T} {grid}: max_abs_err "
-                          f"{max(float((o - r).abs().max()) for o, r in zip(outs, refs)):.3e}; "
-                          f"error / tolerance: " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items()),
-                          flush=True)
-                    check(max(v for k, v in worst.items() if k != "du elementwise as K2") <= 1.0,
-                          f"K3 disagrees with its plain version ({method}, B={B}, {grid}): {worst}")
+                for grid_name in ("uniform", "nonuniform"):
+                    # the backward runs at the training shapes
+                    check_fused(k2_inputs(B, grid_name), method, f"B={B} T={T} {grid_name}", backward=B != 100)
+            # the edges of the kernels' layout (csrc/fused_semilinear.cuh): one
+            # trajectory, two (one more than a block owns at a time), 130; one
+            # step, the CVS grid, and 199 steps (two passes of up to 128 steps,
+            # more steps than a block has threads)
+            for B in (1, 2, 130):
+                for steps_plus_one in (2, T, 200):
+                    check_fused(k2_inputs(B, "nonuniform", steps_plus_one), method,
+                                f"B={B} T={steps_plus_one} nonuniform")
 
     # times at the serving, training and large shapes; midpoint for K2 and K3
     S = 2

@@ -1,6 +1,6 @@
 // Kernel K2, fused_semilinear_fwd: the whole semilinear Runge-Kutta solve of
 // the decoder ODE  dx/dt = a(t, z) - d(t, z) * x  in one launch. Per step t
-// and RK stage i (stage time tau = sts[t][i]):
+// and RK stage i (stage time tau = ts[t] + c_i * (ts[t+1] - ts[t])):
 //
 //     h = relu(u + tau * w_t)                 (H)
 //     a = sigmoid(W_a h + b_a)                (D)
@@ -13,26 +13,39 @@
 // ::_fwd_kernel, launched by _fwd_call. Its backward is K3
 // (fused_semilinear_bwd.cu).
 //
-// Design: one trajectory per thread. The thread keeps its row of u (H floats)
-// and its state (D floats) in registers for the whole solve; the head weights
-// and biases (H + 2DH + 2D floats) and the stage-time and step tables live in
-// shared memory, read by every thread of the block at the same address (a
-// broadcast). The stages are unrolled at compile time from the tableau: one
-// template instance per method. The widths, tableaus and the stage code are in
-// fused_semilinear.cuh, shared with K3.
+// Bound on this card: operations. Each trajectory-step costs
+// S * (4*D*H + 2*H) flops of products (1.1 kflop at midpoint, H = 25, D = 5)
+// against 4*(H + D + T*D) bytes per trajectory for the whole solve. The
+// sigmoids (an exact expf and a correctly rounded reciprocal, about 20
+// instructions each) and the relu's separately rounded pre-activation add
+// about as many instructions again, so at large batch the kernel is bound by
+// instruction issue. At the training batch (B = 128) the work is a fraction
+// of a microsecond of the card and the time is latency: the launch, one
+// step's stage chain and the T-1 dependent FMAs of the recurrence.
 //
-// Output layout: time-major (T, D, B). Thread b writes element b of each
-// (t, d) row, so a warp's stores are 32 neighbouring floats and coalesce; the
-// wrapper permutes to (B, T, D). The inputs u and x0 arrive feature-major,
-// (H, B) and (D, B), for the same reason.
+// Design: parallel over steps, then a short scan (fused_semilinear.cuh). The
+// heads never read x, so the steps' affine maps are independent. A block owns
+// one trajectory at a time (blocks loop over trajectories, as many blocks as
+// fit on the card) and walks its steps in passes of up to kMaxSteps:
+//   1. one thread per step evaluates all S stages of its step at once, so
+//      each float4 load of a weight row from shared memory feeds 2*D*S FMAs,
+//      and writes (A_t, B_t) to shared memory;
+//   2. after one __syncthreads, D threads run x = A*x + B over the pass,
+//      writing each x_{t+1} over B_t;
+//   3. the block copies the pass's rows of x to the output, contiguous.
+// The next trajectory's u row and x0 are loaded while the block works on the
+// current one. Each element's arithmetic has one fixed order: the head sums
+// over j ascending, one fmaf a term; the stage times and pre-activations
+// rounded as the plain version rounds them; one fmaf a step of the
+// recurrence. The output therefore does not depend on the launch geometry.
 //
-// Bound on this card: operations. Each trajectory-step costs about
-// S * (4*D*H + 2*H) flops (1.1 kflop at midpoint, H = 25, D = 5) against
-// 4*(H + D + T*D) bytes per trajectory for the whole solve. At B = 100 there
-// are 100 busy threads, so the time is the serial chain of one thread through
-// (T-1)*S stages; throughput matters only at large B.
+// Layout: trajectory-major. u (B, H), x0 (B, D) and the output (B, T, D) are
+// read and written as they lie; one trajectory's T*D outputs are contiguous,
+// so the copy-out coalesces whatever the batch size.
 //
-// No tensor cores: the products are 5 x 25, far below an MMA tile.
+// No tensor cores: the head products are 25 -> 5 per stage, far below an MMA
+// tile, and TF32 would not keep the 1e-5 float32 tolerance of the plain
+// version.
 
 #include <cuda_runtime.h>
 
@@ -42,87 +55,111 @@ namespace {
 
 using namespace slode;
 
-constexpr int kThreads = 128;
+// Blocks per SM that ptxas must leave room for. 6 caps it at 85 registers a
+// thread: euler, midpoint and heun then build without spills, 8 blocks of the
+// CVS grid's 96 threads fit on an SM, and that was the fastest setting tried
+// on the H100 (against 1, 7 and none). rk4's stages need more registers.
+template <int M>
+constexpr int kFwdMinBlocks = M == kRk4 ? 1 : 6;
 
 template <int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, kFwdMinBlocks<M>)
 fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x0,
-                            const float* __restrict__ w, const float* __restrict__ sts,
-                            const float* __restrict__ hs, float* __restrict__ out,
-                            int B, int T) {
+                            const float* __restrict__ ts, const Weights w,
+                            float* __restrict__ out, int B, int T) {
   constexpr int S = Tableau<M>::S;
-  extern __shared__ float smem[];
-  float* w_s = smem;                // kParams
-  float* sts_s = w_s + kParams;     // (T-1) * S
-  float* hs_s = sts_s + (T - 1) * S;  // T-1
-  for (int i = threadIdx.x; i < kParams; i += kThreads) w_s[i] = w[i];
-  for (int i = threadIdx.x; i < (T - 1) * S; i += kThreads) sts_s[i] = sts[i];
-  for (int i = threadIdx.x; i < T - 1; i += kThreads) hs_s[i] = hs[i];
-  __syncthreads();
+  const int steps = T - 1;
+  const int chunk = min(steps, kMaxSteps);
+  const bool one_pass = steps <= kMaxSteps;  // then each thread's step is the same for every trajectory
+  extern __shared__ float4 smem4[];
+  float* rows = reinterpret_cast<float*>(smem4);  // H * kRow
+  float* bias = rows + H * kRow;                  // 2D
+  float* Ac = bias + 2 * D;                       // chunk * D: A_t of the pass
+  float* Bc = Ac + chunk * D;                     // chunk * D: B_t, then x_{t+1}
+  const int tid = threadIdx.x;
+  // u[b, tid] and x0[b, tid] of the block's next trajectory, loaded while
+  // the block works on the current one
+  float u_next = 0.f;
+  float x_next = 0.f;
+  if (tid < H) u_next = u[static_cast<size_t>(blockIdx.x) * H + tid];
+  if (tid < D) x_next = x0[static_cast<size_t>(blockIdx.x) * D + tid];
+  load_weights(w, rows, bias);
+  float tau[S];
+  float hstep = 0.f;
+  if (one_pass && tid < steps) load_step<M>(ts, tid, tau, hstep);
 
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
-  const size_t Bs = static_cast<size_t>(B);
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int next = b + gridDim.x;
+    const size_t row0 = static_cast<size_t>(b) * T;
+    if (tid < H) {
+      rows[tid * kRow + kRowU] = u_next;
+      if (next < B) u_next = u[static_cast<size_t>(next) * H + tid];
+    }
+    float x = 0.f;
+    if (tid < D) {
+      x = x_next;
+      out[row0 * D + tid] = x;
+      if (next < B) x_next = x0[static_cast<size_t>(next) * D + tid];
+    }
+    __syncthreads();
 
-  float ur[H];
+    for (int t0 = 0; t0 < steps; t0 += chunk) {
+      const int n = min(chunk, steps - t0);
+      // 1. the affine map of step t0 + tid
+      if (tid < n) {
+        if (!one_pass) load_step<M>(ts, t0 + tid, tau, hstep);
+        float a[S][D];
+        float d[S][D];
+        stages<S>(tau, rows, bias, a, d);
 #pragma unroll
-  for (int j = 0; j < H; ++j) ur[j] = u[j * Bs + b];
-  float x[D];
-#pragma unroll
-  for (int i = 0; i < D; ++i) {
-    x[i] = x0[i * Bs + b];
-    out[i * Bs + b] = x[i];
-  }
-
-  for (int t = 0; t < T - 1; ++t) {
-    const float hstep = hs_s[t];
-    float a[S][D];
-    float d[S][D];
-#pragma unroll
-    for (int s = 0; s < S; ++s) stage(ur, sts_s[t * S + s], w_s, a[s], d[s]);
-    float* row = out + static_cast<size_t>(t + 1) * D * Bs + b;
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      float ys[S];  // unused here: the forward needs only the run's result
-      const float Bc = rk_run<M>(0.f, hstep, i, a, d, ys);
-      const float Ac = rk_run<M>(1.f, hstep, i, a, d, ys) - Bc;
-      x[i] = Ac * x[i] + Bc;
-      row[i * Bs] = x[i];
+        for (int i = 0; i < D; ++i) {
+          float ys[S];  // unused here: the forward needs only the run's result
+          const float b0 = rk_run<M>(0.f, hstep, i, a, d, ys);
+          Ac[tid * D + i] = rk_run<M>(1.f, hstep, i, a, d, ys) - b0;
+          Bc[tid * D + i] = b0;
+        }
+      }
+      __syncthreads();
+      // 2. the recurrence, one thread per state component
+      if (tid < D) scan_forward(Ac, Bc, n, tid, x);
+      __syncthreads();
+      // 3. rows t0+1 .. t0+n of the trajectory
+      float* dst = out + (row0 + t0 + 1) * D;
+      for (int k = tid; k < n * D; k += blockDim.x) dst[k] = Bc[k];
+      __syncthreads();
     }
   }
 }
 
 template <int M>
-int launch(const float* u, const float* x0, const float* w, const float* sts,
-           const float* hs, float* out, int B, int T, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kParams + static_cast<size_t>(T - 1) * (Tableau<M>::S + 1));
-  if (smem > static_cast<size_t>(kDefaultSmem)) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_semilinear_fwd_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = (B + kThreads - 1) / kThreads;
-  fused_semilinear_fwd_kernel<M><<<blocks, kThreads, smem, stream>>>(
-      u, x0, w, sts, hs, out, B, T);
+int launch(const float* u, const float* x0, const float* ts, const Weights& w, float* out,
+           int B, int T, cudaStream_t stream) {
+  const int threads = threads_for(T);
+  const size_t smem = sizeof(float) * (H * kRow + 2 * D + 2 * static_cast<size_t>(chunk_for(T)) * D);
+  int blocks = 0;
+  const int err = blocks_for(fused_semilinear_fwd_kernel<M>, threads, smem, B, &blocks);
+  if (err != 0) return err;
+  fused_semilinear_fwd_kernel<M><<<blocks, threads, smem, stream>>>(u, x0, ts, w, out, B, T);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// u: (H, B); x0: (D, B); w: packed [w_t (H), W_a (D, H), b_a (D), W_d (D, H),
-// b_d (D)]; sts: (T-1, S) stage times; hs: (T-1,) steps; out: (T, D, B).
-// All float32, row-major, on one device.
-extern "C" int fused_semilinear_fwd(int method, const float* u, const float* x0,
-                                    const float* w, const float* sts, const float* hs,
-                                    float* out, int B, int T, void* stream) {
+// u: (B, H); x0: (B, D); ts: (T,) the time grid; wt: (H,) every wt_stride
+// floats; wa, wd: (D, H); ba, bd: (D,); out: (B, T, D). All float32,
+// row-major, on one device.
+extern "C" int fused_semilinear_fwd(int method, const float* u, const float* x0, const float* ts,
+                                    const float* wt, int wt_stride, const float* wa,
+                                    const float* ba, const float* wd, const float* bd, float* out,
+                                    int B, int T, void* stream) {
   if (B <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Weights w{wt, wt_stride, wa, ba, wd, bd};
   switch (method) {
-    case kEuler: return launch<kEuler>(u, x0, w, sts, hs, out, B, T, s);
-    case kMidpoint: return launch<kMidpoint>(u, x0, w, sts, hs, out, B, T, s);
-    case kHeun: return launch<kHeun>(u, x0, w, sts, hs, out, B, T, s);
-    case kRk4: return launch<kRk4>(u, x0, w, sts, hs, out, B, T, s);
+    case kEuler: return launch<kEuler>(u, x0, ts, w, out, B, T, s);
+    case kMidpoint: return launch<kMidpoint>(u, x0, ts, w, out, B, T, s);
+    case kHeun: return launch<kHeun>(u, x0, ts, w, out, B, T, s);
+    case kRk4: return launch<kRk4>(u, x0, ts, w, out, B, T, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,3 +1,3 @@
 """Hand-written CUDA kernels (sources in ``csrc/``) with their plain PyTorch
-versions: K1 ``recurrence.affine_scan_tm`` and K2
-``fused_step.fused_semilinear_fwd``."""
+versions: K1 and K1-bwd ``recurrence.affine_scan_fwd``/``affine_scan_bwd``,
+K2 and K3 ``fused_step.fused_semilinear_fwd``/``fused_semilinear_bwd``."""

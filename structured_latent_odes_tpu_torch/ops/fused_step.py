@@ -6,29 +6,37 @@ K2 replaces the Pallas TPU kernel ``structured_latent_odes_tpu/ops/fused_step.py
 ``fused_semilinear_solve``); K3 replaces ``_bwd_kernel`` (launched by
 ``_bwd_call``, with ``_rk_runs_bwd`` and the partial sums of ``_fused_bwd``).
 The CUDA sources are ``csrc/fused_semilinear_fwd.cu`` and
-``csrc/fused_semilinear_bwd.cu``: one trajectory per thread, its latent
-projection row and state (K3: adjoint) in registers, the head weights and time
-tables in shared memory, stages unrolled per method at compile time. Neither
-writes the ``(B, T-1, S, H)`` stage activations that the unfused path
-materializes: K2 reads ``u`` once and writes the trajectory once; K3 recomputes
-the stages from ``u`` and the saved trajectory. Both are bound by operations:
+``csrc/fused_semilinear_bwd.cu``. The dynamics heads never read the state, so
+each step's affine map ``x_{t+1} = A_t x_t + B_t`` is independent of the
+others: a block owns one trajectory at a time, one thread per step evaluates
+the step's stages and ``(A_t, B_t)`` in parallel, and then ``D`` threads run
+the short serial recurrence (K3: the adjoint, then the VJP of every step in
+parallel and a fixed-order reduction of the weight gradients). Neither writes
+the ``(B, T-1, S, H)`` stage activations that the unfused path materializes:
+K2 reads ``u`` once and writes the trajectory once; K3 recomputes the stages
+from ``u`` and the saved trajectory. Both are bound by operations:
 ``B * (T-1) * S * (4*D*H + 2*H)`` flops forward, about three times that
-backward.
+backward. Trajectories are trajectory-major ``(B, T, D)`` throughout.
 
 The latent projection ``u = z @ W[:, 1:].T + b`` and ``x0`` stay in PyTorch,
 as in the JAX package, and take their gradients from autograd.
 
 :func:`fused_semilinear_solve` is differentiable: a ``torch.autograd.Function``
-runs K2 forward (saving u, the weights and K2's time-major output) and K3
-backward. :func:`fused_semilinear_fwd` and :func:`fused_semilinear_bwd` are the
-kernels' wrappers; the ``_plain`` functions their plain PyTorch versions, used
-for a tensor on the CPU and held against the kernels on the card. For a CUDA
-tensor the wrappers launch the kernel or raise.
+runs K2 forward (saving u, the weights and K2's output) and K3 backward. The
+kernels take the weights and the time grid as they are and compute the stage
+times from the grid, rounded as the plain versions round them: a wrapper
+call makes no tables on the card, only its outputs (and K3's per-block
+partial sums, which it adds up with ``torch.sum``). :func:`fused_semilinear_fwd` and
+:func:`fused_semilinear_bwd` are the kernels' wrappers; the ``_plain``
+functions their plain PyTorch versions, used for a tensor on the CPU and held
+against the kernels on the card. For a CUDA tensor the wrappers launch the
+kernel or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -42,8 +50,12 @@ Tensor = torch.Tensor
 # the kernels' Method enum, in order
 METHODS = ("euler", "midpoint", "heun", "rk4")
 
-_FWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_BWD_ARGTYPES = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# (method, u, x0, ts, wt, wt_stride, wa, ba, wd, bd, out, B, T, stream)
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+# (method, u, xs, g, ts, wt, wt_stride, wa, ba, wd, bd, du, dx0, partial, B, T, n_blocks, stream)
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _stages(u, wt, wa, ba, wd, bd, taus):
@@ -58,7 +70,7 @@ def fused_semilinear_fwd_plain(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Te
     """Plain version of K2, one step at a time as the kernel walks time.
 
     u ``(B, H)``, wt ``(H,)``, wa/wd ``(D, H)``, ba/bd ``(D,)``, x0 ``(B, D)``,
-    ts ``(T,)``. Returns the time-major trajectory ``(T, D, B)``.
+    ts ``(T,)``. Returns the trajectory ``(B, T, D)``, x0 in row 0.
     """
     tableau = get_tableau(method)
     sts, hs = stage_time_grid(ts, tableau), ts[1:] - ts[:-1]
@@ -69,7 +81,7 @@ def fused_semilinear_fwd_plain(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Te
         A, Bc = rk_affine_coeffs(torch.stack(a_st, -2), torch.stack(d_st, -2), hs[t], tableau)
         x = A * x + Bc
         xs.append(x)
-    return torch.stack(xs, 0).transpose(1, 2)
+    return torch.stack(xs, 1)
 
 
 def _rk_run(x0c: float, a_st, d_st, hstep, tableau: ButcherTableau):
@@ -115,13 +127,13 @@ def fused_semilinear_bwd_plain(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     kernel walks time, written out (not derived by autograd).
 
     The arguments of :func:`fused_semilinear_fwd_plain` without x0, plus the
-    forward trajectory xs and its cotangent g, both time-major ``(T, D, B)``.
+    forward trajectory xs and its cotangent g, both ``(B, T, D)``.
     Returns (du ``(B, H)``, dwt ``(H,)``, dwa ``(D, H)``, dba ``(D,)``, dwd
     ``(D, H)``, dbd ``(D,)``, dx0 ``(B, D)``).
     """
     tableau = get_tableau(method)
     sts, hs = stage_time_grid(ts, tableau), ts[1:] - ts[:-1]
-    xs_b, g_b = xs.transpose(1, 2), g.transpose(1, 2)  # (T, B, D)
+    xs_b, g_b = xs.transpose(0, 1), g.transpose(0, 1)  # (T, B, D)
     lam = g_b[-1]
     du = torch.zeros_like(u)
     dwt, dwa, dba = torch.zeros_like(wt), torch.zeros_like(wa), torch.zeros_like(ba)
@@ -152,23 +164,25 @@ def _check_shapes(args, expected):
         raise ValueError(f"shapes {[tuple(a.shape) for a in args]}, expected {list(expected)}")
 
 
-def _kernel_tables(wt, wa, ba, wd, bd, ts, method):
-    """The kernels' packed weights [w_t, W_a, b_a, W_d, b_d], stage times
-    ``(T-1, S)`` and steps ``(T-1,)``, on the card."""
-    w = torch.cat([wt, wa.reshape(-1), ba, wd.reshape(-1), bd]).contiguous()
-    sts = stage_time_grid(ts, get_tableau(method)).contiguous()
-    return w, sts, (ts[1:] - ts[:-1]).contiguous()
-
-
 def _method_index(name: str, method: str) -> int:
     if method not in METHODS:
         raise ValueError(f"{name} supports {METHODS}, not {method!r}")
     return METHODS.index(method)
 
 
+def _kernel_args(name: str, args):
+    """The kernels' library defines and weight arguments: w_t (a column of the
+    hidden layer's weight, passed with its stride), W_a, b_a, W_d, b_d. The
+    kernels take the time grid itself and compute the stage times from it."""
+    _build.check_cuda(name, *args)
+    u, wt, wa, ba, wd, bd = args[:6]
+    defines = (("SLODE_H", u.shape[1]), ("SLODE_D", wa.shape[0]))
+    return defines, (wt, wt.stride(0), wa.contiguous(), ba.contiguous(), wd.contiguous(), bd.contiguous())
+
+
 def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
-    """K2's wrapper: the arguments of :func:`fused_semilinear_fwd_plain`,
-    returning the time-major trajectory ``(T, D, B)``."""
+    """K2's wrapper: the arguments and result of
+    :func:`fused_semilinear_fwd_plain`."""
     m = _method_index("fused_semilinear_fwd", method)
     args = (u, wt, wa, ba, wd, bd, x0, ts)
     B, H = u.shape
@@ -177,20 +191,28 @@ def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
     _check_shapes(args, ((B, H), (H,), (D, H), (D,), (D, H), (D,), (B, D), (T,)))
     if u.device.type == "cpu":
         return fused_semilinear_fwd_plain(*args, method)
-    _build.check_cuda("fused_semilinear_fwd", *args)
-    w, sts, hs = _kernel_tables(wt, wa, ba, wd, bd, ts, method)
-    out = torch.empty((T, D, B), dtype=torch.float32, device=u.device)
-    fn = _build.function(
-        "fused_semilinear_fwd", "fused_semilinear_fwd", _FWD_ARGTYPES,
-        defines=(("SLODE_H", H), ("SLODE_D", D)),
-    )
-    _build.launch("fused_semilinear_fwd", fn, m, u.t().contiguous(), x0.t().contiguous(),
-            w, sts, hs, out, B, T)
+    defines, weights = _kernel_args("fused_semilinear_fwd", args)
+    out = torch.empty((B, T, D), dtype=torch.float32, device=u.device)
+    fn = _build.function("fused_semilinear_fwd", "fused_semilinear_fwd", _FWD_ARGTYPES, defines)
+    _build.launch("fused_semilinear_fwd", fn, m, u.contiguous(), x0.contiguous(), ts.contiguous(),
+                  *weights, out, B, T)
     fused_semilinear_fwd.launches += 1
     return out
 
 
 fused_semilinear_fwd.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(defines, m: int, B: int, T: int, device_index: int) -> int:
+    """K3's grid, and so the rows of its partial-sum buffer, for one shape on
+    one card: asked of the library once per shape."""
+    fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd_blocks", [ctypes.c_int] * 3, defines)
+    with torch.cuda.device(device_index):
+        n = fn(m, B, T)
+    if n <= 0:
+        raise RuntimeError(f"fused_semilinear_bwd_blocks failed with CUDA error {-n}")
+    return n
 
 
 def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
@@ -201,22 +223,20 @@ def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     B, H = u.shape
     D = wa.shape[0]
     T = ts.shape[0]
-    _check_shapes(args, ((B, H), (H,), (D, H), (D,), (D, H), (D,), (T, D, B), (T, D, B), (T,)))
+    _check_shapes(args, ((B, H), (H,), (D, H), (D,), (D, H), (D,), (B, T, D), (B, T, D), (T,)))
     if u.device.type == "cpu":
         return fused_semilinear_bwd_plain(*args, method)
-    _build.check_cuda("fused_semilinear_bwd", *args)
-    defines = (("SLODE_H", H), ("SLODE_D", D))
-    threads = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd_threads", [], defines)()
+    defines, weights = _kernel_args("fused_semilinear_bwd", args)
+    n_blocks = _bwd_blocks(defines, m, B, T, u.device.index) if B else 0
     fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd", _BWD_ARGTYPES, defines)
-    w, sts, hs = _kernel_tables(wt, wa, ba, wd, bd, ts, method)
-    du = torch.empty((H, B), dtype=torch.float32, device=u.device)
-    dx0 = torch.empty((D, B), dtype=torch.float32, device=u.device)
-    partial = torch.empty((-(-B // threads), w.shape[0]), dtype=torch.float32, device=u.device)
-    _build.launch("fused_semilinear_bwd", fn, m, u.t().contiguous(), xs.contiguous(),
-            g.contiguous(), w, sts, hs, du, dx0, partial, B, T)
+    du = torch.empty((B, H), dtype=torch.float32, device=u.device)
+    dx0 = torch.empty((B, D), dtype=torch.float32, device=u.device)
+    partial = torch.empty((n_blocks, H + 2 * D * H + 2 * D), dtype=torch.float32, device=u.device)
+    _build.launch("fused_semilinear_bwd", fn, m, u.contiguous(), xs.contiguous(), g.contiguous(),
+                  ts.contiguous(), *weights, du, dx0, partial, B, T, n_blocks)
     fused_semilinear_bwd.launches += 1
     dwt, dwa, dba, dwd, dbd = torch.split(partial.sum(0), [H, D * H, D, D * H, D])
-    return du.t(), dwt, dwa.view(D, H), dba, dwd.view(D, H), dbd, dx0.t()
+    return du, dwt, dwa.view(D, H), dba, dwd.view(D, H), dbd, dx0
 
 
 fused_semilinear_bwd.launches = 0
@@ -247,8 +267,7 @@ def fused_semilinear_solve(params, z: Tensor, x0: Tensor, ts, method: str = "mid
     W, b = params["dyn_hidden"]["W"], params["dyn_hidden"]["b"]  # (H, L+1): column 0 is time
     u = F.linear(z, W[:, 1:], b)
     ts = torch.as_tensor(ts, dtype=torch.float32, device=z.device)
-    xs = _FusedSemilinear.apply(
+    return _FusedSemilinear.apply(
         u, W[:, 0], params["prod"]["W"], params["prod"]["b"],
         params["degr"]["W"], params["degr"]["b"], x0, ts, method,
     )
-    return xs.permute(2, 0, 1)

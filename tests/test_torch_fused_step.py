@@ -97,9 +97,8 @@ def _plain_solve(p, z, x0, ts, method):
     autograd, independent of K3's hand-written sweep."""
     W = p["dyn_hidden"]["W"]
     u = torch.nn.functional.linear(z, W[:, 1:], p["dyn_hidden"]["b"])
-    xs = port.fused_semilinear_fwd_plain(u, W[:, 0], p["prod"]["W"], p["prod"]["b"],
-                                         p["degr"]["W"], p["degr"]["b"], x0, ts, method)
-    return xs.permute(2, 0, 1)
+    return port.fused_semilinear_fwd_plain(u, W[:, 0], p["prod"]["W"], p["prod"]["b"],
+                                           p["degr"]["W"], p["degr"]["b"], x0, ts, method)
 
 
 def _assert_grads_close(got, ref, what):
@@ -139,7 +138,9 @@ def test_fused_gradients_padding_edges():
 
 
 def test_fused_plain_layout_is_time_major():
-    """The wrapper returns (T, D, B), the kernel's coalesced layout."""
+    """The wrapper returns the kernels' layout, trajectory-major (B, T, D) with
+    x0 in row 0: each trajectory's T*D values contiguous, time-major within
+    it (the name is from an earlier (T, D, B) layout)."""
     params, z, x0 = _setup()
     p = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
     W = p["dyn_hidden"]["W"]
@@ -148,5 +149,5 @@ def test_fused_plain_layout_is_time_major():
         u, W[:, 0], p["prod"]["W"], p["prod"]["b"], p["degr"]["W"], p["degr"]["b"],
         torch.from_numpy(x0), torch.from_numpy(GRIDS["uniform"]), "midpoint",
     )
-    assert out.shape == (T, D, B)
-    np.testing.assert_array_equal(out[0].numpy(), x0.T)
+    assert out.shape == (B, T, D) and out.is_contiguous()
+    np.testing.assert_array_equal(out[:, 0].numpy(), x0)

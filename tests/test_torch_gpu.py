@@ -52,15 +52,15 @@ def test_affine_scan_kernel_matches_plain(cuda, M):
     assert float((out - ref).abs().max()) <= 1e-6
 
 
-def _fused_args(cuda, grid, B=100):
+def _fused_args(cuda, grid, B=100, T=86):
     spec = cvs_spec(load_cvs_config())
     ode = init_params(spec, 0, device=cuda)["decoder"]["ode"]
     z = torch.randn((B, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
     x0 = initialize_state(ode, z)
     if grid == "uniform":
-        ts = torch.arange(86.0, device=cuda)
+        ts = torch.arange(float(T), device=cuda)
     else:
-        ts = torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(86)) * 0.2 + 0.05),
+        ts = torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(T)) * 0.2 + 0.05),
                           dtype=torch.float32, device=cuda)
     W = ode["dyn_hidden"]["W"]
     u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
@@ -105,7 +105,10 @@ def test_fused_bwd_kernel_matches_plain(cuda, method, grid, B):
     outs = fused_step.fused_semilinear_bwd(*bargs, method)
     torch.cuda.synchronize()
     assert fused_step.fused_semilinear_bwd.launches == before + 1
-    refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
+    _assert_bwd_close(outs, fused_step.fused_semilinear_bwd_plain(*bargs, method))
+
+
+def _assert_bwd_close(outs, refs):
     for name, o, r in zip(("du", "dwt", "dwa", "dba", "dwd", "dbd", "dx0"), outs, refs):
         assert o.shape == r.shape, name
         if name == "dx0":
@@ -114,6 +117,27 @@ def test_fused_bwd_kernel_matches_plain(cuda, method, grid, B):
             torch.testing.assert_close(o, r, rtol=1e-5, atol=1e-5 * float(r.abs().max()), msg=name)
         else:
             assert float((o - r).abs().max()) <= 1e-5 * float(r.abs().max()), name
+
+
+# The edges of the kernels' layout (csrc/fused_semilinear.cuh): a block owns
+# one trajectory at a time and walks its steps in passes of up to 128, one
+# thread per step. B = 1, 2 (one more than a block owns at a time), 130, and
+# 4,000 (more than fit on the card at once, so blocks loop over
+# trajectories); T = 2 (one step), 86 (the CVS grid) and 200 (199 steps: two
+# passes, more steps than a block has threads).
+@pytest.mark.parametrize("T", [2, 86, 200])
+@pytest.mark.parametrize("B", [1, 2, 130, 4000])
+@pytest.mark.parametrize("method", fused_step.METHODS)
+def test_fused_kernels_edge_shapes(cuda, method, B, T):
+    args = _fused_args(cuda, "nonuniform", B, T)
+    xs = fused_step.fused_semilinear_fwd(*args, method)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs, fused_step.fused_semilinear_fwd_plain(*args, method), rtol=1e-5, atol=1e-5)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    bargs = (*args[:6], xs, g, args[7])
+    outs = fused_step.fused_semilinear_bwd(*bargs, method)
+    torch.cuda.synchronize()
+    _assert_bwd_close(outs, fused_step.fused_semilinear_bwd_plain(*bargs, method))
 
 
 def test_training_backends_agree_on_card(cuda):
