@@ -13,14 +13,16 @@ Phases, each fatal on any fault:
    prints nvcc's -Xptxas -v report.
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
-   versions on the card at the serving and training shapes and at
-   B = 16,411, and K2 and K3 at the edges of their layout (B = 1, 2, 130 by
-   T = 2, 86, 200, every method); then timed beside the plain version and the
-   bound on an H100
-   SXM: the kernel's device time from a CUDA event pair right around each
-   launch (queued behind a device-side sleep, so no host gap falls inside),
-   and the wrapper call (argument preparation included) and the plain
-   version with CUDA events after warm-up.
+   versions on the card: K1 and K1-bwd bit for bit at the edges of their
+   batch-major layout (K1_SHAPES, B = 16,411 among them), K2 and K3 at the
+   serving and training shapes and B = 16,411 and at the edges of their
+   layout (B = 1, 2, 130 by T = 2, 86, 200, every method); then each timed
+   at B = 100, 128 and 16,411 beside the plain version and the bound on an
+   H100 SXM: the kernel's device time from a CUDA event pair right around
+   each launch (queued behind a device-side sleep, so no host gap falls
+   inside), and the wrapper call (argument preparation included) and the
+   plain version with CUDA events after warm-up; and the whole affine_scan
+   call at B = 128, forward alone and forward plus backward.
 4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
@@ -84,7 +86,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12  # float32 outside the tensor cores
 
-K1_TOL = 1e-6  # K1 and K1-bwd do their plain versions' float32 operations exactly
+# K1 and K1-bwd do their plain versions' float32 operations in the same
+# order: held bit for bit (torch.equal)
+K1_RULE = "torch.equal(out, ref): bit for bit"
 # K2 and the backends, elementwise |out - ref| <= ATOL + RTOL*|ref|, the JAX
 # package's own tolerance for its fused kernel (tests/test_fused_step.py):
 # at random weights trajectories reach |x| of tens, where float32 roundoff
@@ -105,8 +109,8 @@ WGRAD_RTOL = 1e-5
 DU_ATOL = 1e-5
 # each kernel's outputs: (name, rule as printed in the kernels line)
 TOLERANCE_RULES = {
-    "K1": {"xs": f"|out - ref| <= {K1_TOL:g}"},
-    "K1-bwd": {name: f"|out - ref| <= {K1_TOL:g}" for name in ("dA", "dB", "dx0")},
+    "K1": {"xs": K1_RULE},
+    "K1-bwd": {name: K1_RULE for name in ("dA", "dB", "dx0")},
     "K2": {"xs": f"|out - ref| <= {ATOL:g} + {RTOL:g}*|ref|, elementwise"},
     "K3": {
         "du": f"|out - ref| <= {DU_ATOL:g}*max|ref| + {RTOL:g}*|ref|, elementwise",
@@ -121,6 +125,14 @@ TOLERANCE_RULES = {
 STEP_GRAD_TOL = 5e-3
 BIG_B = 16411
 TRAIN_B = 128
+SERVE_B = 100
+# K1 and K1-bwd (Bt, T, D) at the edges of their layout (csrc/affine_scan.cu:
+# four whole trajectories per block): one step, one trajectory, a tile's
+# ragged edge (3, 7, 130), 199 steps (past the default 48 KB of shared memory
+# backward), D = 8, the serving batch (the CVS test split), the training
+# batch and BIG_B
+K1_SHAPES = ((1, 1, 5), (1, 85, 5), (3, 85, 5), (SERVE_B, 85, 5), (TRAIN_B, 85, 5), (130, 199, 5), (7, 85, 8),
+             (BIG_B, 85, 5))
 
 K1_SOURCE = "structured_latent_odes_tpu_torch/csrc/affine_scan.cu"
 K2_SOURCE = "structured_latent_odes_tpu_torch/csrc/fused_semilinear_fwd.cu"
@@ -312,32 +324,38 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
         res[key]["worst"][name] = max(res[key]["worst"][name], r)
         return r
 
-    def k1_inputs(M, seed):
+    def k1_inputs(Bt, steps, D, seed):
         gen = torch.Generator().manual_seed(seed)
-        A = torch.rand((T - 1, M), generator=gen) * 0.5 + 0.5
-        B = (torch.rand((T - 1, M), generator=gen) - 0.5) * 0.2
-        x0 = torch.rand((M,), generator=gen) * 2 - 1
-        g = torch.rand((T, M), generator=gen) - 0.5
+        A = torch.rand((Bt, steps, D), generator=gen) * 0.5 + 0.5
+        B = (torch.rand((Bt, steps, D), generator=gen) - 0.5) * 0.2
+        x0 = torch.rand((Bt, D), generator=gen) * 2 - 1
+        g = torch.rand((Bt, steps + 1, D), generator=gen) - 0.5
         return A.to(device), B.to(device), x0.to(device), g.to(device)
 
-    for M in (5 * 100, 5 * TRAIN_B, 5 * big_b, 777):
-        A, B, x0, g = k1_inputs(M, M)
+    def held_equal(key, name, out, ref):
+        """Bit equality; the largest difference goes to the kernels line."""
+        res[key]["err"] = max(res[key]["err"], float((out - ref).abs().max()) if out.numel() else 0.0)
+        equal = torch.equal(out, ref)
+        res[key]["worst"][name] = max(res[key]["worst"][name], 0.0 if equal else math.inf)
+        return equal
+
+    for Bt, steps, width in K1_SHAPES:
+        Bt = min(Bt, big_b)
+        A, B, x0, g = k1_inputs(Bt, steps, width, Bt * 1000 + steps * 10 + width)
         xs = recurrence.affine_scan_fwd(A, B, x0)
         clock.sync()
-        ref = recurrence.affine_scan_plain(A, B, x0)
-        err = float((xs - ref).abs().max())
-        r = held("K1", "xs", xs, ref, K1_TOL)
-        print(f"K1 affine_scan_fwd T={T - 1} M={M}: max_abs_err {err:.3e} (tol {K1_TOL:g})", flush=True)
-        check(r <= 1.0, f"K1 disagrees with its plain version at M={M}: {err}")
-        if M == 5 * 100:
-            continue  # the backward runs at the training shapes
+        ref = recurrence.affine_scan_batched_plain(A, B, x0)
+        ok = held_equal("K1", "xs", xs, ref)
+        print(f"K1 affine_scan_fwd Bt={Bt} T={steps} D={width}: max_abs_err {float((xs - ref).abs().max()):.3e}, "
+              f"bit-equal {ok}", flush=True)
+        check(ok, f"K1 differs from its plain version at Bt={Bt} T={steps} D={width}")
         out = recurrence.affine_scan_bwd(A, xs, g)
         clock.sync()
-        ref = recurrence.affine_scan_bwd_plain(A, xs, g)
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-        r = max(held("K1-bwd", name, o, rf, K1_TOL) for name, o, rf in zip(("dA", "dB", "dx0"), out, ref))
-        print(f"K1-bwd affine_scan_bwd T={T - 1} M={M}: max_abs_err {err:.3e} (tol {K1_TOL:g})", flush=True)
-        check(r <= 1.0, f"K1-bwd disagrees with its plain version at M={M}: {err}")
+        refs = recurrence.affine_scan_bwd_batched_plain(A, xs, g)
+        ok = all([held_equal("K1-bwd", name, o, r) for name, o, r in zip(("dA", "dB", "dx0"), out, refs)])
+        print(f"K1-bwd affine_scan_bwd Bt={Bt} T={steps} D={width}: max_abs_err "
+              f"{max(float((o - r).abs().max()) for o, r in zip(out, refs)):.3e}, bit-equal {ok}", flush=True)
+        check(ok, f"K1-bwd differs from its plain version at Bt={Bt} T={steps} D={width}")
 
     def grid(name: str, steps_plus_one: int = T):
         if name == "uniform":
@@ -397,10 +415,10 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
 
     with torch.inference_mode():
         for method in fused_step.METHODS:
-            for B in (100, TRAIN_B, big_b):
+            for B in (SERVE_B, TRAIN_B, big_b):
                 for grid_name in ("uniform", "nonuniform"):
                     # the backward runs at the training shapes
-                    check_fused(k2_inputs(B, grid_name), method, f"B={B} T={T} {grid_name}", backward=B != 100)
+                    check_fused(k2_inputs(B, grid_name), method, f"B={B} T={T} {grid_name}", backward=B != SERVE_B)
             # the edges of the kernels' layout (csrc/fused_semilinear.cuh): one
             # trajectory, two (one more than a block owns at a time), 130; one
             # step, the CVS grid, and 199 steps (two passes of up to 128 steps,
@@ -412,19 +430,29 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
 
     # times at the serving, training and large shapes; midpoint for K2 and K3
     S = 2
-    for label, M in (("serve", 5 * 100), ("train", 5 * TRAIN_B), ("big", 5 * big_b)):
-        A, B, x0, g = k1_inputs(M, 1)
+    for label, Bt in (("serve", SERVE_B), ("train", TRAIN_B), ("big", big_b)):
+        A, B, x0, g = k1_inputs(Bt, T - 1, D, 1)
+        shape = f"Bt={Bt} T={T - 1} D={D}"
         res["K1"][label] = _time(clock, rehearse, "K1", lambda: recurrence.affine_scan_fwd(A, B, x0),
-                                 lambda: recurrence.affine_scan_plain(A, B, x0), k1_bound_ms(T - 1, M),
-                                 f"T={T - 1} M={M}")
-        if label == "serve":
-            continue
+                                 lambda: recurrence.affine_scan_batched_plain(A, B, x0),
+                                 k1_bound_ms(T - 1, Bt * D), shape)
         xs = recurrence.affine_scan_fwd(A, B, x0)
         res["K1-bwd"][label] = _time(clock, rehearse, "K1-bwd", lambda: recurrence.affine_scan_bwd(A, xs, g),
-                                     lambda: recurrence.affine_scan_bwd_plain(A, xs, g),
-                                     k1_bwd_bound_ms(T - 1, M), f"T={T - 1} M={M}")
+                                     lambda: recurrence.affine_scan_bwd_batched_plain(A, xs, g),
+                                     k1_bwd_bound_ms(T - 1, Bt * D), shape)
+    # the whole batch-major entry as the model calls it (the autograd node
+    # included): forward alone (serving) and forward plus backward (training)
+    A, B, x0, g = k1_inputs(TRAIN_B, T - 1, D, 1)
+    leaves = [t.clone().requires_grad_() for t in (A, B, x0)]
     with torch.inference_mode():
-        for label, B in (("serve", 100), ("train", TRAIN_B), ("big", big_b)):
+        fwd_ms = clock.ms(lambda: recurrence.affine_scan(A, B, x0), iters=20)
+    both_ms = clock.ms(lambda: torch.autograd.grad(recurrence.affine_scan(*leaves), leaves, g), iters=20)
+    res["K1"]["affine_scan_call"] = {"shape": f"Bt={TRAIN_B} T={T - 1} D={D}", "forward_ms": fwd_ms,
+                                     "forward_backward_ms": both_ms}
+    print(f"time affine_scan call Bt={TRAIN_B} T={T - 1} D={D}: forward {fwd_ms:.4f} ms, "
+          f"forward + backward {both_ms:.4f} ms", flush=True)
+    with torch.inference_mode():
+        for label, B in (("serve", SERVE_B), ("train", TRAIN_B), ("big", big_b)):
             args = k2_inputs(B, "uniform")
             res["K2"][label] = _time(clock, rehearse, "K2", lambda: fused_step.fused_semilinear_fwd(*args, "midpoint"),
                                      lambda: fused_step.fused_semilinear_fwd_plain(*args, "midpoint"),
@@ -721,7 +749,7 @@ def main(argv=None):
                           for out, rule in TOLERANCE_RULES[key].items()},
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
-            **{label: res[key][label] for label in ("serve", "big") if label in res[key]},
+            **{label: res[key][label] for label in ("serve", "big", "affine_scan_call") if label in res[key]},
         })
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     if args.rehearse:

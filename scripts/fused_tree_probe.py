@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""K2 and K3 of one checkout of the PyTorch port, at fixed inputs: their
-outputs, saved so that two checkouts can be compared element by element, and
-their wrapper times.
+"""K1, K1-bwd, K2 and K3 of one checkout of the PyTorch port, at fixed
+inputs: their outputs, saved so that two checkouts can be compared element by
+element, and their wrapper times.
 
     python3 scripts/fused_tree_probe.py --tree DIR --out FILE.npz
     python3 scripts/fused_tree_probe.py --compare A.npz B.npz
@@ -16,7 +16,16 @@ Then each wrapper call is timed with CUDA events over 20 calls after warm-up,
 at midpoint, B = 128 and B = 16,411: the same method in every checkout, so
 two checkouts run in one call on the card can be compared. ``--compare``
 prints, per output, the largest difference and how many elements differ in
-their bits. Needs a CUDA card; imports nothing of JAX.
+their bits.
+
+K1 and K1-bwd run at Bt = 128 and 16,411 (T = 85 steps, D = 5) on
+coefficients from a numpy seed. A checkout whose kernels take the time-major
+``(T, Bt*D)`` layout (no ``recurrence.affine_scan_batched_plain``) is fed
+the transposes, and its outputs are saved batch-major ``(Bt, T+1, D)`` like
+the others'. Each wrapper call is timed as above, and so is the model's
+entry ``recurrence.affine_scan`` at Bt = 128: forward alone (inference
+mode) and forward plus backward (``torch.autograd.grad``), copies included.
+Needs a CUDA card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -50,9 +60,69 @@ def inputs(B: int, device):
     return tuple(torch.tensor(a, dtype=torch.float32, device=device) for a in arrays)
 
 
+def scan_inputs(Bt: int, device):
+    """A, B (Bt, T-1, D), x0 (Bt, D) and the cotangent g (Bt, T, D)."""
+    rng = np.random.RandomState(Bt + 1)
+    arrays = (
+        rng.uniform(0.5, 1.0, (Bt, T - 1, D)),
+        rng.uniform(-0.1, 0.1, (Bt, T - 1, D)),
+        rng.uniform(-1.0, 1.0, (Bt, D)),
+        rng.uniform(-0.5, 0.5, (Bt, T, D)),
+    )
+    return tuple(torch.tensor(a, dtype=torch.float32, device=device) for a in arrays)
+
+
+def cuda_ms(call, iters: int = 20) -> float:
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def probe_scan(recurrence, device, saved: dict, times: dict) -> None:
+    """K1 and K1-bwd through the checkout's own layout, outputs batch-major."""
+    batch_major = hasattr(recurrence, "affine_scan_batched_plain")
+
+    def tm(x):  # (Bt, n, D) -> (n, Bt*D)
+        return x.permute(1, 0, 2).reshape(x.shape[1], -1).contiguous()
+
+    def bm(x, Bt):  # (n, Bt*D) -> (Bt, n, D)
+        return x.reshape(x.shape[0], Bt, D).permute(1, 0, 2).contiguous()
+
+    for Bt in (128, 16411):
+        A, B, x0, g = scan_inputs(Bt, device)
+        if batch_major:
+            fwd_args, bwd_args = (A, B, x0), lambda xs: (A, xs, g)
+        else:
+            fwd_args, bwd_args = (tm(A), tm(B), x0.reshape(-1)), lambda xs: (tm(A), xs, tm(g))
+        xs = recurrence.affine_scan_fwd(*fwd_args)
+        grads = recurrence.affine_scan_bwd(*bwd_args(xs))
+        if batch_major:
+            out = (xs, *grads)
+        else:
+            out = (bm(xs, Bt), bm(grads[0], Bt), bm(grads[1], Bt), grads[2].reshape(Bt, D))
+        for name, v in zip(("xs", "dA", "dB", "dx0"), out):
+            saved[f"K1/B={Bt}/{name}"] = v.cpu().numpy()
+        b_args = bwd_args(xs)
+        times[f"K1 wrapper ms, B={Bt}"] = cuda_ms(lambda: recurrence.affine_scan_fwd(*fwd_args))
+        times[f"K1-bwd wrapper ms, B={Bt}"] = cuda_ms(lambda: recurrence.affine_scan_bwd(*b_args))
+    A, B, x0, g = scan_inputs(128, device)
+    with torch.inference_mode():
+        times["affine_scan forward ms, B=128"] = cuda_ms(lambda: recurrence.affine_scan(A, B, x0))
+    leaves = [t.clone().requires_grad_() for t in (A, B, x0)]
+    times["affine_scan forward+backward ms, B=128"] = cuda_ms(
+        lambda: torch.autograd.grad(recurrence.affine_scan(*leaves), leaves, g))
+
+
 def probe(tree: str, out_path: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
-    from structured_latent_odes_tpu_torch.ops import fused_step
+    from structured_latent_odes_tpu_torch.ops import fused_step, recurrence
 
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -89,18 +159,12 @@ def probe(tree: str, out_path: str) -> None:
             g = cotangent(B, time_major)
             calls["K3"] = lambda: bwd(args, xs, g, "midpoint")
         for key, call in calls.items():
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                call()
-            end.record()
-            torch.cuda.synchronize()
-            times[f"{key} wrapper ms, midpoint B={B}"] = start.elapsed_time(end) / 20
+            times[f"{key} wrapper ms, midpoint B={B}"] = cuda_ms(call)
+    probe_scan(recurrence, device, saved, times)
     np.savez(out_path, **saved)
-    print(json.dumps({"tree": tree, "card": torch.cuda.get_device_name(0), **times}), flush=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(json.dumps({"tree": tree, "card": card, **times}), flush=True)
 
 
 def compare(path_a: str, path_b: str) -> None:

@@ -15,6 +15,7 @@ raises with nvcc's output.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -39,6 +40,7 @@ Defines = Tuple[Tuple[str, int], ...]
 Target = Tuple[str, Defines]
 
 _LIBS: Dict[Target, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, Defines, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -106,16 +108,21 @@ def build(targets: Iterable[Target]) -> Dict[Target, str]:
 
 def function(name: str, symbol: str, argtypes: Sequence, defines: Defines = ()):
     """The C function ``symbol`` of ``csrc/<name>.cu`` built with ``defines``,
-    with its ``argtypes`` set and an ``int`` (CUDA error code) result."""
-    target = (name, tuple(defines))
-    lib = _LIBS.get(target)
-    if lib is None:
-        build([target])
-        lib = ctypes.CDLL(_plan(target)[2])
-        _LIBS[target] = lib
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    with its ``argtypes`` and an ``int`` (CUDA error code) result: bound once
+    per library and symbol, then taken from a cache."""
+    key = (name, tuple(defines), symbol)
+    fn = _FUNCS.get(key)
+    if fn is None:
+        target = (name, tuple(defines))
+        lib = _LIBS.get(target)
+        if lib is None:
+            build([target])
+            lib = ctypes.CDLL(_plan(target)[2])
+            _LIBS[target] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[key] = fn
     return fn
 
 
@@ -130,10 +137,13 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 def launch(name: str, fn, *args) -> None:
     """Call the C entry point ``fn`` with each tensor as its data pointer and
-    the current stream of the tensors' device last; raise on a CUDA error."""
-    device = next(a.device for a in args if isinstance(a, torch.Tensor))
-    with torch.cuda.device(device):
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args],
-                 torch.cuda.current_stream().cuda_stream)
+    the current stream of the tensors' device last; raise on a CUDA error.
+    The device is made current only when it is not already, and the stream is
+    read as its raw handle, without building a ``torch.cuda.Stream``."""
+    index = next(a.get_device() for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    current = index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(index):
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")

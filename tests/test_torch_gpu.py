@@ -8,7 +8,7 @@ with (``--noconftest`` skips tests/conftest.py, which imports JAX)::
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 Tolerances: K1 and K1-bwd compute exactly their plain versions' float32
-operations, so 1e-6 abs (the measured gap is 0). K2 and K3 sum the heads in
+operations, so they are held bit for bit (torch.equal). K2 and K3 sum the heads in
 another order and use CUDA's expf: 1e-5 abs plus 1e-5 relative, the JAX
 package's own tolerance for its fused kernel (tests/test_fused_step.py), on
 the trajectory and on K3's dx0; K3's du sums 85 * S stage terms that cancel,
@@ -38,18 +38,33 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("M", [500, 777, 5 * 16411])
-def test_affine_scan_kernel_matches_plain(cuda, M):
-    gen = torch.Generator().manual_seed(M)
-    A = (torch.rand((85, M), generator=gen) * 0.5 + 0.5).to(cuda)
-    B = ((torch.rand((85, M), generator=gen) - 0.5) * 0.2).to(cuda)
-    x0 = (torch.rand((M,), generator=gen) * 2 - 1).to(cuda)
+# K1 and K1-bwd (csrc/affine_scan.cu): a block owns four whole trajectories,
+# each run copied into shared memory by one bulk copy, a thread per
+# component. One step; one trajectory; a tile's ragged edge (3, 7, 130
+# trajectories, where the last tile's run ends off a 16-byte boundary and the
+# threads copy its tail); 199 steps (the backward's tile needs more than the
+# default 48 KB of shared memory); D = 8; the serving, training and large
+# batches.
+K1_SHAPES = [(1, 1, 5), (1, 85, 5), (3, 85, 5), (100, 85, 5), (128, 85, 5), (130, 199, 5), (7, 85, 8), (16411, 85, 5)]
+
+
+def _k1_inputs(cuda, Bt, T, D):
+    gen = torch.Generator().manual_seed(Bt * 1000 + T * 10 + D)
+    A = (torch.rand((Bt, T, D), generator=gen) * 0.5 + 0.5).to(cuda)
+    B = ((torch.rand((Bt, T, D), generator=gen) - 0.5) * 0.2).to(cuda)
+    x0 = (torch.rand((Bt, D), generator=gen) * 2 - 1).to(cuda)
+    g = (torch.rand((Bt, T + 1, D), generator=gen) - 0.5).to(cuda)
+    return A, B, x0, g
+
+
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_affine_scan_kernel_matches_plain(cuda, shape):
+    A, B, x0, _ = _k1_inputs(cuda, *shape)
     before = recurrence.affine_scan_fwd.launches
     out = recurrence.affine_scan_fwd(A, B, x0)
     torch.cuda.synchronize()
     assert recurrence.affine_scan_fwd.launches == before + 1
-    ref = recurrence.affine_scan_plain(A, B, x0)
-    assert float((out - ref).abs().max()) <= 1e-6
+    assert torch.equal(out, recurrence.affine_scan_batched_plain(A, B, x0))
 
 
 def _fused_args(cuda, grid, B=100, T=86):
@@ -79,18 +94,75 @@ def test_fused_kernel_matches_plain(cuda, method, grid):
     torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("M", [640, 777, 5 * 16411])
-def test_affine_scan_bwd_kernel_matches_plain(cuda, M):
-    gen = torch.Generator().manual_seed(M)
-    A = (torch.rand((85, M), generator=gen) * 0.5 + 0.5).to(cuda)
-    xs = (torch.rand((86, M), generator=gen) * 2 - 1).to(cuda)
-    g = (torch.rand((86, M), generator=gen) - 0.5).to(cuda)
+@pytest.mark.parametrize("shape", K1_SHAPES)
+def test_affine_scan_bwd_kernel_matches_plain(cuda, shape):
+    A, B, x0, g = _k1_inputs(cuda, *shape)
+    xs = recurrence.affine_scan_batched_plain(A, B, x0)
     before = recurrence.affine_scan_bwd.launches
     out = recurrence.affine_scan_bwd(A, xs, g)
     torch.cuda.synchronize()
     assert recurrence.affine_scan_bwd.launches == before + 1
-    for o, r in zip(out, recurrence.affine_scan_bwd_plain(A, xs, g)):
-        assert float((o - r).abs().max()) <= 1e-6
+    for name, o, r in zip(("dA", "dB", "dx0"), out, recurrence.affine_scan_bwd_batched_plain(A, xs, g)):
+        assert torch.equal(o, r), name
+
+
+@pytest.mark.parametrize("shape", [(128, 85, 5), (7, 85, 8)])
+def test_affine_scan_autograd_matches_plain_on_card(cuda, shape):
+    """affine_scan under autograd on the card (K1, then K1-bwd: one launch
+    each) against the plain batch-major versions: bit for bit, contiguous."""
+    A, B, x0, g = _k1_inputs(cuda, *shape)
+    leaves = [t.clone().requires_grad_() for t in (A, B, x0)]
+    fwd, bwd = recurrence.affine_scan_fwd.launches, recurrence.affine_scan_bwd.launches
+    xs = recurrence.affine_scan(*leaves)
+    grads = torch.autograd.grad(xs, leaves, g)
+    torch.cuda.synchronize()
+    assert recurrence.affine_scan_fwd.launches == fwd + 1 and recurrence.affine_scan_bwd.launches == bwd + 1
+    ref = recurrence.affine_scan_batched_plain(A, B, x0)
+    assert xs.is_contiguous() and torch.equal(xs.detach(), ref)
+    for name, o, r in zip(("dA", "dB", "dx0"), grads, recurrence.affine_scan_bwd_batched_plain(A, ref, g)):
+        assert o.is_contiguous() and torch.equal(o, r), name
+
+
+def test_affine_scan_kernels_take_unaligned_views(cuda):
+    """Contiguous views that start off a 16-byte boundary (one trajectory of
+    425 floats into a larger tensor), which the bulk copy cannot take: the
+    threads copy those runs."""
+    A, B, x0, g = (t[1:] for t in _k1_inputs(cuda, 6, 85, 5))
+    assert A.data_ptr() % 16 and g.data_ptr() % 16
+    xs = recurrence.affine_scan_fwd(A, B, x0)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, recurrence.affine_scan_batched_plain(A, B, x0))
+    xs_view = torch.cat([xs[:1], xs])[1:]
+    assert xs_view.data_ptr() % 16
+    out = recurrence.affine_scan_bwd(A, xs_view, g)
+    torch.cuda.synchronize()
+    for name, o, r in zip(("dA", "dB", "dx0"), out, recurrence.affine_scan_bwd_batched_plain(A, xs, g)):
+        assert torch.equal(o, r), name
+
+
+def test_affine_scan_kernels_raise_past_shared_memory(cuda):
+    """Four trajectories of 580 steps or more at D = 5 overfill a block's
+    shared memory backward (967 or more forward): the wrappers raise and
+    launch nothing."""
+    A, B, x0, g = _k1_inputs(cuda, 2, 581, 5)
+    xs = recurrence.affine_scan_fwd(A, B, x0)
+    before = recurrence.affine_scan_bwd.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        recurrence.affine_scan_bwd(A, xs, g)
+    A, B, x0, _ = _k1_inputs(cuda, 2, 969, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        recurrence.affine_scan_fwd(A, B, x0)
+    assert recurrence.affine_scan_bwd.launches == before
+
+
+def test_affine_scan_time_major_on_card(cuda):
+    """The time-major entry goes through the batch-major kernels with one
+    component per trajectory: equal to the time-major plain version."""
+    A, B, x0, _ = _k1_inputs(cuda, 1, 85, 777)
+    A, B, x0 = A[0], B[0], x0[0]
+    out = recurrence.affine_scan_tm(A, B, x0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, recurrence.affine_scan_plain(A, B, x0))
 
 
 @pytest.mark.parametrize("B", [128, 130])
