@@ -9,15 +9,19 @@ GPU.
 Phases, each fatal on any fault:
 
 1. device: the card's name and power limit (nvidia-smi).
-2. build: every kernel from csrc/, one nvcc per source, all started together;
-   prints nvcc's -Xptxas -v report.
+2. build: every kernel from csrc/, one nvcc per source and width pair, all
+   started together: K2 and K3 at CVS's and challenge's (H, D) = (25, 5) and
+   proc's (25, 8); prints nvcc's -Xptxas -v report.
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
    versions on the card: K1 and K1-bwd bit for bit at the edges of their
-   batch-major layout (K1_SHAPES, B = 16,411 among them), K2 and K3 at the
-   serving and training shapes and B = 16,411 and at the edges of their
-   layout (B = 1, 2, 130 by T = 2, 86, 200, every method); then each timed
-   at B = 100, 128 and 16,411 beside the plain version and the bound on an
+   batch-major layout and at the proc and challenge shapes (K1_SHAPES,
+   B = 16,411 among them), K2 and K3 at the serving and training shapes and
+   B = 16,411 and at the edges of their layout (B = 1, 2, 130 by T = 2, 86,
+   200, every method), and at proc's (B = 36, 78 by T = 100, D = 8) and
+   challenge's (B = 32, 7 by T = 142: 141 steps, two passes) shapes, every
+   method; then each timed at B = 100, 128 and 16,411 and at the proc and
+   challenge training shapes beside the plain version and the bound on an
    H100 SXM: the kernel's device time from a CUDA event pair right around
    each launch (queued behind a device-side sleep, so no host gap falls
    inside), and the wrapper call (argument preparation included) and the
@@ -45,6 +49,16 @@ Phases, each fatal on any fault:
    gradients are compared across the three backends from one set of params
    and one seed, with the counts read per backend as above, and one dual
    step at B = 128 is timed per backend.
+6. proc and challenge, served and trained at full width on the datasets in
+   datasets/ (the port's loaders, no generated data): two random-weight
+   checkpoints each, served through serve.main (posterior, prior with
+   --classify, the ensemble mean of both) on semilinear, semilinear_fused
+   and semilinear_seq plus one Gauss request; training_proc.main and
+   training_challenge.main with --num-epochs 1 and the config's 200-draw
+   sample bands on the same three backends plus one Gauss run, each trained
+   checkpoint served; the first dual step compared across the backends; one
+   dual step timed per backend (proc at B = 36, challenge at B = 32). Launch
+   counts are zeroed and read per backend's requests and per run, as for CVS.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout.
 
@@ -68,12 +82,12 @@ import time
 import numpy as np
 import torch
 
-from structured_latent_odes_tpu_torch import serve, training_cvs
-from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
+from structured_latent_odes_tpu_torch import serve, training_challenge, training_cvs, training_proc
+from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_config
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
-from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
+from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
 from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state
 from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
 from structured_latent_odes_tpu_torch.train import checkpoint, svi
@@ -130,9 +144,19 @@ SERVE_B = 100
 # four whole trajectories per block): one step, one trajectory, a tile's
 # ragged edge (3, 7, 130), 199 steps (past the default 48 KB of shared memory
 # backward), D = 8, the serving batch (the CVS test split), the training
-# batch and BIG_B
+# batch and BIG_B; then the proc and challenge workloads' training batches
+# and val folds over their horizons
 K1_SHAPES = ((1, 1, 5), (1, 85, 5), (3, 85, 5), (SERVE_B, 85, 5), (TRAIN_B, 85, 5), (130, 199, 5), (7, 85, 8),
-             (BIG_B, 85, 5))
+             (BIG_B, 85, 5), (36, 99, 8), (78, 99, 8), (32, 141, 5), (7, 141, 5))
+
+# the proc and challenge workloads at the repo's configs: the spec, the
+# training driver, the training batch (proc's config: 36; challenge's 100
+# clamped to its 28 train subjects: 32), the val fold (served, tested and
+# sampled as one split), the horizon and the ODE state width
+WORKLOADS = {
+    "proc": dict(spec=proc_spec, driver=training_proc, train_b=36, val_b=78, T=100, D=8),
+    "challenge": dict(spec=challenge_spec, driver=training_challenge, train_b=32, val_b=7, T=142, D=5),
+}
 
 K1_SOURCE = "structured_latent_odes_tpu_torch/csrc/affine_scan.cu"
 K2_SOURCE = "structured_latent_odes_tpu_torch/csrc/fused_semilinear_fwd.cu"
@@ -291,10 +315,14 @@ def phase_device(rehearse: bool):
     return torch.device("cuda", 0), smi
 
 
-def phase_build(H: int, D: int):
+def phase_build(widths):
+    """K1's library, and K2's and K3's at each (H, D) of ``widths``."""
     t0 = time.perf_counter()
-    widths = (("SLODE_H", H), ("SLODE_D", D))
-    logs = _build.build([("affine_scan", ()), ("fused_semilinear_fwd", widths), ("fused_semilinear_bwd", widths)])
+    targets = [("affine_scan", ())]
+    for H, D in widths:
+        defines = (("SLODE_H", H), ("SLODE_D", D))
+        targets += [("fused_semilinear_fwd", defines), ("fused_semilinear_bwd", defines)]
+    logs = _build.build(targets)
     print(f"== build: {len(logs)} libraries in {time.perf_counter() - t0:.1f} s (into {_build.BUILD_DIR})")
     for (name, defines), log in logs.items():
         print(f"-- nvcc -Xptxas -v: {name} {dict(defines)}\n{log.strip()}", flush=True)
@@ -312,8 +340,10 @@ def _time(clock: Clock, rehearse: bool, key: str, call, plain, bound_ms, shape: 
     return dict(shape=shape, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
 
 
-def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
-    """Each kernel against its plain version; returns per-kernel results."""
+def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
+    """Each kernel against its plain version; returns per-kernel results.
+    ``odes``: the ODE parameters of CVS (at ``H``, ``D``) and of each
+    workload."""
     T = 86
     big_b = 64 if rehearse else BIG_B
     res = {k: {"err": 0.0, "worst": dict.fromkeys(TOLERANCE_RULES[k], 0.0)} for k in KERNELS}
@@ -363,7 +393,7 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
         return torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(steps_plus_one)) * 0.2 + 0.05),
                             dtype=torch.float32)
 
-    def k2_inputs(B, grid_name, steps_plus_one: int = T):
+    def k2_inputs(B, grid_name, steps_plus_one: int = T, ode=odes["cvs"]):
         z = torch.randn((B, ode["latent_to_ode"][0]["W"].shape[1]),
                         generator=torch.Generator().manual_seed(B)).to(device)
         W = ode["dyn_hidden"]["W"]
@@ -427,6 +457,13 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
                 for steps_plus_one in (2, T, 200):
                     check_fused(k2_inputs(B, "nonuniform", steps_plus_one), method,
                                 f"B={B} T={steps_plus_one} nonuniform")
+            # each workload's training batch and val fold over its horizon,
+            # at its own widths (proc's (25, 8) libraries; challenge's 141
+            # steps, two passes)
+            for wl, w in WORKLOADS.items():
+                for B in (w["train_b"], w["val_b"]):
+                    check_fused(k2_inputs(B, "uniform", w["T"], odes[wl]), method,
+                                f"{wl} B={B} T={w['T']} D={w['D']} uniform")
 
     # times at the serving, training and large shapes; midpoint for K2 and K3
     S = 2
@@ -463,6 +500,29 @@ def phase_kernels(device, clock: Clock, rehearse: bool, ode, H: int, D: int):
             res["K3"][label] = _time(clock, rehearse, "K3", lambda: fused_step.fused_semilinear_bwd(*bargs, "midpoint"),
                                      lambda: fused_step.fused_semilinear_bwd_plain(*bargs, "midpoint"),
                                      k3_bound_ms(B, T, S, H, D), f"midpoint B={B} T={T} H={H} D={D}")
+    # each workload's training shape
+    for wl, w in WORKLOADS.items():
+        label, Bt, steps, width = f"{wl}_train", w["train_b"], w["T"] - 1, w["D"]
+        A, B, x0, g = k1_inputs(Bt, steps, width, 1)
+        shape = f"Bt={Bt} T={steps} D={width}"
+        res["K1"][label] = _time(clock, rehearse, "K1", lambda: recurrence.affine_scan_fwd(A, B, x0),
+                                 lambda: recurrence.affine_scan_batched_plain(A, B, x0),
+                                 k1_bound_ms(steps, Bt * width), shape)
+        xs = recurrence.affine_scan_fwd(A, B, x0)
+        res["K1-bwd"][label] = _time(clock, rehearse, "K1-bwd", lambda: recurrence.affine_scan_bwd(A, xs, g),
+                                     lambda: recurrence.affine_scan_bwd_batched_plain(A, xs, g),
+                                     k1_bwd_bound_ms(steps, Bt * width), shape)
+        with torch.inference_mode():
+            args = k2_inputs(Bt, "uniform", w["T"], odes[wl])
+            Hw = args[0].shape[1]
+            shape = f"midpoint B={Bt} T={w['T']} H={Hw} D={width}"
+            res["K2"][label] = _time(clock, rehearse, "K2", lambda: fused_step.fused_semilinear_fwd(*args, "midpoint"),
+                                     lambda: fused_step.fused_semilinear_fwd_plain(*args, "midpoint"),
+                                     k2_bound_ms(Bt, w["T"], S, Hw, width), shape)
+            bargs = k3_inputs(args, "midpoint")
+            res["K3"][label] = _time(clock, rehearse, "K3", lambda: fused_step.fused_semilinear_bwd(*bargs, "midpoint"),
+                                     lambda: fused_step.fused_semilinear_bwd_plain(*bargs, "midpoint"),
+                                     k3_bound_ms(Bt, w["T"], S, Hw, width), shape)
     return res
 
 
@@ -549,25 +609,49 @@ def phase_serving(device, workdir: str, rehearse: bool, paths: dict):
         config=gauss_cfg,
     ))
 
-    for out in list(outs.values()) + [gauss]:
-        check(out["mu_50"].shape == (n_test, 3, 86), f"mu_50 shape {out['mu_50'].shape}")
-        check(out["solution_xt"].shape == (n_test, 86, 5), f"solution shape {out['solution_xt'].shape}")
-        check(all(np.isfinite(v).all() for v in out.values()), "non-finite output")
-    # served outputs: max |diff| <= ATOL + RTOL * max |ref| per output. Scaled
-    # by the output's largest value, not elementwise: the bands are sums over
-    # state components of |x| up to tens and cancel to small values, where
-    # the state's roundoff survives in absolute terms.
+    outs["Gauss", "posterior"] = gauss
+    _check_served(outs, {"mu_50": (n_test, 3, 86), "solution_xt": (n_test, 86, 5)})
+    return ckpts, data_dir
+
+
+def _check_served(outs: dict, shapes: dict, where: str = "") -> None:
+    """Served outputs, keyed (backend, request): the shapes, finite values,
+    and every backend against semilinear_seq (a "Gauss" entry has no
+    counterpart). max |diff| <= ATOL + RTOL * max |ref| per output: scaled by
+    the output's largest value, not elementwise, because the bands are sums
+    over state components of |x| up to tens and cancel to small values,
+    where the state's roundoff survives in absolute terms."""
     for (backend, name), out in outs.items():
+        for k, shape in shapes.items():
+            check(out[k].shape == shape, f"{where}{backend} {name} {k} shape {out[k].shape} != {shape}")
+        check(all(np.isfinite(v).all() for v in out.values()), f"{where}{backend} {name}: non-finite output")
+        if backend == "Gauss":
+            continue
         ref = outs["semilinear_seq", name]
         worst = 0.0
         for k in ref:
             diff = float(np.abs(np.asarray(out[k]) - np.asarray(ref[k])).max())
             scale = float(np.abs(np.asarray(ref[k])).max())
             check(diff <= ATOL + RTOL * scale,
-                  f"{backend} {name} {k} disagrees with semilinear_seq: {diff} (max |ref| {scale})")
+                  f"{where}{backend} {name} {k} disagrees with semilinear_seq: {diff} (max |ref| {scale})")
             worst = max(worst, diff)
-        print(f"{backend:18s} {name:15s} max |diff| vs semilinear_seq {worst:.3e}", flush=True)
-    return ckpts, data_dir
+        print(f"{where}{backend:18s} {name:15s} max |diff| vs semilinear_seq {worst:.3e}", flush=True)
+
+
+def _check_trained(name: str, out, artifacts: dict):
+    """A training run's two logged epoch losses and its test ELBOs are
+    finite, and each artifact file has its shape and finite values. Returns
+    the epoch losses."""
+    rd = out["out_dir"]
+    with open(os.path.join(rd, "model.log")) as f:
+        losses = [float(line.split("loss=")[1].split()[0]) for line in f if "loss=" in line]
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"{name}: losses {losses}")
+    check(all(math.isfinite(v) for v in out["test_post"].elbo + out["test_prior"].elbo),
+          f"{name}: non-finite test ELBO")
+    for fname, shape in artifacts.items():
+        arr = np.load(os.path.join(rd, fname))
+        check(arr.shape == shape and np.isfinite(arr).all(), f"{name} {fname}: {arr.shape} != {shape}")
+    return losses
 
 
 def phase_request_times(device, clock: Clock, ckpts, data_dir: str, rehearse: bool, smi: str):
@@ -621,17 +705,9 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
         ]))
         print(f"== trained {model} on {backend}: 2 epochs in {time.perf_counter() - t0:.2f} s", flush=True)
 
+    artifacts = {name: (86,) if shape is None else (n_test,) + shape for name, shape in ARTIFACTS.items()}
     for (backend, model), out in results.items():
-        rd = out["out_dir"]
-        with open(os.path.join(rd, "model.log")) as f:
-            losses = [float(line.split("loss=")[1].split()[0]) for line in f if "loss=" in line]
-        check(len(losses) == 2 and all(math.isfinite(v) for v in losses), f"{backend} {model} losses {losses}")
-        check(all(math.isfinite(v) for v in out["test_post"].elbo + out["test_prior"].elbo),
-              f"{backend} {model}: non-finite test ELBO")
-        for name, shape in ARTIFACTS.items():
-            arr = np.load(os.path.join(rd, name))
-            want = (86,) if shape is None else (n_test,) + shape
-            check(arr.shape == want and np.isfinite(arr).all(), f"{backend} {model} {name}: {arr.shape} != {want}")
+        losses = _check_trained(f"{backend} {model}", out, artifacts)
         print(f"{backend:18s} {model:17s} epoch losses {losses}, test ELBO post {out['test_post'].elbo}, "
               f"artifacts ok", flush=True)
 
@@ -645,17 +721,56 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
     check(served["mu_50"].shape == (n_test, 3, 86) and np.isfinite(served["mu_50"]).all(), "trained model serve")
 
 
-def _first_step(spec, params, batch, ts):
+def _first_step(spec, params, batch, ts, lr: float):
     """The first dual step's main loss and gradients at ``params``, then the
     aux loss and gradients after the main update (svi.make_dual_step's
     order), at fixed seeds."""
-    cfg = load_cvs_config()
-    optim = svi.make_dual_optimizer(spec, params, cfg.learning_rate)
+    optim = svi.make_dual_optimizer(spec, params, lr)
     main_loss, aux_loss = svi.make_losses(spec, ts)
     loss_m, _, g_m = svi.value_and_grad(main_loss, params, 7, batch)
     params2, _ = optim.update_main(g_m, optim.init(params), params)
     loss_a, _, g_a = svi.value_and_grad(aux_loss, params2, 8, batch)
     return [loss_m, loss_a], tree_leaves(g_m) + tree_leaves(g_a)
+
+
+def first_step_and_times(clock: Clock, rehearse: bool, smi: str, paths: dict, prefix: str, spec_of, params, batch,
+                         ts, lr: float):
+    """First-step agreement across the backends (launches counted per
+    backend into ``paths``, as ``first step {prefix}{backend}``), then one
+    dual step timed per backend. ``spec_of(backend)`` is the model's spec on
+    that ODE backend."""
+    first = {b: counted(paths, f"first step {prefix}{b}", TRAINING[b], rehearse,
+                        lambda: _first_step(spec_of(b), params, batch, ts, lr))
+             for b in TRAINING}
+    losses_ref, grads_ref = first["semilinear_seq"]
+    scale = max(max(float(g.abs().max()) for g in grads_ref), 1.0)
+    for backend in ("semilinear", "semilinear_fused"):
+        losses, grads = first[backend]
+        loss_ratio = max(float((l - r).abs()) / (ATOL + RTOL * float(r.abs())) for l, r in zip(losses, losses_ref))
+        grad_err = max(float((g - r).abs().max()) for g, r in zip(grads, grads_ref)) / scale
+        leaf_err = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1.0) for g, r in zip(grads, grads_ref))
+        print(f"first dual step {prefix}{backend} vs semilinear_seq: losses {[float(l) for l in losses]} "
+              f"(error / tolerance {loss_ratio:.3f}); gradients max|diff| / max(max|g_seq|, 1) "
+              f"{grad_err:.3e} (tol {STEP_GRAD_TOL:g}; worst leaf by its own scale {leaf_err:.3e})", flush=True)
+        check(loss_ratio <= 1.0, f"first-step losses of {prefix}{backend} disagree with semilinear_seq")
+        check(grad_err < STEP_GRAD_TOL, f"first-step gradients of {prefix}{backend} disagree with semilinear_seq")
+
+    step_ms = {}
+    B = batch["observations"].shape[0]
+    for backend in TRAINING:
+        init_state, train_step, _ = svi.make_train_step(spec_of(backend), ts, lr, params)
+        state = init_state(params, 0)
+        for _ in range(2):  # warm-up
+            state, _m = train_step(state, batch)
+        clock.sync()
+        n = 2 if rehearse else 10
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _m = train_step(state, batch)
+        clock.sync()
+        step_ms[backend] = (time.perf_counter() - t0) * 1e3 / n
+        print(f"dual step {prefix}{backend:16s} B={B}: {step_ms[backend]:.3f} ms ({smi})", flush=True)
+    return step_ms
 
 
 def phase_train_checks(device, clock: Clock, data_dir: str, rehearse: bool, smi: str, paths: dict):
@@ -667,37 +782,99 @@ def phase_train_checks(device, clock: Clock, data_dir: str, rehearse: bool, smi:
     batch = {k: v[0] for k, v in batches.items()}
     ts = torch.arange(86.0, device=device)
     params = init_params(cvs_spec(cfg), 0, device=device)
-    first = {b: counted(paths, f"first step {b}", TRAINING[b], rehearse,
-                        lambda: _first_step(cvs_spec(_config(data_dir, b)), params, batch, ts))
-             for b in TRAINING}
-    losses_ref, grads_ref = first["semilinear_seq"]
-    scale = max(max(float(g.abs().max()) for g in grads_ref), 1.0)
-    for backend in ("semilinear", "semilinear_fused"):
-        losses, grads = first[backend]
-        loss_ratio = max(float((l - r).abs()) / (ATOL + RTOL * float(r.abs())) for l, r in zip(losses, losses_ref))
-        grad_err = max(float((g - r).abs().max()) for g, r in zip(grads, grads_ref)) / scale
-        leaf_err = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1.0) for g, r in zip(grads, grads_ref))
-        print(f"first dual step {backend} vs semilinear_seq: losses {[float(l) for l in losses]} "
-              f"(error / tolerance {loss_ratio:.3f}); gradients max|diff| / max(max|g_seq|, 1) "
-              f"{grad_err:.3e} (tol {STEP_GRAD_TOL:g}; worst leaf by its own scale {leaf_err:.3e})", flush=True)
-        check(loss_ratio <= 1.0, f"first-step losses of {backend} disagree with semilinear_seq")
-        check(grad_err < STEP_GRAD_TOL, f"first-step gradients of {backend} disagree with semilinear_seq")
+    return first_step_and_times(clock, rehearse, smi, paths, "", lambda b: cvs_spec(_config(data_dir, b)), params,
+                                batch, ts, cfg.learning_rate)
 
+
+def _workload_config(wl: str, backend: str, model: str = "Mechanistic"):
+    cfg = LOADERS[wl]()
+    cfg.ode_backend = backend
+    cfg.model = model
+    return cfg
+
+
+def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str, paths: dict):
+    """proc and challenge on their datasets: served, trained, first step
+    compared and one dual step timed per backend, each path's launches
+    counted into ``paths``. Returns the dual-step times per workload."""
     step_ms = {}
-    for backend in TRAINING:
-        spec = cvs_spec(_config(data_dir, backend))
-        init_state, train_step, _ = svi.make_train_step(spec, ts, cfg.learning_rate, params)
-        state = init_state(params, 0)
-        for _ in range(2):  # warm-up
-            state, _m = train_step(state, batch)
-        clock.sync()
-        n = 2 if rehearse else 10
-        t0 = time.perf_counter()
-        for _ in range(n):
-            state, _m = train_step(state, batch)
-        clock.sync()
-        step_ms[backend] = (time.perf_counter() - t0) * 1e3 / n
-        print(f"dual step {backend:16s} B={TRAIN_B}: {step_ms[backend]:.3f} ms ({smi})", flush=True)
+    for wl, w in WORKLOADS.items():
+        n, T, D = w["val_b"], w["T"], w["D"]
+        spec = w["spec"](_workload_config(wl, "semilinear"), n_time=T)
+        print(f"== {wl}: serving the val fold (B = {n}, T = {T}, ODE state {D}, latent {spec.latent_dim})",
+              flush=True)
+        ckpts = []
+        for seed in (0, 1):
+            path = os.path.join(workdir, f"{wl}-member{seed}.npz")
+            checkpoint.save(path, params_to_jax(init_params(spec, seed, device=device)))
+            ckpts.append(path)
+        requests = {
+            "posterior": ["--checkpoint", ckpts[0]],
+            "prior+classify": ["--checkpoint", ckpts[0], "--prior", "--classify"],
+            "ensemble-mean": ["--checkpoint", *ckpts, "--classify"],
+        }
+        outs = {}
+
+        def serve_all(backend):
+            for name, argv in requests.items():
+                outs[backend, name] = serve.main(
+                    ["--dataset", wl, *argv, "--split", "val", "--device", str(device),
+                     "--output", os.path.join(workdir, f"{wl}-{backend}-{name}.npz")],
+                    config=_workload_config(wl, backend),
+                )
+
+        for backend in TRAINING:
+            counted(paths, f"serve {wl} {backend}", FORWARD[backend], rehearse, lambda: serve_all(backend))
+        gauss_cfg = _workload_config(wl, "semilinear", "MechanisticGauss")
+        gauss_ckpt = os.path.join(workdir, f"{wl}-gauss.npz")
+        checkpoint.save(gauss_ckpt, params_to_jax(init_params(w["spec"](gauss_cfg, n_time=T), 2, device=device)))
+        outs["Gauss", "posterior"] = counted(paths, f"serve {wl} semilinear Gauss", FORWARD["semilinear"], rehearse,
+                                             lambda: serve.main(
+            ["--dataset", wl, "--checkpoint", gauss_ckpt, "--split", "val", "--device", str(device),
+             "--output", os.path.join(workdir, f"{wl}-gauss-posterior.npz")], config=gauss_cfg))
+        _check_served(outs, {"mu_50": (n, 4, T), "solution_xt": (n, T, D)}, f"{wl} ")
+
+        # training at full width on the full dataset, 2 epochs, the config's
+        # sample bands (2 draws in a rehearsal)
+        n_samples = 2 if rehearse else LOADERS[wl]().num_samples
+        artifacts = {"observations.npy": (n, 4, T), "times.npy": (T,),
+                     **({"treatments.npy": (n, 2), "devices.npy": (n, 7)} if wl == "proc"
+                        else {"shedding.npy": (n,), "symptoms.npy": (n,)})}
+        for tag in ("post", "prior"):
+            artifacts.update({f"{q}_{tag}.npy": (n, 4, T) for q in ("mu_25", "mu_50", "mu_75")})
+            artifacts.update({f"{q}_{tag}_sample.npy": (n, 4, T, n_samples) for q in ("mu_25", "mu_50", "mu_75")})
+            artifacts[f"solution_xt_{tag}.npy"] = (n, T, D)
+            artifacts[f"z_{tag}.npy"] = (n, spec.latent_dim)
+        results = {}
+        for backend, model in [(b, "Mechanistic") for b in TRAINING] + [("semilinear", "MechanisticGauss")]:
+            name = f"train {wl} {backend}" + (" Gauss" if model == "MechanisticGauss" else "")
+            argv = ["--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
+                    "--num-samples", str(n_samples), "--device", str(device),
+                    "--results-root", os.path.join(workdir, f"train-{wl}-{backend}-{model}")]
+            t0 = time.perf_counter()
+            out = results[backend, model] = counted(paths, name, TRAINING[backend], rehearse,
+                                                    lambda: w["driver"].main(argv))
+            losses = _check_trained(name, out, artifacts)
+            print(f"== {name}: 2 epochs, test and {n_samples}-draw bands in {time.perf_counter() - t0:.2f} s; "
+                  f"epoch losses {losses}, best epoch {out['best']['epoch']}, artifacts ok", flush=True)
+        rd = results["semilinear", "Mechanistic"]["out_dir"]
+        served = serve.main(
+            ["--dataset", wl, "--checkpoint", os.path.join(rd, "best_model.npz"), "--split", "val",
+             "--device", str(device), "--output", os.path.join(workdir, f"{wl}-trained-posterior.npz")],
+            config=_workload_config(wl, "semilinear"),
+        )
+        check(served["mu_50"].shape == (n, 4, T) and np.isfinite(served["mu_50"]).all(), f"{wl}: trained model serve")
+
+        # the first dual step across the backends, and one step timed, at the
+        # workload's training batch
+        cfg = _workload_config(wl, "semilinear")
+        _, splits, times = serve._build(wl, cfg, device)
+        batches = device_batch(stacked_minibatches(splits["train"], w["train_b"], shuffle=False), device)
+        batch = {k: v[0] for k, v in batches.items()}
+        params = init_params(spec, 0, device=device)
+        step_ms[wl] = first_step_and_times(
+            clock, rehearse, smi, paths, f"{wl} ", lambda b: w["spec"](_workload_config(wl, b), n_time=T), params,
+            batch, torch.as_tensor(times, device=device), cfg.learning_rate)
     return step_ms
 
 
@@ -711,11 +888,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_cvs_config()
     H, D = cfg.ode_hidden_dim, cfg.ode_state_dim
+    wl_cfgs = {wl: LOADERS[wl]() for wl in WORKLOADS}
     if not args.rehearse:
-        phase_build(H, D)
+        phase_build(sorted({(H, D)} | {(c.ode_hidden_dim, c.ode_state_dim) for c in wl_cfgs.values()}))
     clock = Clock(device)
-    ode = init_params(cvs_spec(cfg), 0, device=device)["decoder"]["ode"]
-    res = phase_kernels(device, clock, args.rehearse, ode, H, D)
+    odes = {"cvs": init_params(cvs_spec(cfg), 0, device=device)["decoder"]["ode"]}
+    for wl, w in WORKLOADS.items():
+        odes[wl] = init_params(w["spec"](wl_cfgs[wl], n_time=w["T"]), 0, device=device)["decoder"]["ode"]
+    res = phase_kernels(device, clock, args.rehearse, odes, H, D)
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
@@ -725,13 +905,15 @@ def main(argv=None):
         phase_request_times(device, clock, ckpts, data_dir, args.rehearse, smi)
         phase_training(device, workdir, data_dir, args.rehearse, paths)
         phase_train_checks(device, clock, data_dir, args.rehearse, smi, paths)
+        phase_workloads(device, clock, workdir, args.rehearse, smi, paths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     # times at the training shapes (B = 128, the training path); the
-    # serving and large shapes beside them. "launches" is the count of the
-    # kernel's main path, the full-width training run on its backend; every
-    # path's count stands beside it.
+    # serving and large shapes and the proc and challenge training shapes
+    # beside them. "launches" is the count of the kernel's main path, the
+    # CVS full-width training run on its backend; every path's count stands
+    # beside it.
     kernels = []
     for key, name, source, replaces, main_path in (
         ("K1", "affine_scan_fwd", K1_SOURCE, K1_REPLACES, "train semilinear"),
@@ -749,7 +931,8 @@ def main(argv=None):
                           for out, rule in TOLERANCE_RULES[key].items()},
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
-            **{label: res[key][label] for label in ("serve", "big", "affine_scan_call") if label in res[key]},
+            **{label: res[key][label] for label in ("serve", "big", "affine_scan_call", "proc_train",
+                                                     "challenge_train") if label in res[key]},
         })
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     if args.rehearse:

@@ -94,11 +94,13 @@ constexpr size_t smem_floats(int chunk, int warps) {
          static_cast<size_t>(warps) * (kParams + H);
 }
 
-// Blocks per SM that ptxas must leave room for. 4 caps it at 128 registers a
-// thread, which euler needs to build without spills and midpoint and heun
-// reach anyway; rk4's stages need more.
+// Blocks per SM that ptxas must leave room for. At D = 5, 4 caps it at 128
+// registers a thread, which euler needs to build without spills and midpoint
+// and heun reach anyway. At D = 8 (proc) midpoint and heun spilled 92-96
+// bytes under that cap; 3 (168 registers) leaves room for them. rk4's stages
+// need more (at D = 8 it spills 28 bytes at the 255-register limit).
 template <int M>
-constexpr int kBwdMinBlocks = M == kRk4 ? 1 : 4;
+constexpr int kBwdMinBlocks = M == kRk4 ? 1 : (D <= 5 ? 4 : 3);
 
 template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kBwdMinBlocks<M>)

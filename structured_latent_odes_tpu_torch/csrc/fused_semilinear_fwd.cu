@@ -55,12 +55,14 @@ namespace {
 
 using namespace slode;
 
-// Blocks per SM that ptxas must leave room for. 6 caps it at 85 registers a
-// thread: euler, midpoint and heun then build without spills, 8 blocks of the
-// CVS grid's 96 threads fit on an SM, and that was the fastest setting tried
-// on the H100 (against 1, 7 and none). rk4's stages need more registers.
+// Blocks per SM that ptxas must leave room for. At D = 5, 6 caps it at 85
+// registers a thread: euler, midpoint and heun then build without spills, 8
+// blocks of the CVS grid's 96 threads fit on an SM, and that was the fastest
+// setting tried on the H100 (against 1, 7 and none). A wider state needs
+// more: at D = 8 (proc) the cap of 80 that 6 gives spilled 12-44 bytes, and 4
+// (128 registers) spills none. rk4's stages need more registers.
 template <int M>
-constexpr int kFwdMinBlocks = M == kRk4 ? 1 : 6;
+constexpr int kFwdMinBlocks = M == kRk4 ? 1 : (D <= 5 ? 6 : 4);
 
 template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kFwdMinBlocks<M>)

@@ -10,12 +10,13 @@ from structured_latent_odes_tpu_torch.models.slode import (
     sample_prior_z,
 )
 from structured_latent_odes_tpu_torch.models.spec import LabelSpec, LatentBlock, ModelSpec
-from structured_latent_odes_tpu_torch.models.zoo import cvs_spec
+from structured_latent_odes_tpu_torch.models.zoo import challenge_spec, cvs_spec, proc_spec
 
 __all__ = [
     "LabelSpec",
     "LatentBlock",
     "ModelSpec",
+    "challenge_spec",
     "classifier",
     "cvs_spec",
     "elbo_aux",
@@ -24,6 +25,7 @@ __all__ = [
     "init_params",
     "param_masks",
     "prior_params",
+    "proc_spec",
     "recon",
     "sample_prior_z",
 ]

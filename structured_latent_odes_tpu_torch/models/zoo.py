@@ -1,6 +1,6 @@
-"""Concrete model specs (the JAX package's ``models/zoo.py``). This slice
-ports CVS, quantile (``Mechanistic``) and Gauss (``MechanisticGauss``)
-variants; proc and challenge wait for ROADMAP A13 and A12."""
+"""Concrete model specs (the JAX package's ``models/zoo.py``): CVS, proc and
+challenge, each with the quantile (``Mechanistic``) and Gauss
+(``MechanisticGauss``) likelihoods."""
 
 from __future__ import annotations
 
@@ -76,6 +76,72 @@ def cvs_spec(config, n_time: int = None) -> ModelSpec:
         ),
         prior="separate",
         prior_input_order=("iext", "rtpr"),
+        likelihood=_likelihood(config),
+        quantile_diff=config.quantile_diff,
+        aux_in_model=False,
+        aux_loss_multiplier=float(config.aux_loss_multiplier),
+        u_hidden_dim=config.u_hidden_dim,
+        encoder=encoder,
+        decoder=decoder,
+    )
+
+
+def proc_spec(config, n_time: int) -> ModelSpec:
+    """Latent [z_aR, z_aS, z_C12, z_C6, z_eps]; joint conditional prior over
+    the 9-dim input [aR, aS, C12, C6]; OneHotCategorical + Laplace aux heads
+    scored in both losses."""
+    blocks = (
+        LatentBlock("aR", config.z_aR_dim),
+        LatentBlock("aS", config.z_aS_dim),
+        LatentBlock("C12", config.z_C12_dim),
+        LatentBlock("C6", config.z_C6_dim),
+        LatentBlock("epsilon", config.z_epsilon_dim),
+    )
+    encoder, decoder = _common(config, sum(b.dim for b in blocks), n_time)
+    return ModelSpec(
+        name="proc",
+        obs_dim=config.obs_dim,
+        n_time=n_time,
+        blocks=blocks,
+        labels=(
+            LabelSpec("aR", config.aR_dim, "onehot", "aR"),
+            LabelSpec("aS", config.aS_dim, "onehot", "aS"),
+            LabelSpec("C12", config.C12_dim, "continuous", "C12"),
+            LabelSpec("C6", config.C6_dim, "continuous", "C6"),
+        ),
+        prior="joint",
+        prior_input_order=("aR", "aS", "C12", "C6"),
+        likelihood=_likelihood(config),
+        quantile_diff=config.quantile_diff,
+        aux_in_model=True,
+        aux_loss_multiplier=float(config.aux_loss_multiplier),
+        u_hidden_dim=config.u_hidden_dim,
+        encoder=encoder,
+        decoder=decoder,
+    )
+
+
+def challenge_spec(config, n_time: int = 142) -> ModelSpec:
+    """Latent [z_shedding, z_symptoms, z_eps]; joint prior over
+    [symptoms, shedding] (note the swapped input order, as in the reference);
+    Bernoulli aux heads scored only in the aux loss."""
+    blocks = (
+        LatentBlock("shedding", config.z_shedding_dim),
+        LatentBlock("symptoms", config.z_symptoms_dim),
+        LatentBlock("epsilon", config.z_epsilon_dim),
+    )
+    encoder, decoder = _common(config, sum(b.dim for b in blocks), n_time)
+    return ModelSpec(
+        name="challenge",
+        obs_dim=config.obs_dim,
+        n_time=n_time,
+        blocks=blocks,
+        labels=(
+            LabelSpec("shedding", config.shedding_dim, "bernoulli", "shedding"),
+            LabelSpec("symptoms", config.symptoms_dim, "bernoulli", "symptoms"),
+        ),
+        prior="joint",
+        prior_input_order=("symptoms", "shedding"),
         likelihood=_likelihood(config),
         quantile_diff=config.quantile_diff,
         aux_in_model=False,

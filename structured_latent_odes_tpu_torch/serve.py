@@ -10,9 +10,12 @@ Library use::
 
 CLI (checkpoints in the JAX package's format, written by either package)::
 
-    python -m structured_latent_odes_tpu_torch.serve --dataset cvs \\
+    python -m structured_latent_odes_tpu_torch.serve --dataset cvs|proc|challenge \\
         --checkpoint results_Mechanistic/best_model.npz \\
         --split test --output preds.npz [--prior] [--classify] [--device cuda]
+
+proc and challenge have no test split: ``--split test`` serves their val
+fold, as in the JAX package.
 
 Several checkpoints serve the ensemble-mean predictor: trajectory outputs are
 averaged across members, ``l1`` is recomputed from the averaged ``mu_50``,
@@ -28,23 +31,36 @@ import argparse
 import numpy as np
 import torch
 
+from structured_latent_odes_tpu_torch import training_challenge, training_cvs
+from structured_latent_odes_tpu_torch.data import proc as proc_data
 from structured_latent_odes_tpu_torch.data.configs import LOADERS
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
-from structured_latent_odes_tpu_torch.models import classifier, cvs_spec, init_params, recon
+from structured_latent_odes_tpu_torch.models import (
+    challenge_spec,
+    classifier,
+    cvs_spec,
+    init_params,
+    proc_spec,
+    recon,
+)
 from structured_latent_odes_tpu_torch.train import checkpoint
-from structured_latent_odes_tpu_torch.training_cvs import build_splits
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
-
-_NOT_PORTED = {"proc": "ROADMAP A13", "challenge": "ROADMAP A12"}
 
 
 def _build(dataset: str, config, device):
-    """Returns (spec, splits_in_model_layout, times)."""
-    if dataset != "cvs":
-        raise ValueError(dataset)
-    splits, _ = build_splits(config, device=device)
-    times = np.arange(0.0, config.seq_len * config.delta_t, config.delta_t, dtype=np.float32)
-    return cvs_spec(config), splits, times
+    """Returns (spec, splits_in_model_layout, times). ``device`` is where a
+    missing CVS dataset is generated."""
+    if dataset == "cvs":
+        splits, _ = training_cvs.build_splits(config, device=device)
+        times = np.arange(0.0, config.seq_len * config.delta_t, config.delta_t, dtype=np.float32)
+        return cvs_spec(config), splits, times
+    if dataset == "proc":
+        splits, times = proc_data.build_splits(config)
+        return proc_spec(config, n_time=len(times)), splits, times
+    if dataset == "challenge":
+        splits, times = training_challenge.build_splits(config)
+        return challenge_spec(config, n_time=len(times)), splits, times
+    raise ValueError(dataset)
 
 
 def _like(spec):
@@ -55,8 +71,6 @@ def _like(spec):
 def load_model(dataset: str, checkpoint_path: str, config=None, device="cuda"):
     """Restore a trained model. Returns (spec, params, times, splits)."""
     device = resolve_device(device)
-    if dataset in _NOT_PORTED:
-        raise NotImplementedError(f"dataset {dataset!r} is not ported yet ({_NOT_PORTED[dataset]})")
     config = config or LOADERS[dataset]()
     spec, splits, times = _build(dataset, config, device)
     params = params_from_jax(checkpoint.restore(checkpoint_path, _like(spec)), device)
@@ -64,17 +78,18 @@ def load_model(dataset: str, checkpoint_path: str, config=None, device="cuda"):
 
 
 def make_predict_fns(spec, times, device="cuda"):
-    """(recon_fn, classify_fn) for serving, on tensors on ``device``."""
+    """(recon_fn, classify_fn) for serving, on tensors on ``device``. Each
+    takes the ``noise=`` of :func:`recon` and :func:`classifier`."""
     full_fp32()
     ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=resolve_device(device))
 
     @torch.inference_mode()
-    def recon_fn(params, seed, batch, is_post):
-        return recon(spec, params, seed, batch, ts, is_post)
+    def recon_fn(params, seed, batch, is_post, noise=None):
+        return recon(spec, params, seed, batch, ts, is_post, noise=noise)
 
     @torch.inference_mode()
-    def classify_fn(params, seed, obs):
-        return classifier(spec, params, seed, obs)
+    def classify_fn(params, seed, obs, noise=None):
+        return classifier(spec, params, seed, obs, noise=noise)
 
     return recon_fn, classify_fn
 

@@ -62,11 +62,16 @@ def build_splits(config, device="cuda"):
     return out, norm_params
 
 
-def train(config, device="cuda"):
+def check_ported(config) -> None:
+    """Raise for the options every driver has that are not ported yet."""
     if config.get("plot", True):
         raise NotImplementedError("plotting is not ported yet (ROADMAP A11): pass --no-plot")
     if int(config.get("prior_refit_epochs") or 0):
         raise NotImplementedError("--prior-refit-epochs is not ported yet (ROADMAP A16)")
+
+
+def train(config, device="cuda"):
+    check_ported(config)
     device = resolve_device(device)
     full_fp32()
     print(config.to_json())
@@ -150,8 +155,9 @@ def train(config, device="cuda"):
     return {"best": best, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
-def parse_args(argv=None):
-    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags the three drivers share (the JAX drivers' common set), and
+    ``--device``."""
     p.add_argument("--model", choices=["Mechanistic", "MechanisticGauss"], default=None)
     p.add_argument("--num-epochs", type=int, default=None)
     p.add_argument("--aux-mult-final", type=float, default=None,
@@ -183,16 +189,12 @@ def parse_args(argv=None):
                    help="shard the batch over N devices (not ported yet: ROADMAP A17)")
     p.add_argument("--time-parallel", type=int, default=None,
                    help="shard the ODE horizon over K devices (not ported yet: ROADMAP A17)")
-    p.add_argument("--quantile-diff", type=float, default=None)
     p.add_argument("--num-particles", type=int, default=None,
                    help="ELBO particles averaged per step (Trace_ELBO(num_particles))")
-    p.add_argument("--solver", default=None)
     p.add_argument("--ode-backend", default=None)
     p.add_argument("--ode-rtol", type=float, default=None)
     p.add_argument("--ode-atol", type=float, default=None)
     p.add_argument("--data-path", default=None)
-    p.add_argument("--reference-data-dir", default=None,
-                   help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")
     p.add_argument("--results-root", default=".")
     p.add_argument("--no-plot", action="store_true", help="required until plotting is ported (ROADMAP A11)")
     p.add_argument("--eval-every", type=int, default=1,
@@ -206,17 +208,26 @@ def parse_args(argv=None):
     p.add_argument("--no-eval-train", action="store_true",
                    help="skip per-epoch train-split statistics (faster)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
+    return p
+
+
+def parse_args(argv=None):
+    p = add_common_args(argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter))
+    p.add_argument("--quantile-diff", type=float, default=None)
+    p.add_argument("--solver", default=None)
+    p.add_argument("--reference-data-dir", default=None,
+                   help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    config = load_cvs_config()
+def configure(config, args):
+    """Apply the parsed flags to ``config`` as the JAX drivers' ``main`` does
+    (every flag named like a config key overrides it, then the run options),
+    and open ``model.log`` in the results directory."""
     for k, v in vars(args).items():
         if v is not None and k in config:
             config[k] = v
-    if args.reference_data_dir:
-        config.reference_data_dir = args.reference_data_dir
     config.results_root = args.results_root
     config.plot = not args.no_plot
     config.eval_train_stats = not args.no_eval_train
@@ -231,9 +242,15 @@ def main(argv=None):
     config.checkpoint_every = args.checkpoint_every
     config.resume = args.resume
     config.profile_dir = args.profile_dir
+    setup_logging(artifacts.results_dir(config.model, config.results_root))
 
-    out_dir = artifacts.results_dir(config.model, config.results_root)
-    setup_logging(out_dir)
+
+def main(argv=None):
+    args = parse_args(argv)
+    config = load_cvs_config()
+    if args.reference_data_dir:
+        config.reference_data_dir = args.reference_data_dir
+    configure(config, args)
     return train(config, device=args.device)
 
 

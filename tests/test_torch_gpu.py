@@ -23,12 +23,14 @@ import numpy as np
 import pytest
 import torch
 
-from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
-from structured_latent_odes_tpu_torch.models import cvs_spec, init_params, recon
+from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_config
+from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec, recon
 from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state
 from structured_latent_odes_tpu_torch.ops import fused_step, recurrence
 
 pytestmark = pytest.mark.gpu
+
+SPECS = {"proc": proc_spec, "challenge": challenge_spec}
 
 
 @pytest.fixture
@@ -44,8 +46,11 @@ def cuda():
 # trajectories, where the last tile's run ends off a 16-byte boundary and the
 # threads copy its tail); 199 steps (the backward's tile needs more than the
 # default 48 KB of shared memory); D = 8; the serving, training and large
-# batches.
-K1_SHAPES = [(1, 1, 5), (1, 85, 5), (3, 85, 5), (100, 85, 5), (128, 85, 5), (130, 199, 5), (7, 85, 8), (16411, 85, 5)]
+# batches; and the proc and challenge workloads' shapes: D = 8 over 99 steps
+# at the training batch (36) and the val fold (78), 141 steps at challenge's
+# padded training batch (32) and its val fold (7).
+K1_SHAPES = [(1, 1, 5), (1, 85, 5), (3, 85, 5), (100, 85, 5), (128, 85, 5), (130, 199, 5), (7, 85, 8), (16411, 85, 5),
+             (36, 99, 8), (78, 99, 8), (32, 141, 5), (7, 141, 5)]
 
 
 def _k1_inputs(cuda, Bt, T, D):
@@ -67,10 +72,11 @@ def test_affine_scan_kernel_matches_plain(cuda, shape):
     assert torch.equal(out, recurrence.affine_scan_batched_plain(A, B, x0))
 
 
-def _fused_args(cuda, grid, B=100, T=86):
-    spec = cvs_spec(load_cvs_config())
+def _fused_args(cuda, grid, B=100, T=86, dataset="cvs"):
+    cfg = LOADERS[dataset]()
+    spec = cvs_spec(cfg) if dataset == "cvs" else SPECS[dataset](cfg, n_time=T)
     ode = init_params(spec, 0, device=cuda)["decoder"]["ode"]
-    z = torch.randn((B, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
+    z = torch.randn((B, spec.latent_dim), generator=torch.Generator().manual_seed(1)).to(cuda)
     x0 = initialize_state(ode, z)
     if grid == "uniform":
         ts = torch.arange(float(T), device=cuda)
@@ -209,6 +215,32 @@ def test_fused_kernels_edge_shapes(cuda, method, B, T):
     bargs = (*args[:6], xs, g, args[7])
     outs = fused_step.fused_semilinear_bwd(*bargs, method)
     torch.cuda.synchronize()
+    _assert_bwd_close(outs, fused_step.fused_semilinear_bwd_plain(*bargs, method))
+
+
+# The proc and challenge workloads' shapes at their widths: proc's ODE state
+# D = 8 (its own (H, D) = (25, 8) libraries) over T = 100 at the training
+# batch and the val fold; challenge's T = 142 (141 steps, two passes of up to
+# 128) at its padded training batch and its val fold. Uniform grids, as the
+# workloads run them.
+WORKLOAD_SHAPES = [("proc", 36, 100), ("proc", 78, 100), ("challenge", 32, 142), ("challenge", 7, 142)]
+
+
+@pytest.mark.parametrize("shape", WORKLOAD_SHAPES, ids=[f"{d}-B{b}-T{t}" for d, b, t in WORKLOAD_SHAPES])
+@pytest.mark.parametrize("method", fused_step.METHODS)
+def test_fused_kernels_workload_shapes(cuda, method, shape):
+    dataset, B, T = shape
+    args = _fused_args(cuda, "uniform", B, T, dataset)
+    assert args[0].shape == (B, 25) and args[6].shape == (B, 8 if dataset == "proc" else 5)
+    fwd, bwd = fused_step.fused_semilinear_fwd.launches, fused_step.fused_semilinear_bwd.launches
+    xs = fused_step.fused_semilinear_fwd(*args, method)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs, fused_step.fused_semilinear_fwd_plain(*args, method), rtol=1e-5, atol=1e-5)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    bargs = (*args[:6], xs, g, args[7])
+    outs = fused_step.fused_semilinear_bwd(*bargs, method)
+    torch.cuda.synchronize()
+    assert (fused_step.fused_semilinear_fwd.launches, fused_step.fused_semilinear_bwd.launches) == (fwd + 1, bwd + 1)
     _assert_bwd_close(outs, fused_step.fused_semilinear_bwd_plain(*bargs, method))
 
 

@@ -4,17 +4,21 @@ config=cfg)``), from checkpoints written by the JAX package. Checks the
 ensemble mean of two checkpoints, the averaged predictor's own ``l1``, the
 majority label vote and its tie-break against the JAX package's, that the
 port loads the same splits and parameters as the JAX ``load_model``, and that
-the served backends agree."""
+the served backends agree. proc and challenge are served from their datasets
+in ``datasets/`` and held against the JAX serve at equal draws."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from structured_latent_odes_tpu import serve as jax_serve
+from structured_latent_odes_tpu.data.configs import LOADERS as JAX_LOADERS
 from structured_latent_odes_tpu.data.configs import load_cvs_config as jax_cvs_config
 from structured_latent_odes_tpu.models import cvs_spec as jax_cvs_spec
 from structured_latent_odes_tpu.models import init_params as jax_init
+from structured_latent_odes_tpu.prob import sample_normal_ps as jax_sample
 from structured_latent_odes_tpu.train import checkpoint as jax_ckpt
 from structured_latent_odes_tpu_torch import serve
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
@@ -122,7 +126,55 @@ def test_default_device_fails_loudly_without_a_card(served):
                     "--output", str(tmp_path / "x.npz")], config=pc)
 
 
-@pytest.mark.parametrize("dataset,item", [("proc", "A13"), ("challenge", "A12")])
-def test_unported_datasets_name_their_roadmap_item(dataset, item):
-    with pytest.raises(NotImplementedError, match=item):
-        serve.load_model(dataset, "unused.npz", device="cpu")
+def _draws(key, sids, sites):
+    """JAX's standard-normal draws per (name, dim) site under the sequential
+    ``key, sub = split(key)`` of its model functions."""
+    noise = {}
+    for name, dim in sites:
+        key, sub = jax.random.split(key)
+        zeros = jnp.zeros((sids.shape[0], dim))
+        noise[name] = torch.tensor(np.asarray(jax_sample(sub, sids, zeros, jnp.ones_like(zeros))))
+    return noise
+
+
+@pytest.mark.parametrize("dataset", ["proc", "challenge"])
+def test_served_workloads_match_jax(dataset, tmp_path):
+    """proc and challenge served on the CPU: serve.main on the val fold (the
+    JAX package serves it for --split test), then the port's predict
+    functions against the JAX serve's at equal draws, posterior and prior
+    recon within 1e-5 abs + 1e-6 relative (tests/test_torch_slode.py), labels
+    exactly and the continuous heads' loc to the same tolerance."""
+    jspec, _, _ = jax_serve._build(dataset, JAX_LOADERS[dataset]())
+    ckpt = str(tmp_path / "member.npz")
+    jax_ckpt.save(ckpt, jax_init(jax.random.key(0), jspec))
+    out = serve.main(["--dataset", dataset, "--checkpoint", ckpt, "--classify", "--device", "cpu",
+                      "--output", str(tmp_path / "preds.npz")])
+    n, t = {"proc": (78, 100), "challenge": (7, 142)}[dataset]
+    assert out["mu_50"].shape == (n, 4, t) and all(np.isfinite(v).all() for v in out.values())
+    assert {f"pred_{label.name}" for label in jspec.labels} <= set(out)
+
+    spec, params, times, splits = serve.load_model(dataset, ckpt, device="cpu")
+    _, jparams, jtimes, jsplits = jax_serve.load_model(dataset, ckpt)
+    recon_fn, classify_fn = serve.make_predict_fns(spec, times, device="cpu")
+    jrecon_fn, jclassify_fn = jax_serve.make_predict_fns(jspec, jtimes)
+    batch = {k: torch.as_tensor(v) for k, v in splits["val"].items()}
+    jbatch = {k: jnp.asarray(v) for k, v in jsplits["val"].items()}
+    sids = jnp.arange(n)
+    key = jax.random.key(3)
+    prior_sites = [("z_u", jspec.z_u_dim), ("epsilon", jspec.epsilon_block.dim)]
+    for is_post, noise in ((True, _draws(key, sids, [("z", jspec.latent_dim)])),
+                           (False, _draws(jax.random.split(key)[1], sids, prior_sites))):
+        ref = jrecon_fn(jparams, key, jbatch, is_post)
+        ours = recon_fn(params, 0, batch, is_post, noise=noise)
+        for k in ref:
+            np.testing.assert_allclose(ours[k].numpy(), np.asarray(ref[k]), rtol=1e-6, atol=TOL,
+                                       err_msg=f"{is_post}:{k}")
+    dims = {b.name: b.dim for b in jspec.blocks}
+    noise = _draws(key, sids, [(label.name, dims[label.block]) for label in jspec.labels])
+    ref = jclassify_fn(jparams, key, jbatch["observations"])
+    ours = classify_fn(params, 0, batch["observations"], noise=noise)
+    for label in jspec.labels:
+        if label.kind == "continuous":
+            np.testing.assert_allclose(ours[label.name].numpy(), np.asarray(ref[label.name]), rtol=1e-6, atol=TOL)
+        else:
+            np.testing.assert_array_equal(ours[label.name].numpy(), np.asarray(ref[label.name]))
