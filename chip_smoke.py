@@ -10,8 +10,9 @@ Phases, each fatal on any fault:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source and width pair, all
-   started together: K2 and K3 at CVS's and challenge's (H, D) = (25, 5) and
-   proc's (25, 8); prints nvcc's -Xptxas -v report.
+   started together: K2 and K3 (single-member and member-batched launches
+   share a library) at CVS's and challenge's (H, D) = (25, 5) and proc's
+   (25, 8); prints nvcc's -Xptxas -v report.
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
    versions on the card: K1 and K1-bwd bit for bit at the edges of their
@@ -26,7 +27,17 @@ Phases, each fatal on any fault:
    each launch (queued behind a device-side sleep, so no host gap falls
    inside), and the wrapper call (argument preparation included) and the
    plain version with CUDA events after warm-up; and the whole affine_scan
-   call at B = 128, forward alone and forward plus backward.
+   call at B = 128, forward alone and forward plus backward. Then C1: K1
+   and K1-bwd through the model's entry past their shared-memory cap, at
+   T = 4096 with D = 5 and D = 8 (the time axis split into runs), bit for
+   bit the plain versions, their launches per call and times, and one
+   training step of the decoder ODE on semilinear at that horizon and
+   width (gradient through the split K1/K1-bwd, an Adam update); and the
+   member-batched K2 and K3 (an ensemble's members on blockIdx.y) at the
+   CVS sweep's shape (S = 10, B = 128, (H, D) = (25, 5)) and the proc
+   sweep's (S = 5, B = 36, (25, 8)), midpoint: each member bit for bit a
+   single-member launch, within K2's and K3's tolerances of the plain
+   versions, timed beside them, the bound at S*B and S single-member calls.
 4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
@@ -59,8 +70,22 @@ Phases, each fatal on any fault:
    checkpoint served; the first dual step compared across the backends; one
    dual step timed per backend (proc at B = 36, challenge at B = 32). Launch
    counts are zeroed and read per backend's requests and per run, as for CVS.
+7. ensembles: one stacked dual step (svi.make_stacked_dual_step) at the CVS
+   training batch on semilinear and semilinear_fused, with its kernel
+   launches (equal at S = 1 and S = 10) and device operations (profiler)
+   at S = 1, 2 and 10, its time at S = 1 and 10 and ten sequential dual
+   steps beside it; then sweep.run at full width: CVS over seeds 12..21 on
+   semilinear and semilinear_fused, proc over seeds 12..16 on
+   semilinear_fused, one epoch beyond epoch 0, launches counted per sweep.
+   Every member's artifacts exist and are finite, sweep.json parses,
+   deploy_mean/ is written, and members 0 and S-1 match the port's
+   sequential CLI run at their seeds (final and best params within rtol
+   2e-4, atol 1e-6; best epoch equal; criterion within rtol 2e-4).
 
-TF32 stays off for matrix products and cuDNN convolutions throughout.
+TF32 stays off for matrix products and cuDNN convolutions throughout;
+cuDNN runs its deterministic algorithms in training, sweeps and the timed
+dual steps, as the trainers ask, and its fastest ones in serving
+(utils/device.py::full_fp32).
 
 Prints a {"kernels": [...]} line, then the nvidia-smi line, then the last
 line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
@@ -82,19 +107,30 @@ import time
 import numpy as np
 import torch
 
-from structured_latent_odes_tpu_torch import serve, training_challenge, training_cvs, training_proc
+from structured_latent_odes_tpu_torch import serve, sweep, training_challenge, training_cvs, training_proc
 from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_config
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
-from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state
+from structured_latent_odes_tpu_torch.nn.ode_model import OdeModelSpec, initialize_state, ode_model_init, solve_ode
 from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
-from structured_latent_odes_tpu_torch.train import checkpoint, svi
+from structured_latent_odes_tpu_torch.prob import fold_seed
+from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
-from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from structured_latent_odes_tpu_torch.utils.device import full_fp32
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+# the card's name and power limit as nvidia-smi reports them, printed beside
+# every time (set by main)
+CARD = {"smi": ""}
+T0 = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """The start of a phase, with the seconds since the script began."""
+    print(f"== [{time.perf_counter() - T0:.1f} s] {name}", flush=True)
 
 # H100 SXM data sheet, at the 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -122,6 +158,7 @@ WGRAD_RTOL = 1e-5
 # both ratios, and the kernels line the one held.
 DU_ATOL = 1e-5
 # each kernel's outputs: (name, rule as printed in the kernels line)
+MEMBER_RULE = "torch.equal(member s, a single-member launch on member s's slices): bit for bit"
 TOLERANCE_RULES = {
     "K1": {"xs": K1_RULE},
     "K1-bwd": {name: K1_RULE for name in ("dA", "dB", "dx0")},
@@ -133,6 +170,10 @@ TOLERANCE_RULES = {
         "dx0": f"|out - ref| <= {ATOL:g} + {RTOL:g}*|ref|, elementwise",
     },
 }
+# the member-batched launches: each member bit for bit a single-member
+# launch, and against the plain versions under K2's and K3's rules
+TOLERANCE_RULES["K2-members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["K2"]}
+TOLERANCE_RULES["K3-members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["K3"]}
 # first-step gradients across the three backends: max|g - g_seq| /
 # max(max|g_seq|, 1) over every leaf, the JAX package's own fused-vs-autodiff
 # bound (tests/test_fused_step.py): float32 accumulation order
@@ -170,7 +211,18 @@ KERNELS = {  # key: wrapper, which counts its launches
     "K1-bwd": recurrence.affine_scan_bwd,
     "K2": fused_step.fused_semilinear_fwd,
     "K3": fused_step.fused_semilinear_bwd,
+    # the same kernels launched for an ensemble's S members at once (member
+    # on blockIdx.y), through their own wrappers and counts
+    "K2-members": fused_step.fused_semilinear_fwd_members,
+    "K3-members": fused_step.fused_semilinear_bwd_members,
 }
+# the sweeps' member-batched launches: (S, B, T) of the CVS sweep (ten
+# members, the training batch, (H, D) = (25, 5)) and the proc sweep (five
+# members, its training batch 36, (25, 8))
+MEMBER_SHAPES = {"cvs": (10, TRAIN_B, 86), "proc": (5, 36, 100)}
+# K1 and K1-bwd past their shared-memory cap (C1): the model's entry splits
+# the time axis into runs; held bit for bit at T = 4096 steps
+LONG_T = 4096
 
 
 def fail(msg: str):
@@ -216,13 +268,14 @@ class Clock:
         return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(key: str, fn, iters: int = 20) -> float:
-    """Device time per launch of kernel ``key`` over ``iters`` calls of
-    ``fn``: a CUDA event pair recorded on the stream right before and after
-    each launch, without the wrapper's other work. A device-side sleep holds
-    the stream back until every call is enqueued, so no pair waits on the
-    host; the sleep doubles until the host finishes enqueueing inside it. The
-    wrapper's count must rise by exactly ``iters``, each launch bracketed."""
+def kernel_device_ms(key: str, fn, iters: int = 20, per_call: int = 1) -> float:
+    """Device time per call of ``fn`` of kernel ``key``, over ``iters``
+    calls, each making ``per_call`` launches: the sum of a call's launches,
+    each between a CUDA event pair recorded on the stream right before and
+    after it, without the wrapper's other work. A device-side sleep holds the stream back until every call is
+    enqueued, so no pair waits on the host; the sleep doubles until the host
+    finishes enqueueing inside it. The wrapper's count must rise by exactly
+    ``iters * per_call``, each launch bracketed."""
     wrapper = KERNELS[key]
     launch = _build.launch
     pairs = []
@@ -237,7 +290,7 @@ def kernel_device_ms(key: str, fn, iters: int = 20) -> float:
     fn()
     torch.cuda.synchronize()
     cycles = 1 << 22
-    for _ in range(6):
+    for _ in range(9):
         pairs.clear()
         before = wrapper.launches
         sleep0, sleep1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -254,7 +307,8 @@ def kernel_device_ms(key: str, fn, iters: int = 20) -> float:
             _build.launch = launch
         torch.cuda.synchronize()
         n = wrapper.launches - before
-        check(n == iters == len(pairs), f"{key}: {n} launches counted, {len(pairs)} bracketed, expected {iters}")
+        check(n == iters * per_call == len(pairs),
+              f"{key}: {n} launches counted, {len(pairs)} bracketed, expected {iters * per_call}")
         if host_ms < sleep0.elapsed_time(sleep1):
             return sum(a.elapsed_time(b) for a, b in pairs) / iters
         cycles *= 2
@@ -279,17 +333,20 @@ def k_params(H: int, D: int) -> int:
     return H + 2 * D * H + 2 * D
 
 
-def k2_bound_ms(B: int, T: int, S: int, H: int, D: int):
-    nbytes = 4 * (B * H + B * D + k_params(H, D) + (T - 1) * (S + 1) + T * D * B)
+def k2_bound_ms(B: int, T: int, S: int, H: int, D: int, members: int = 1):
+    """B trajectories in all (over ``members`` weight sets)."""
+    nbytes = 4 * (B * H + B * D + members * k_params(H, D) + (T - 1) * (S + 1) + T * D * B)
     ops = B * (T - 1) * S * (4 * D * H + 2 * H)
     return bound(nbytes, ops)
 
 
-def k3_bound_ms(B: int, T: int, S: int, H: int, D: int):
+def k3_bound_ms(B: int, T: int, S: int, H: int, D: int, members: int = 1):
     """u, the weights, the tables, xs and g read once; du, dx0 and the weight
-    gradients written once. The stage recompute is S(4DH + 2H) flops per
-    trajectory-step and the VJP S(8DH + 4H)."""
-    nbytes = 4 * (B * H + k_params(H, D) + (T - 1) * (S + 1) + 2 * T * D * B + B * H + B * D + k_params(H, D))
+    gradients written once (B trajectories in all, over ``members`` weight
+    sets). The stage recompute is S(4DH + 2H) flops per trajectory-step and
+    the VJP S(8DH + 4H)."""
+    nbytes = 4 * (B * H + members * k_params(H, D) + (T - 1) * (S + 1) + 2 * T * D * B + B * H + B * D
+                  + members * k_params(H, D))
     ops = B * (T - 1) * S * (12 * D * H + 6 * H)
     return bound(nbytes, ops)
 
@@ -323,21 +380,34 @@ def phase_build(widths):
         defines = (("SLODE_H", H), ("SLODE_D", D))
         targets += [("fused_semilinear_fwd", defines), ("fused_semilinear_bwd", defines)]
     logs = _build.build(targets)
-    print(f"== build: {len(logs)} libraries in {time.perf_counter() - t0:.1f} s (into {_build.BUILD_DIR})")
+    print(f"== build: {len(logs)} libraries in {time.perf_counter() - t0:.1f} s (into {_build.BUILD_DIR}) "
+          f"({CARD['smi']})")
     for (name, defines), log in logs.items():
         print(f"-- nvcc -Xptxas -v: {name} {dict(defines)}\n{log.strip()}", flush=True)
 
 
-def _time(clock: Clock, rehearse: bool, key: str, call, plain, bound_ms, shape: str, plain_iters: int = 3):
-    """Kernel device time, wrapper call and plain version (CUDA events),
-    beside the bound."""
-    wrapper_ms = clock.ms(call, iters=20)
-    ms = wrapper_ms if rehearse else kernel_device_ms(key, call)
+def _time(clock: Clock, rehearse: bool, key: str, call, plain, bound_ms, shape: str, plain_iters: int = 3,
+          per_call: int = 1, iters: int = 20):
+    """Kernel device time of a call (its ``per_call`` launches summed),
+    wrapper call and plain version (CUDA events), beside the call's bound."""
+    wrapper_ms = clock.ms(call, iters=iters)
+    ms = wrapper_ms if rehearse else kernel_device_ms(key, call, iters=iters, per_call=per_call)
     plain_ms = clock.ms(plain, iters=plain_iters, warmup=1)
     bms, by = bound_ms
-    print(f"time {key} {shape}: kernel {ms:.4f} ms, wrapper call {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by})", flush=True)
-    return dict(shape=shape, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    each = f" ({ms / per_call:.4f} ms a launch, {per_call} launches)" if per_call > 1 else ""
+    print(f"time {key} {shape}: kernel {ms:.4f} ms a call{each}, wrapper call {wrapper_ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bms:.5f} ms ({by}) ({CARD['smi']})", flush=True)
+    return dict(shape=shape, ms=ms, ms_per_launch=ms / max(per_call, 1), wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by)
+
+
+def _k1_inputs(device, Bt, steps, D, seed):
+    gen = torch.Generator().manual_seed(seed)
+    A = torch.rand((Bt, steps, D), generator=gen) * 0.5 + 0.5
+    B = (torch.rand((Bt, steps, D), generator=gen) - 0.5) * 0.2
+    x0 = torch.rand((Bt, D), generator=gen) * 2 - 1
+    g = torch.rand((Bt, steps + 1, D), generator=gen) - 0.5
+    return A.to(device), B.to(device), x0.to(device), g.to(device)
 
 
 def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
@@ -355,12 +425,7 @@ def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
         return r
 
     def k1_inputs(Bt, steps, D, seed):
-        gen = torch.Generator().manual_seed(seed)
-        A = torch.rand((Bt, steps, D), generator=gen) * 0.5 + 0.5
-        B = (torch.rand((Bt, steps, D), generator=gen) - 0.5) * 0.2
-        x0 = torch.rand((Bt, D), generator=gen) * 2 - 1
-        g = torch.rand((Bt, steps + 1, D), generator=gen) - 0.5
-        return A.to(device), B.to(device), x0.to(device), g.to(device)
+        return _k1_inputs(device, Bt, steps, D, seed)
 
     def held_equal(key, name, out, ref):
         """Bit equality; the largest difference goes to the kernels line."""
@@ -487,7 +552,7 @@ def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
     res["K1"]["affine_scan_call"] = {"shape": f"Bt={TRAIN_B} T={T - 1} D={D}", "forward_ms": fwd_ms,
                                      "forward_backward_ms": both_ms}
     print(f"time affine_scan call Bt={TRAIN_B} T={T - 1} D={D}: forward {fwd_ms:.4f} ms, "
-          f"forward + backward {both_ms:.4f} ms", flush=True)
+          f"forward + backward {both_ms:.4f} ms ({CARD['smi']})", flush=True)
     with torch.inference_mode():
         for label, B in (("serve", SERVE_B), ("train", TRAIN_B), ("big", big_b)):
             args = k2_inputs(B, "uniform")
@@ -524,6 +589,310 @@ def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
                                      lambda: fused_step.fused_semilinear_bwd_plain(*bargs, "midpoint"),
                                      k3_bound_ms(Bt, w["T"], S, Hw, width), shape)
     return res
+
+
+def phase_long_horizon(device, clock: Clock, rehearse: bool, smi: str, res: dict, paths: dict):
+    """C1: K1 and K1-bwd through the model's entry past their shared-memory
+    cap, at T = 4096 with D = 5 and D = 8: the time axis split into runs,
+    bit for bit the plain versions; the split's launches and times; then one
+    training step of the decoder ODE on semilinear at that horizon and
+    width."""
+    T = 60 if rehearse else LONG_T
+    Bt = 4 if rehearse else TRAIN_B
+    for D in (5, 8):
+        A, B, x0, g = _k1_inputs(device, Bt, T, D, 7 + D)
+        leaves = [t.clone().requires_grad_() for t in (A, B, x0)]
+        fwd0, bwd0 = recurrence.affine_scan_fwd.launches, recurrence.affine_scan_bwd.launches
+        xs = recurrence.affine_scan(*leaves)
+        n_fwd = recurrence.affine_scan_fwd.launches - fwd0
+        grads = torch.autograd.grad(xs, leaves, g)
+        n_bwd = recurrence.affine_scan_bwd.launches - bwd0
+        clock.sync()
+        ref = recurrence.affine_scan_batched_plain(A, B, x0)
+        refs = recurrence.affine_scan_bwd_batched_plain(A, ref, g)
+        clock.sync()
+        ok = torch.equal(xs.detach(), ref) and all(torch.equal(o, r) for o, r in zip(grads, refs))
+        check(ok, f"C1: the split K1/K1-bwd differ from their plain versions at Bt={Bt} T={T} D={D}")
+        check(rehearse or (n_fwd > 1 and n_bwd > 1), f"C1: T={T} D={D} made {n_fwd}/{n_bwd} launches, not a split")
+        xs = xs.detach()
+        shape = f"Bt={Bt} T={T} D={D}, {n_fwd} runs forward, {n_bwd} backward"
+        res["K1"][f"c1_D{D}"] = _time(clock, rehearse, "K1", lambda: recurrence.affine_scan(A, B, x0),
+                                      lambda: recurrence.affine_scan_batched_plain(A, B, x0),
+                                      k1_bound_ms(T, Bt * D), shape, plain_iters=1, per_call=n_fwd, iters=5)
+        res["K1-bwd"][f"c1_D{D}"] = _time(clock, rehearse, "K1-bwd", lambda: recurrence._scan_bwd(A, xs, g),
+                                          lambda: recurrence.affine_scan_bwd_batched_plain(A, xs, g),
+                                          k1_bwd_bound_ms(T, Bt * D), shape, plain_iters=1, per_call=n_bwd,
+                                          iters=5)
+        for key in ("K1", "K1-bwd"):
+            res[key][f"c1_D{D}"].update(launches_per_call=n_fwd if key == "K1" else n_bwd, bit_equal=ok)
+        print(f"C1 K1/K1-bwd Bt={Bt} T={T} D={D}: bit-equal {ok}, {n_fwd} launches forward, {n_bwd} backward "
+              f"({smi})", flush=True)
+
+        # a training step of the decoder ODE at this horizon and width on
+        # semilinear (the JAX package's long-horizon grad step,
+        # scripts/bench_longhorizon.py): the squared error of the solve
+        # against a target, its gradient through K1/K1-bwd, one Adam update.
+        # (The whole CVS model at T = 4096 would spend minutes on the host
+        # in its encoder's orthogonal init, a QR of a 40,840-square matrix.)
+        spec = OdeModelSpec(latent_dim=15, ode_state_dim=D, ode_hidden_dim=25, backend="semilinear")
+        gen = torch.Generator().manual_seed(D)
+        params = tree_map(lambda p: p.to(device), ode_model_init(gen, spec))
+        n = 4 if rehearse else 16
+        z = torch.randn((n, 15), generator=gen).to(device)
+        target = torch.rand((n, T + 1, D), generator=gen).to(device)
+        ts = torch.arange(float(T + 1), device=device)
+
+        def step():
+            loss, _, grads = svi.value_and_grad(lambda p: ((solve_ode(spec, p, z, ts) - target) ** 2).mean(), params)
+            new, _ = svi.shared_adam_update(grads, svi.shared_adam_init(params), params,
+                                            tree_map(lambda _: True, params), 1e-3)
+            return loss, new
+
+        t0 = time.perf_counter()
+        loss, new = counted(paths, f"train step T={T} D={D}", TRAINING["semilinear"], rehearse, step)
+        clock.sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(math.isfinite(float(loss)) and all(torch.isfinite(p).all() for p in tree_leaves(new)),
+              f"C1: non-finite training step at T={T} D={D}")
+        print(f"C1 training step of the decoder ODE, semilinear, T={T} D={D} B={n}: loss {float(loss):.6f}; "
+              f"launches {paths[f'train step T={T} D={D}']}; {ms:.1f} ms first call ({smi})", flush=True)
+
+
+def _member_args(device, spec, S: int, B: int, T: int):
+    """S members' K2 arguments at one shape: each member its own ODE
+    weights (init seeds 0..S-1) and latents, stacked; one time grid."""
+    per = []
+    for m in range(S):
+        ode = init_params(spec, m, device=device)["decoder"]["ode"]
+        z = torch.randn((B, spec.latent_dim), generator=torch.Generator().manual_seed(10 + m)).to(device)
+        W = ode["dyn_hidden"]["W"]
+        u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
+        per.append((u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
+                    initialize_state(ode, z)))
+    return tuple(torch.stack([p[i] for p in per]) for i in range(7)) + (torch.arange(float(T), device=device),)
+
+
+def phase_members(device, clock: Clock, rehearse: bool, smi: str, res: dict):
+    """The member-batched K2 and K3 at the CVS sweep's and the proc sweep's
+    shapes (midpoint): each member bit for bit a single-member launch on its
+    slices (the weight gradients included), and within K2's and K3's
+    tolerances of the plain versions; then timed beside their plain versions,
+    the bound at S*B and S single-member launches of the same work."""
+    specs = {"cvs": cvs_spec(load_cvs_config()), "proc": proc_spec(LOADERS["proc"](), n_time=100)}
+    for wl, (S, B, T) in MEMBER_SHAPES.items():
+        if rehearse:
+            S, B = 2, 4
+        spec = specs[wl]
+        H, D = spec.decoder.ode.ode_hidden_dim, spec.decoder.ode.ode_state_dim
+        with torch.inference_mode():
+            args = _member_args(device, spec, S, B, T)
+            xs = fused_step.fused_semilinear_fwd_members(*args, "midpoint")
+            g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device)
+            bargs = (*args[:6], xs, g, args[7])
+            outs = fused_step.fused_semilinear_bwd_members(*bargs, "midpoint")
+            clock.sync()
+            singles_ok = True
+            for m in range(S):
+                one = tuple(a[m] for a in args[:7]) + (args[7],)
+                same = torch.equal(xs[m], fused_step.fused_semilinear_fwd(*one, "midpoint"))
+                single = fused_step.fused_semilinear_bwd(*one[:6], xs[m], g[m], args[7], "midpoint")
+                same_b = all(torch.equal(o[m], r) for o, r in zip(outs, single))
+                singles_ok &= same and same_b
+                for key, ok in (("K2-members", same), ("K3-members", same_b)):
+                    res[key]["worst"]["single-member launch"] = max(
+                        res[key]["worst"]["single-member launch"], 0.0 if ok else math.inf)
+                ref = fused_step.fused_semilinear_fwd_plain(*one, "midpoint")
+                refs = fused_step.fused_semilinear_bwd_plain(*one[:6], xs[m], g[m], args[7], "midpoint")
+                worst = {"xs": ratio(xs[m], ref, ATOL, RTOL)}
+                for name, o, r in zip(TOLERANCE_RULES["K3"], outs, refs):
+                    o = o[m]
+                    if name == "dx0":
+                        worst[name] = ratio(o, r, ATOL, RTOL)
+                    elif name == "du":
+                        worst[name] = ratio(o, r, DU_ATOL * float(r.abs().max()), RTOL)
+                    else:
+                        worst[name] = ratio(o, r, max(WGRAD_RTOL * float(r.abs().max()), 1e-30))
+                    res["K3-members"]["err"] = max(res["K3-members"]["err"], float((o - r).abs().max()))
+                    res["K3-members"]["worst"][name] = max(res["K3-members"]["worst"][name], worst[name])
+                res["K2-members"]["err"] = max(res["K2-members"]["err"], float((xs[m] - ref).abs().max()))
+                res["K2-members"]["worst"]["xs"] = max(res["K2-members"]["worst"]["xs"], worst["xs"])
+                check(max(worst.values()) <= 1.0, f"member-batched K2/K3 {wl} member {m}: {worst}")
+            print(f"member-batched K2/K3 {wl} S={S} B={B} T={T} H={H} D={D}: every member bit-equal to its "
+                  f"single-member launch {singles_ok}; worst error / tolerance vs plain "
+                  f"K2 {res['K2-members']['worst']['xs']:.3f}, K3 "
+                  f"{max(v for k, v in res['K3-members']['worst'].items() if k != 'single-member launch'):.3f}",
+                  flush=True)
+            check(singles_ok, f"member-batched K2/K3 {wl}: a member differs from its single-member launch")
+            shape = f"midpoint S={S} B={B} T={T} H={H} D={D}"
+            res["K2-members"][wl] = _time(
+                clock, rehearse, "K2-members", lambda: fused_step.fused_semilinear_fwd_members(*args, "midpoint"),
+                lambda: fused_step.fused_semilinear_fwd_members_plain(*args, "midpoint"),
+                k2_bound_ms(S * B, T, 2, H, D, members=S), shape, plain_iters=1)
+            res["K3-members"][wl] = _time(
+                clock, rehearse, "K3-members", lambda: fused_step.fused_semilinear_bwd_members(*bargs, "midpoint"),
+                lambda: fused_step.fused_semilinear_bwd_members_plain(*bargs, "midpoint"),
+                k3_bound_ms(S * B, T, 2, H, D, members=S), shape, plain_iters=1)
+            # the same work as S single-member launches, wrapper calls timed
+            ones = [tuple(a[m] for a in args[:7]) + (args[7],) for m in range(S)]
+            res["K2-members"][wl]["s_single_calls_ms"] = clock.ms(
+                lambda: [fused_step.fused_semilinear_fwd(*one, "midpoint") for one in ones], iters=10)
+            res["K3-members"][wl]["s_single_calls_ms"] = clock.ms(
+                lambda: [fused_step.fused_semilinear_bwd(*one[:6], xs[m], g[m], one[7], "midpoint")
+                         for m, one in enumerate(ones)], iters=10)
+            for key in ("K2-members", "K3-members"):
+                print(f"time {key} {shape}: {S} single-member wrapper calls "
+                      f"{res[key][wl]['s_single_calls_ms']:.4f} ms against one member-batched wrapper call "
+                      f"{res[key][wl]['wrapper_ms']:.4f} ms ({smi})", flush=True)
+
+
+def _profile_ops(fn, repeats: int) -> int:
+    """Device operations (kernels, copies, sets) per call of ``fn``, from a
+    torch.profiler trace of ``repeats`` calls."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    check(n > 0, "the profiler recorded no device operation")
+    return n // repeats
+
+
+# the kernels each backend's sweep launches: the stacked steps' member-batched
+# K2/K3 (K1/K1-bwd fold the members into their batch) and the members' final
+# test evaluations' single-model K2
+SWEEP = {"semilinear": ("K1", "K1-bwd"), "semilinear_fused": ("K2", "K2-members", "K3-members")}
+# the kernels one stacked dual step launches
+STACKED = {"semilinear": ("K1", "K1-bwd"), "semilinear_fused": ("K2-members", "K3-members")}
+
+
+def phase_stacked_step(device, clock: Clock, data_dir: str, rehearse: bool, smi: str):
+    """One stacked dual step of S members (svi.make_stacked_dual_step) at the
+    CVS training batch on semilinear and semilinear_fused: its kernel launches
+    and device operations at S = 1, 2 and 10, its time at S = 1 and 10, and
+    ten sequential dual steps (one per member) beside it. Each kernel must
+    launch as often at S = 10 as at S = 1."""
+    full_fp32(deterministic=True)  # the sweep's cuDNN settings
+    cfg = _config(data_dir, "semilinear")
+    train = training_cvs.build_splits(cfg, device=device)[0]["train"]
+    ts = torch.arange(86.0, device=device)
+    B = 8 if rehearse else TRAIN_B
+    for backend in ("semilinear", "semilinear_fused"):
+        spec = cvs_spec(_config(data_dir, backend))
+        launches, ops, step_ms = {}, {}, {}
+        for S in (1, 2, 10):
+            params = [init_params(spec, fold_seed(12 + m, "init"), device=device) for m in range(S)]
+            optim = svi.make_dual_optimizer(spec, params[0], cfg.learning_rate)
+            states = [ensemble.stack_states([svi.SVIState(p, optim.init(p), fold_seed(12 + m, "train"), 0)
+                                             for m, p in enumerate(params)])]
+            step = svi.make_stacked_dual_step(spec, ts, optim)
+            perms = np.stack([np.random.RandomState(12 + m).permutation(len(train["observations"]))[:B]
+                              for m in range(S)])
+            batch = {k: torch.as_tensor(v[perms], device=device) for k, v in train.items()}
+            batch.update(sample_id=torch.as_tensor(perms, device=device), mask=torch.ones(B, device=device))
+            dims = {k: 0 for k in batch}
+            dims["mask"] = None
+            seeds = svi.stacked_step_seeds(states[0].seed, range(40), device=device)
+            k = [0]
+
+            def one():
+                states[0], _ = step(states[0], batch, dims, seeds[k[0] % 40])
+                k[0] += 1
+
+            for _ in range(2):
+                one()
+            clock.sync()
+            zero_counts()
+            one()
+            clock.sync()
+            launches[S] = read_counts()
+            t0 = time.perf_counter()
+            n = 2 if rehearse else 10
+            for _ in range(n):
+                one()
+            clock.sync()
+            step_ms[S] = (time.perf_counter() - t0) * 1e3 / n
+            ops[S] = None if rehearse else _profile_ops(one, 3)
+            if S == 10:  # ten sequential dual steps: one per member, the same work
+                init_state, train_step, _ = svi.make_train_step(spec, ts, cfg.learning_rate, params[0])
+                singles = [init_state(p, fold_seed(12 + m, "train")) for m, p in enumerate(params)]
+                rows = [{k: v[m] for k, v in batch.items() if dims[k] == 0} | {"mask": batch["mask"]}
+                        for m in range(S)]
+                for m in range(S):
+                    singles[m], _ = train_step(singles[m], rows[m])
+                clock.sync()
+                t0 = time.perf_counter()
+                for m in range(S):
+                    singles[m], _ = train_step(singles[m], rows[m])
+                clock.sync()
+                step_ms["10 sequential"] = (time.perf_counter() - t0) * 1e3
+        print(f"stacked dual step {backend} B={B}: launches per step {launches}; device operations per step "
+              f"(profiler) S=1 {ops[1]}, S=2 {ops[2]}, S=10 {ops[10]}; time S=1 {step_ms[1]:.3f} ms, "
+              f"S=10 {step_ms[10]:.3f} ms, ten sequential dual steps {step_ms['10 sequential']:.3f} ms ({smi})",
+              flush=True)
+        check(launches[1] == launches[10], f"stacked step {backend}: launches differ at S=1 and S=10: {launches}")
+        check(rehearse or all(launches[10][key] > 0 for key in STACKED[backend]),
+              f"stacked step {backend}: {launches[10]}")
+
+
+def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict):
+    """sweep.run at full width: CVS over seeds 12..21 on semilinear and on
+    semilinear_fused, proc over seeds 12..16 (its member-group limit) on
+    semilinear_fused (its D = 8 member-batched libraries), one epoch beyond
+    epoch 0 each. Launches are counted per sweep. Every member's artifacts
+    must exist and be finite, sweep.json must parse and deploy_mean/ exist,
+    and members 0 and S-1 must match the port's sequential CLI run at their
+    seeds: final and best params within rtol 2e-4, atol 1e-6, best epoch
+    equal and criterion within rtol 2e-4 (tests/test_ensemble.py's bounds)."""
+    n_samples = "4"  # the proc members' sample bands (the config's 200 would be the same work 50 times)
+    cases = [("cvs", "semilinear", "12..21"), ("cvs", "semilinear_fused", "12..21"),
+             ("proc", "semilinear_fused", "12..16")]
+    for dataset, backend, seeds in cases:
+        if rehearse:
+            seeds = "12,13"
+        root = os.path.join(workdir, f"sweep-{dataset}-{backend}")
+        common = ["--num-epochs", "1", "--ode-backend", backend, "--device", str(device)]
+        extra = ["--data-path", data_dir] if dataset == "cvs" else ["--data-seed", "12", "--num-samples", n_samples]
+        t0 = time.perf_counter()
+        run = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend], rehearse, lambda: sweep.run(
+            sweep.parse_args([dataset, "--seeds", seeds, "--results-root", root] + common + extra)))
+        wall = time.perf_counter() - t0
+        with open(os.path.join(root, "sweep.json")) as f:
+            summary = json.load(f)
+        check(summary["seeds"] == sweep.parse_seeds(seeds), f"sweep {dataset} {backend}: sweep.json seeds")
+        for row in summary["members"]:
+            for fname in os.listdir(row["results_dir"]):
+                if fname.endswith(".npy"):
+                    arr = np.load(os.path.join(row["results_dir"], fname))
+                    check(np.isfinite(arr).all(), f"sweep {dataset} {backend} seed {row['seed']}: {fname} not finite")
+            check(os.path.exists(os.path.join(row["results_dir"], "mu_50_prior.npy")), "member artifacts")
+        check(os.path.exists(os.path.join(root, "deploy_mean", "mu_50_post.npy")),
+              f"sweep {dataset} {backend}: no deploy_mean/")
+        driver = {"cvs": training_cvs, "proc": training_proc}[dataset]
+        members = sweep.parse_seeds(seeds)
+        for i in (0, len(members) - 1):
+            seed = members[i]
+            out = counted(paths, f"sequential {dataset} {backend} seed {seed}", TRAINING[backend], rehearse,
+                          lambda: driver.main(["--seed", str(seed), "--no-plot", "--no-eval-train", "--results-root",
+                                               os.path.join(root, f"sequential{seed}")] + common + extra))
+            worst = 0.0
+            for tree, ref in ((run.result.state.params, out["state"].params),
+                              (run.result.best_params, out["best"]["params"])):
+                for a, b in zip(tree_leaves(tree), tree_leaves(ref)):
+                    worst = max(worst, float(((a[i] - b).abs() / (1e-6 + 2e-4 * b.abs())).max()))
+            crit_err = abs(run.result.best_crit[i] - out["best"]["criterion"]) / abs(out["best"]["criterion"])
+            print(f"sweep {dataset} {backend} member {i} (seed {seed}) vs its sequential run: params worst "
+                  f"error / tolerance {worst:.3f} (rtol 2e-4, atol 1e-6); best epoch {run.result.best_epoch[i]} vs "
+                  f"{out['best']['epoch']}; criterion {run.result.best_crit[i]:.6f} vs {out['best']['criterion']:.6f} "
+                  f"(rel {crit_err:.2e})", flush=True)
+            check(worst <= 1.0, f"sweep {dataset} {backend} member {i} params differ from the sequential run")
+            check(int(run.result.best_epoch[i]) == int(out["best"]["epoch"]) and crit_err <= 2e-4,
+                  f"sweep {dataset} {backend} member {i}: best epoch or criterion differ from the sequential run")
+        print(f"== sweep {dataset} {backend} x {len(members)} members: {wall:.2f} s wall (train "
+              f"{summary['train_seconds']:.2f} s), deployments {sorted(summary['deployments'])} ({smi})", flush=True)
 
 
 def zero_counts():
@@ -572,7 +941,7 @@ def phase_serving(device, workdir: str, rehearse: bool, paths: dict):
     t0 = time.perf_counter()
     make_dataset(data_dir, data_size=data_size, device=device)
     print(f"== serving path: CVS data_size={data_size} generated on {device} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{time.perf_counter() - t0:.2f} s ({CARD['smi']})", flush=True)
     n_test = data_size - int(round(data_size * 0.9))
     spec = cvs_spec(_config(data_dir, "semilinear"))
     ckpts = []
@@ -703,7 +1072,8 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
             "--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
             "--data-path", data_dir, "--results-root", root, "--device", str(device),
         ]))
-        print(f"== trained {model} on {backend}: 2 epochs in {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"== trained {model} on {backend}: 2 epochs in {time.perf_counter() - t0:.2f} s ({CARD['smi']})",
+              flush=True)
 
     artifacts = {name: (86,) if shape is None else (n_test,) + shape for name, shape in ARTIFACTS.items()}
     for (backend, model), out in results.items():
@@ -739,6 +1109,7 @@ def first_step_and_times(clock: Clock, rehearse: bool, smi: str, paths: dict, pr
     backend into ``paths``, as ``first step {prefix}{backend}``), then one
     dual step timed per backend. ``spec_of(backend)`` is the model's spec on
     that ODE backend."""
+    full_fp32(deterministic=True)  # the trainers' cuDNN settings
     first = {b: counted(paths, f"first step {prefix}{b}", TRAINING[b], rehearse,
                         lambda: _first_step(spec_of(b), params, batch, ts, lr))
              for b in TRAINING}
@@ -856,7 +1227,8 @@ def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str
                                                     lambda: w["driver"].main(argv))
             losses = _check_trained(name, out, artifacts)
             print(f"== {name}: 2 epochs, test and {n_samples}-draw bands in {time.perf_counter() - t0:.2f} s; "
-                  f"epoch losses {losses}, best epoch {out['best']['epoch']}, artifacts ok", flush=True)
+                  f"epoch losses {losses}, best epoch {out['best']['epoch']}, artifacts ok ({CARD['smi']})",
+                  flush=True)
         rd = results["semilinear", "Mechanistic"]["out_dir"]
         served = serve.main(
             ["--dataset", wl, "--checkpoint", os.path.join(rd, "best_model.npz"), "--split", "val",
@@ -884,44 +1256,61 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     device, smi = phase_device(args.rehearse)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    CARD["smi"] = smi
+    full_fp32()
     cfg = load_cvs_config()
     H, D = cfg.ode_hidden_dim, cfg.ode_state_dim
     wl_cfgs = {wl: LOADERS[wl]() for wl in WORKLOADS}
     if not args.rehearse:
+        phase("2: build")
         phase_build(sorted({(H, D)} | {(c.ode_hidden_dim, c.ode_state_dim) for c in wl_cfgs.values()}))
     clock = Clock(device)
     odes = {"cvs": init_params(cvs_spec(cfg), 0, device=device)["decoder"]["ode"]}
     for wl, w in WORKLOADS.items():
         odes[wl] = init_params(w["spec"](wl_cfgs[wl], n_time=w["T"]), 0, device=device)["decoder"]["ode"]
+    phase("3: kernels against their plain versions")
     res = phase_kernels(device, clock, args.rehearse, odes, H, D)
+    paths = {}  # path name -> launch counts of that path's run
+    phase("3: C1, K1 and K1-bwd past their shared-memory cap")
+    phase_long_horizon(device, clock, args.rehearse, smi, res, paths)
+    phase("3: member-batched K2 and K3")
+    phase_members(device, clock, args.rehearse, smi, res)
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
-    paths = {}  # path name -> launch counts of that path's run
     try:
+        phase("4: serving CVS")
         ckpts, data_dir = phase_serving(device, workdir, args.rehearse, paths)
         phase_request_times(device, clock, ckpts, data_dir, args.rehearse, smi)
+        phase("5: training CVS")
         phase_training(device, workdir, data_dir, args.rehearse, paths)
         phase_train_checks(device, clock, data_dir, args.rehearse, smi, paths)
+        phase("6: proc and challenge")
         phase_workloads(device, clock, workdir, args.rehearse, smi, paths)
+        phase("7: the stacked dual step")
+        phase_stacked_step(device, clock, data_dir, args.rehearse, smi)
+        phase("7: sweeps")
+        phase_sweeps(device, workdir, data_dir, args.rehearse, smi, paths)
+        phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # times at the training shapes (B = 128, the training path); the
-    # serving and large shapes and the proc and challenge training shapes
-    # beside them. "launches" is the count of the kernel's main path, the
-    # CVS full-width training run on its backend; every path's count stands
-    # beside it.
+    # times at the training shapes (B = 128, the training path; the member-
+    # batched launches at the CVS sweep's S = 10, B = 128); the serving,
+    # large, long-horizon (C1) and proc and challenge shapes beside them.
+    # "launches" is the count of the kernel's main path, the CVS full-width
+    # training run on its backend (the CVS sweep on semilinear_fused for the
+    # member-batched launches); every path's count stands beside it.
     kernels = []
-    for key, name, source, replaces, main_path in (
-        ("K1", "affine_scan_fwd", K1_SOURCE, K1_REPLACES, "train semilinear"),
-        ("K1-bwd", "affine_scan_bwd", K1_SOURCE, K1_BWD_REPLACES, "train semilinear"),
-        ("K2", "fused_semilinear_fwd", K2_SOURCE, K2_REPLACES, "train semilinear_fused"),
-        ("K3", "fused_semilinear_bwd", K3_SOURCE, K3_REPLACES, "train semilinear_fused"),
+    for key, name, source, replaces, main_path, label in (
+        ("K1", "affine_scan_fwd", K1_SOURCE, K1_REPLACES, "train semilinear", "train"),
+        ("K1-bwd", "affine_scan_bwd", K1_SOURCE, K1_BWD_REPLACES, "train semilinear", "train"),
+        ("K2", "fused_semilinear_fwd", K2_SOURCE, K2_REPLACES, "train semilinear_fused", "train"),
+        ("K3", "fused_semilinear_bwd", K3_SOURCE, K3_REPLACES, "train semilinear_fused", "train"),
+        ("K2-members", "fused_semilinear_fwd_members", K2_SOURCE, K2_REPLACES, "sweep cvs semilinear_fused", "cvs"),
+        ("K3-members", "fused_semilinear_bwd_members", K3_SOURCE, K3_REPLACES, "sweep cvs semilinear_fused", "cvs"),
     ):
-        t = res[key]["train"]
+        t = res[key][label]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": paths[main_path][key], "main_path": main_path,
@@ -931,8 +1320,9 @@ def main(argv=None):
                           for out, rule in TOLERANCE_RULES[key].items()},
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
-            **{label: res[key][label] for label in ("serve", "big", "affine_scan_call", "proc_train",
-                                                     "challenge_train") if label in res[key]},
+            **{other: res[key][other] for other in ("serve", "big", "affine_scan_call", "proc_train",
+                                                     "challenge_train", "c1_D5", "c1_D8", "proc")
+               if other in res[key]},
         })
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     if args.rehearse:

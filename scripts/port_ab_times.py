@@ -12,8 +12,10 @@ weights from seed 0, and times, on each ported ODE backend, one served
 posterior request at B = 100 (the test split) and B = 16,411 (the split
 tiled) and one dual SVI step at B = 128 (the first train minibatch), as
 chip_smoke.py's phases 4 and 5 do: the host clock over REQUESTS requests or
-STEPS steps after warm-up, ending in a synchronize. Pair i runs the parent
-first when i is even and the change first when it is odd.
+STEPS steps after warm-up, ending in a synchronize. The dual steps run
+with cuDNN's deterministic algorithms where the checkout's trainers ask for
+them (its ``utils.device.full_fp32`` takes ``deterministic``). Pair i runs
+the parent first when i is even and the change first when it is odd.
 
 Prints each run's times, then per metric each side's median and quartiles
 and in how many pairs the change was faster. Needs a CUDA card; imports
@@ -23,6 +25,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import shutil
@@ -95,6 +98,10 @@ def run_one(tree: str) -> dict:
                 batch["sample_id"] = torch.arange(B, device=device)
                 times[f"request {backend} B={B}"] = clocked(lambda: recon_fn(params, 0, batch, True), REQUESTS)
 
+        # the dual steps under the cuDNN settings of the checkout's own
+        # trainers (deterministic algorithms where its full_fp32 offers them)
+        if "deterministic" in inspect.signature(full_fp32).parameters:
+            full_fp32(deterministic=True)
         cfg = config("semilinear")
         splits, _ = build_splits(cfg, device=device)
         stack = device_batch(stacked_minibatches(splits["train"], TRAIN_B, shuffle=False), device)

@@ -51,7 +51,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
     device = torch.device("cuda", 0)
-    full_fp32()
+    full_fp32(deterministic=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

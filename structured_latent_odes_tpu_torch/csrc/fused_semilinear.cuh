@@ -14,6 +14,13 @@
 // many blocks as fit on the card at once (blocks_for), each taking an equal
 // share of the batch, and each block loads the weights once.
 //
+// An ensemble's members (train/ensemble.py: S models of one shape, each with
+// its own weights and batch) share a launch: member m is blockIdx.y, and its
+// u, x0, trajectories, weights and gradients are the m-th slices of arrays
+// with a leading member axis. gridDim.x and the order of a member's
+// trajectories and steps are those of a single-member launch, so every output
+// of member m is bit-equal to a launch on member m's slices alone.
+//
 // H and D are compile-time constants (-DSLODE_H, -DSLODE_D) so the per-thread
 // arrays stay in registers; ops/_build.py compiles one library per (H, D).
 
@@ -122,17 +129,30 @@ __device__ __forceinline__ void load_row(const float* __restrict__ rows, int j, 
   }
 }
 
-// The dynamics heads' weights as the wrappers pass them: w_t (H, every
-// wt_stride floats: a column of the hidden layer's weight), W_a and W_d
-// (D, H), b_a and b_d (D), each in device memory.
+// The dynamics heads' weights as the wrappers pass them, for every member of
+// an ensemble (the launch's blockIdx.y; one member outside an ensemble): w_t
+// (H, every wt_stride floats: a column of the hidden layer's weight; member m's
+// m * wt_mstride floats on), W_a and W_d (D, H), b_a and b_d (D), each
+// contiguous over the members, in device memory.
 struct Weights {
   const float* wt;
   int wt_stride;
+  int wt_mstride;
   const float* wa;
   const float* ba;
   const float* wd;
   const float* bd;
 };
+
+// Member m's weights.
+__device__ __forceinline__ Weights member_weights(Weights w, int m) {
+  w.wt += static_cast<size_t>(m) * w.wt_mstride;
+  w.wa += static_cast<size_t>(m) * D * H;
+  w.wd += static_cast<size_t>(m) * D * H;
+  w.ba += static_cast<size_t>(m) * D;
+  w.bd += static_cast<size_t>(m) * D;
+  return w;
+}
 
 // The weights into the shared rows, and b_a, b_d into bias (2D floats). The u
 // column is the kernels' to fill, per trajectory.

@@ -37,8 +37,18 @@
 // dx0 belong to the trajectory and are written when it is done (du summed
 // over the warps in warp order); each block writes its weight-gradient sums
 // (over its trajectories, the warps in warp order) as one row of an
-// (n_blocks, H + 2DH + 2D) buffer that the wrapper sums with torch.sum, as the
-// JAX package sums its per-tile partials: deterministic for a given grid.
+// (n_blocks, H + 2DH + 2D) buffer, as the JAX package keeps per-tile
+// partials; a second kernel (reduce_partials) adds each column's rows in a
+// fixed order, sixteen threads a column: deterministic for a given grid.
+//
+// An ensemble's S members share one launch, member m on blockIdx.y, its
+// arrays the m-th slices of arrays with a leading member axis
+// (fused_semilinear.cuh); the partial rows are (S, n_blocks, ...), each
+// member's summed in the same order as in a single-member launch, so every
+// output of a member, the weight gradients included, is bit-equal to a launch
+// on that member's slices alone. This replaces the same Pallas kernel under
+// the JAX package's vmap over members, whose added grid dimension carries
+// nothing across grid steps (ops/fused_step.py:171-178 there).
 //
 // Layout: trajectory-major, as K2: u (B, H), xs and g (B, T, D), du (B, H),
 // dx0 (B, D). Shared memory grows with the pass length and S (rk4 at 85
@@ -106,7 +116,7 @@ template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kBwdMinBlocks<M>)
 fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict__ xs,
                             const float* __restrict__ g, const float* __restrict__ ts,
-                            const Weights w, float* __restrict__ du,
+                            const Weights weights, float* __restrict__ du,
                             float* __restrict__ dx0, float* __restrict__ partial, int B, int T) {
   constexpr int S = Tableau<M>::S;
   const int steps = T - 1;
@@ -126,6 +136,15 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
+  // the block's member: its slices of the arrays
+  const int m = blockIdx.y;
+  u += static_cast<size_t>(m) * B * H;
+  xs += static_cast<size_t>(m) * B * T * D;
+  g += static_cast<size_t>(m) * B * T * D;
+  du += static_cast<size_t>(m) * B * H;
+  dx0 += static_cast<size_t>(m) * B * D;
+  partial += static_cast<size_t>(m) * gridDim.x * kParams;
+  const Weights w = member_weights(weights, m);
   // u[b, tid] and g[b, T-1, tid] of the block's next trajectory, loaded while
   // the block works on the current one
   float u_next = 0.f;
@@ -337,6 +356,36 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
   }
 }
 
+// Each member's weight gradients from its n_blocks rows of partial, in a
+// fixed order: block (c, m) takes 32 columns of member m's rows; thread (x,
+// y) adds column x's rows y, y + kReduceRows, ... in row order (a warp reads
+// 32 adjacent floats of a row), then thread (x, 0) adds the kReduceRows sums
+// in y order. The order depends on n_blocks alone, never on the number of
+// members.
+constexpr int kReduceCols = 32;
+constexpr int kReduceRows = 16;
+
+__global__ void __launch_bounds__(kReduceCols * kReduceRows)
+reduce_partials(const float* __restrict__ partial, float* __restrict__ grads, int n_blocks) {
+  __shared__ float sums[kReduceRows][kReduceCols];
+  const int x = threadIdx.x;
+  const int y = threadIdx.y;
+  const int k = blockIdx.x * kReduceCols + x;
+  const int m = blockIdx.y;
+  const float* p = partial + static_cast<size_t>(m) * n_blocks * kParams + k;
+  float sum = 0.f;
+  if (k < kParams) {
+    for (int b = y; b < n_blocks; b += kReduceRows) sum += p[static_cast<size_t>(b) * kParams];
+  }
+  sums[y][x] = sum;
+  __syncthreads();
+  if (y == 0 && k < kParams) {
+    float total = 0.f;
+    for (int r = 0; r < kReduceRows; ++r) total += sums[r][x];
+    grads[static_cast<size_t>(m) * kParams + k] = total;
+  }
+}
+
 template <int M>
 size_t smem_bytes(int T) {
   return sizeof(float) * smem_floats<Tableau<M>::S>(chunk_for(T), threads_for(T) / 32);
@@ -351,13 +400,17 @@ int blocks(int B, int T) {
 
 template <int M>
 int launch(const float* u, const float* xs, const float* g, const float* ts, const Weights& w,
-           float* du, float* dx0, float* partial, int B, int T, int n_blocks,
+           float* du, float* dx0, float* partial, float* grads, int S, int B, int T, int n_blocks,
            cudaStream_t stream) {
   const size_t smem = smem_bytes<M>(T);
   const int err = opt_in(fused_semilinear_bwd_kernel<M>, smem);
   if (err != 0) return err;
-  fused_semilinear_bwd_kernel<M><<<n_blocks, threads_for(T), smem, stream>>>(
+  fused_semilinear_bwd_kernel<M><<<dim3(n_blocks, S), threads_for(T), smem, stream>>>(
       u, xs, g, ts, w, du, dx0, partial, B, T);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  reduce_partials<<<dim3((kParams + kReduceCols - 1) / kReduceCols, S), dim3(kReduceCols, kReduceRows), 0,
+                    stream>>>(partial, grads, n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,26 +431,33 @@ extern "C" int fused_semilinear_bwd_blocks(int method, int B, int T) {
   }
 }
 
-// u: (B, H); xs, g: (B, T, D) the forward trajectory (x0 in row 0) and its
-// cotangent; ts, wt (every wt_stride floats), wa, ba, wd, bd: as for
-// fused_semilinear_fwd; du: (B, H); dx0: (B, D); partial: (n_blocks,
-// H + 2DH + 2D) per-block sums of the packed gradients [w_t, W_a, b_a, W_d,
-// b_d], n_blocks >= 1 (any grid is correct; fused_semilinear_bwd_blocks gives
-// the one that fills the card). All float32, row-major, on one device.
+// S members, each: u: (B, H); xs, g: (B, T, D) the forward trajectory (x0
+// in row 0) and its cotangent; wt (every wt_stride floats, member m's
+// m * wt_mstride floats on), wa, ba, wd, bd: as for fused_semilinear_fwd; du:
+// (B, H); dx0: (B, D); partial: (n_blocks, H + 2DH + 2D) per-block sums of
+// the packed gradients [w_t, W_a, b_a, W_d, b_d], scratch; grads: (H + 2DH +
+// 2D) their sums; and ts: (T,), shared. Every array but wt and ts has a
+// leading member axis (S, ...). n_blocks >= 1 (any grid is correct;
+// fused_semilinear_bwd_blocks gives the one that fills the card). All
+// float32, row-major, on one device.
 extern "C" int fused_semilinear_bwd(int method, const float* u, const float* xs, const float* g,
-                                    const float* ts, const float* wt, int wt_stride,
+                                    const float* ts, const float* wt, int wt_stride, int wt_mstride,
                                     const float* wa, const float* ba, const float* wd,
-                                    const float* bd, float* du, float* dx0, float* partial, int B,
-                                    int T, int n_blocks, void* stream) {
-  if (B <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
-  if (n_blocks <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    const float* bd, float* du, float* dx0, float* partial,
+                                    float* grads, int S, int B, int T, int n_blocks, void* stream) {
+  if (S <= 0 || B <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
+  if (n_blocks <= 0 || S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Weights w{wt, wt_stride, wa, ba, wd, bd};
+  const Weights w{wt, wt_stride, wt_mstride, wa, ba, wd, bd};
   switch (method) {
-    case kEuler: return launch<kEuler>(u, xs, g, ts, w, du, dx0, partial, B, T, n_blocks, s);
-    case kMidpoint: return launch<kMidpoint>(u, xs, g, ts, w, du, dx0, partial, B, T, n_blocks, s);
-    case kHeun: return launch<kHeun>(u, xs, g, ts, w, du, dx0, partial, B, T, n_blocks, s);
-    case kRk4: return launch<kRk4>(u, xs, g, ts, w, du, dx0, partial, B, T, n_blocks, s);
+    case kEuler:
+      return launch<kEuler>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
+    case kMidpoint:
+      return launch<kMidpoint>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
+    case kHeun:
+      return launch<kHeun>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
+    case kRk4:
+      return launch<kRk4>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -41,7 +41,12 @@
 //
 // Layout: trajectory-major. u (B, H), x0 (B, D) and the output (B, T, D) are
 // read and written as they lie; one trajectory's T*D outputs are contiguous,
-// so the copy-out coalesces whatever the batch size.
+// so the copy-out coalesces whatever the batch size. An ensemble's S members
+// share one launch on arrays with a leading member axis, member m on
+// blockIdx.y (fused_semilinear.cuh).
+//
+// Replaces, for the ensemble, the same Pallas kernel under the JAX package's
+// vmap over members, which adds a grid dimension over them.
 //
 // No tensor cores: the head products are 25 -> 5 per stage, far below an MMA
 // tile, and TF32 would not keep the 1e-5 float32 tolerance of the plain
@@ -67,7 +72,7 @@ constexpr int kFwdMinBlocks = M == kRk4 ? 1 : (D <= 5 ? 6 : 4);
 template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kFwdMinBlocks<M>)
 fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict__ x0,
-                            const float* __restrict__ ts, const Weights w,
+                            const float* __restrict__ ts, const Weights weights,
                             float* __restrict__ out, int B, int T) {
   constexpr int S = Tableau<M>::S;
   const int steps = T - 1;
@@ -79,6 +84,12 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
   float* Ac = bias + 2 * D;                       // chunk * D: A_t of the pass
   float* Bc = Ac + chunk * D;                     // chunk * D: B_t, then x_{t+1}
   const int tid = threadIdx.x;
+  // the block's member: its slices of the arrays
+  const int m = blockIdx.y;
+  u += static_cast<size_t>(m) * B * H;
+  x0 += static_cast<size_t>(m) * B * D;
+  out += static_cast<size_t>(m) * B * T * D;
+  const Weights w = member_weights(weights, m);
   // u[b, tid] and x0[b, tid] of the block's next trajectory, loaded while
   // the block works on the current one
   float u_next = 0.f;
@@ -135,33 +146,35 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
 
 template <int M>
 int launch(const float* u, const float* x0, const float* ts, const Weights& w, float* out,
-           int B, int T, cudaStream_t stream) {
+           int S, int B, int T, cudaStream_t stream) {
   const int threads = threads_for(T);
   const size_t smem = sizeof(float) * (H * kRow + 2 * D + 2 * static_cast<size_t>(chunk_for(T)) * D);
   int blocks = 0;
   const int err = blocks_for(fused_semilinear_fwd_kernel<M>, threads, smem, B, &blocks);
   if (err != 0) return err;
-  fused_semilinear_fwd_kernel<M><<<blocks, threads, smem, stream>>>(u, x0, ts, w, out, B, T);
+  fused_semilinear_fwd_kernel<M><<<dim3(blocks, S), threads, smem, stream>>>(u, x0, ts, w, out, B, T);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// u: (B, H); x0: (B, D); ts: (T,) the time grid; wt: (H,) every wt_stride
-// floats; wa, wd: (D, H); ba, bd: (D,); out: (B, T, D). All float32,
-// row-major, on one device.
+// S members, each: u: (B, H); x0: (B, D); wt: (H,) every wt_stride floats,
+// member m's m * wt_mstride floats on; wa, wd: (D, H); ba, bd: (D,); out:
+// (B, T, D); and ts: (T,) the time grid, shared. Every array but wt and ts
+// has a leading member axis (S, ...). All float32, row-major, on one device.
 extern "C" int fused_semilinear_fwd(int method, const float* u, const float* x0, const float* ts,
-                                    const float* wt, int wt_stride, const float* wa,
+                                    const float* wt, int wt_stride, int wt_mstride, const float* wa,
                                     const float* ba, const float* wd, const float* bd, float* out,
-                                    int B, int T, void* stream) {
-  if (B <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
+                                    int S, int B, int T, void* stream) {
+  if (S <= 0 || B <= 0 || T <= 0) return static_cast<int>(cudaSuccess);
+  if (S > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Weights w{wt, wt_stride, wa, ba, wd, bd};
+  const Weights w{wt, wt_stride, wt_mstride, wa, ba, wd, bd};
   switch (method) {
-    case kEuler: return launch<kEuler>(u, x0, ts, w, out, B, T, s);
-    case kMidpoint: return launch<kMidpoint>(u, x0, ts, w, out, B, T, s);
-    case kHeun: return launch<kHeun>(u, x0, ts, w, out, B, T, s);
-    case kRk4: return launch<kRk4>(u, x0, ts, w, out, B, T, s);
+    case kEuler: return launch<kEuler>(u, x0, ts, w, out, S, B, T, s);
+    case kMidpoint: return launch<kMidpoint>(u, x0, ts, w, out, S, B, T, s);
+    case kHeun: return launch<kHeun>(u, x0, ts, w, out, S, B, T, s);
+    case kRk4: return launch<kRk4>(u, x0, ts, w, out, S, B, T, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -5,7 +5,9 @@ K2 replaces the Pallas TPU kernel ``structured_latent_odes_tpu/ops/fused_step.py
 ::_fwd_kernel`` (launched by ``_fwd_call``; entry point
 ``fused_semilinear_solve``); K3 replaces ``_bwd_kernel`` (launched by
 ``_bwd_call``, with ``_rk_runs_bwd`` and the partial sums of ``_fused_bwd``).
-The CUDA sources are ``csrc/fused_semilinear_fwd.cu`` and
+Under the JAX package's vmap over an ensemble's members both Pallas kernels
+gain a grid dimension over the members; here the same kernels take the
+members on ``blockIdx.y`` (the ``_members`` wrappers). The CUDA sources are ``csrc/fused_semilinear_fwd.cu`` and
 ``csrc/fused_semilinear_bwd.cu``. The dynamics heads never read the state, so
 each step's affine map ``x_{t+1} = A_t x_t + B_t`` is independent of the
 others: a block owns one trajectory at a time, one thread per step evaluates
@@ -26,11 +28,17 @@ runs K2 forward (saving u, the weights and K2's output) and K3 backward. The
 kernels take the weights and the time grid as they are and compute the stage
 times from the grid, rounded as the plain versions round them: a wrapper
 call makes no tables on the card, only its outputs (and K3's per-block
-partial sums, which it adds up with ``torch.sum``). :func:`fused_semilinear_fwd` and
-:func:`fused_semilinear_bwd` are the kernels' wrappers; the ``_plain``
-functions their plain PyTorch versions, used for a tensor on the CPU and held
+partial sums, which a second kernel of the same launch adds up in a fixed
+order). :func:`fused_semilinear_fwd` and :func:`fused_semilinear_bwd` are the
+kernels' wrappers for one model, :func:`fused_semilinear_fwd_members` and
+:func:`fused_semilinear_bwd_members` for S members in one launch (every
+argument but the time grid with a leading member axis; the single-member
+wrappers launch the same kernels with S = 1, and a member's outputs are
+bit-equal to a single-member launch on its slices); the ``_plain`` functions
+are their plain PyTorch versions, used for a tensor on the CPU and held
 against the kernels on the card. For a CUDA tensor the wrappers launch the
-kernel or raise.
+kernel or raise. Under ``torch.func.vmap`` :func:`fused_semilinear_solve`
+reaches the member-batched wrappers.
 """
 
 from __future__ import annotations
@@ -44,18 +52,20 @@ import torch.nn.functional as F
 from structured_latent_odes_tpu_torch.ode.semilinear import rk_affine_coeffs, stage_time_grid
 from structured_latent_odes_tpu_torch.ode.tableaus import ButcherTableau, get_tableau
 from structured_latent_odes_tpu_torch.ops import _build
+from structured_latent_odes_tpu_torch.ops.recurrence import _to_front
 
 Tensor = torch.Tensor
 
 # the kernels' Method enum, in order
 METHODS = ("euler", "midpoint", "heun", "rk4")
 
-# (method, u, x0, ts, wt, wt_stride, wa, ba, wd, bd, out, B, T, stream)
-_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 5
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-# (method, u, xs, g, ts, wt, wt_stride, wa, ba, wd, bd, du, dx0, partial, B, T, n_blocks, stream)
-_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 7
+# (method, u, x0, ts, wt, wt_stride, wt_mstride, wa, ba, wd, bd, out, S, B, T, stream)
+_FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+# (method, u, xs, g, ts, wt, wt_stride, wt_mstride, wa, ba, wd, bd, du, dx0, partial, grads, S, B, T,
+#  n_blocks, stream)
+_BWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _stages(u, wt, wa, ba, wd, bd, taus):
@@ -159,6 +169,24 @@ def fused_semilinear_bwd_plain(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     return du, dwt, dwa, dba, dwd, dbd, lam
 
 
+def fused_semilinear_fwd_members_plain(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
+    """Plain version of the member-batched K2: :func:`fused_semilinear_fwd_plain`
+    for each member. Every argument but ts has a leading member axis ``(S,
+    ...)``; returns ``(S, B, T, D)``."""
+    return torch.stack([
+        fused_semilinear_fwd_plain(u[s], wt[s], wa[s], ba[s], wd[s], bd[s], x0[s], ts, method)
+        for s in range(u.shape[0])
+    ])
+
+
+def fused_semilinear_bwd_members_plain(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
+    """Plain version of the member-batched K3: :func:`fused_semilinear_bwd_plain`
+    for each member, each of the seven results with a leading member axis."""
+    per = [fused_semilinear_bwd_plain(u[s], wt[s], wa[s], ba[s], wd[s], bd[s], xs[s], g[s], ts, method)
+           for s in range(u.shape[0])]
+    return tuple(torch.stack(outs) for outs in zip(*per))
+
+
 def _check_shapes(args, expected):
     if tuple(tuple(a.shape) for a in args) != expected:
         raise ValueError(f"shapes {[tuple(a.shape) for a in args]}, expected {list(expected)}")
@@ -170,19 +198,50 @@ def _method_index(name: str, method: str) -> int:
     return METHODS.index(method)
 
 
-def _kernel_args(name: str, args):
-    """The kernels' library defines and weight arguments: w_t (a column of the
-    hidden layer's weight, passed with its stride), W_a, b_a, W_d, b_d. The
-    kernels take the time grid itself and compute the stage times from it."""
+def _kernel_args(name: str, args, S: int):
+    """The kernels' library defines and weight arguments: w_t (a column of
+    the hidden layer's weight, passed with its stride and, for S members
+    ``(S, H)``, its member stride), W_a, b_a, W_d, b_d. The kernels take the
+    time grid itself and compute the stage times from it."""
     _build.check_cuda(name, *args)
     u, wt, wa, ba, wd, bd = args[:6]
-    defines = (("SLODE_H", u.shape[1]), ("SLODE_D", wa.shape[0]))
-    return defines, (wt, wt.stride(0), wa.contiguous(), ba.contiguous(), wd.contiguous(), bd.contiguous())
+    defines = (("SLODE_H", u.shape[-1]), ("SLODE_D", wa.shape[-2]))
+    strides = (wt.stride(1), wt.stride(0)) if S else (wt.stride(0), 0)
+    return defines, (wt, *strides, wa.contiguous(), ba.contiguous(), wd.contiguous(), bd.contiguous())
+
+
+def _members_shapes(name: str, u, ts, wa, backward: bool):
+    """The member-batched wrappers' expected shapes, from u ``(S, B, H)``,
+    W_a ``(S, D, H)`` and ts ``(T,)``."""
+    if u.ndim != 3 or wa.ndim != 3:
+        raise ValueError(f"{name}: shapes: u {tuple(u.shape)}, W_a {tuple(wa.shape)} lack the member axis")
+    S, B, H = u.shape
+    D = wa.shape[1]
+    T = ts.shape[0]
+    state = ((S, B, T, D), (S, B, T, D)) if backward else ((S, B, D),)
+    return ((S, B, H), (S, H), (S, D, H), (S, D), (S, D, H), (S, D)) + state + ((T,),)
+
+
+# S = 0 below: one model, the arrays without a member axis (a launch of one
+# member); S > 0: S members, each array but ts with a leading member axis
+
+
+def _fwd_launch(m: int, S: int, args) -> Tensor:
+    """K2 over ``args``; returns the trajectories ``([S,] B, T, D)``."""
+    u, wt, wa, ba, wd, bd, x0, ts = args
+    B, T, D = u.shape[-2], ts.shape[0], wa.shape[-2]
+    defines, weights = _kernel_args("fused_semilinear_fwd", args, S)
+    out = torch.empty((S,) * bool(S) + (B, T, D), dtype=torch.float32, device=u.device)
+    fn = _build.function("fused_semilinear_fwd", "fused_semilinear_fwd", _FWD_ARGTYPES, defines)
+    _build.launch("fused_semilinear_fwd", fn, m, u.contiguous(), x0.contiguous(), ts.contiguous(),
+                  *weights, out, max(S, 1), B, T)
+    return out
 
 
 def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
     """K2's wrapper: the arguments and result of
-    :func:`fused_semilinear_fwd_plain`."""
+    :func:`fused_semilinear_fwd_plain`. On the card it launches the
+    member-batched kernel for one member."""
     m = _method_index("fused_semilinear_fwd", method)
     args = (u, wt, wa, ba, wd, bd, x0, ts)
     B, H = u.shape
@@ -191,11 +250,7 @@ def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
     _check_shapes(args, ((B, H), (H,), (D, H), (D,), (D, H), (D,), (B, D), (T,)))
     if u.device.type == "cpu":
         return fused_semilinear_fwd_plain(*args, method)
-    defines, weights = _kernel_args("fused_semilinear_fwd", args)
-    out = torch.empty((B, T, D), dtype=torch.float32, device=u.device)
-    fn = _build.function("fused_semilinear_fwd", "fused_semilinear_fwd", _FWD_ARGTYPES, defines)
-    _build.launch("fused_semilinear_fwd", fn, m, u.contiguous(), x0.contiguous(), ts.contiguous(),
-                  *weights, out, B, T)
+    out = _fwd_launch(m, 0, args)
     fused_semilinear_fwd.launches += 1
     return out
 
@@ -203,10 +258,27 @@ def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
 fused_semilinear_fwd.launches = 0
 
 
+def fused_semilinear_fwd_members(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
+    """The member-batched K2's wrapper: the arguments and result of
+    :func:`fused_semilinear_fwd_members_plain`, S members in one launch."""
+    m = _method_index("fused_semilinear_fwd_members", method)
+    args = (u, wt, wa, ba, wd, bd, x0, ts)
+    _check_shapes(args, _members_shapes("fused_semilinear_fwd_members", u, ts, wa, backward=False))
+    if u.device.type == "cpu":
+        return fused_semilinear_fwd_members_plain(*args, method)
+    out = _fwd_launch(m, u.shape[0], args)
+    fused_semilinear_fwd_members.launches += 1
+    return out
+
+
+fused_semilinear_fwd_members.launches = 0
+
+
 @functools.lru_cache(maxsize=None)
 def _bwd_blocks(defines, m: int, B: int, T: int, device_index: int) -> int:
-    """K3's grid, and so the rows of its partial-sum buffer, for one shape on
-    one card: asked of the library once per shape."""
+    """K3's grid over one member's trajectories, and so the rows of a member's
+    partial-sum buffer, for one shape on one card: asked of the library once
+    per shape."""
     fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd_blocks", [ctypes.c_int] * 3, defines)
     with torch.cuda.device(device_index):
         n = fn(m, B, T)
@@ -215,9 +287,31 @@ def _bwd_blocks(defines, m: int, B: int, T: int, device_index: int) -> int:
     return n
 
 
+def _bwd_launch(m: int, S: int, args):
+    """K3 over ``args``: the seven gradients, each with the member axis when
+    S > 0."""
+    u, wt, wa, ba, wd, bd, xs, g, ts = args
+    B, H = u.shape[-2:]
+    T, D = ts.shape[0], wa.shape[-2]
+    lead = (S,) * bool(S)
+    defines, weights = _kernel_args("fused_semilinear_bwd", args, S)
+    n_blocks = _bwd_blocks(defines, m, B, T, u.device.index) if B else 0
+    fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd", _BWD_ARGTYPES, defines)
+    P = H + 2 * D * H + 2 * D
+    du = torch.empty(lead + (B, H), dtype=torch.float32, device=u.device)
+    dx0 = torch.empty(lead + (B, D), dtype=torch.float32, device=u.device)
+    partial = torch.empty(lead + (n_blocks, P), dtype=torch.float32, device=u.device)
+    grads = (torch.empty if B else torch.zeros)(lead + (P,), dtype=torch.float32, device=u.device)
+    _build.launch("fused_semilinear_bwd", fn, m, u.contiguous(), xs.contiguous(), g.contiguous(),
+                  ts.contiguous(), *weights, du, dx0, partial, grads, max(S, 1), B, T, n_blocks)
+    dwt, dwa, dba, dwd, dbd = torch.split(grads, [H, D * H, D, D * H, D], dim=-1)
+    return du, dwt, dwa.view(lead + (D, H)), dba, dwd.view(lead + (D, H)), dbd, dx0
+
+
 def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     """K3's wrapper: the arguments and results of
-    :func:`fused_semilinear_bwd_plain`."""
+    :func:`fused_semilinear_bwd_plain`. On the card it launches the
+    member-batched kernel for one member."""
     m = _method_index("fused_semilinear_bwd", method)
     args = (u, wt, wa, ba, wd, bd, xs, g, ts)
     B, H = u.shape
@@ -226,38 +320,85 @@ def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     _check_shapes(args, ((B, H), (H,), (D, H), (D,), (D, H), (D,), (B, T, D), (B, T, D), (T,)))
     if u.device.type == "cpu":
         return fused_semilinear_bwd_plain(*args, method)
-    defines, weights = _kernel_args("fused_semilinear_bwd", args)
-    n_blocks = _bwd_blocks(defines, m, B, T, u.device.index) if B else 0
-    fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd", _BWD_ARGTYPES, defines)
-    du = torch.empty((B, H), dtype=torch.float32, device=u.device)
-    dx0 = torch.empty((B, D), dtype=torch.float32, device=u.device)
-    partial = torch.empty((n_blocks, H + 2 * D * H + 2 * D), dtype=torch.float32, device=u.device)
-    _build.launch("fused_semilinear_bwd", fn, m, u.contiguous(), xs.contiguous(), g.contiguous(),
-                  ts.contiguous(), *weights, du, dx0, partial, B, T, n_blocks)
+    outs = _bwd_launch(m, 0, args)
     fused_semilinear_bwd.launches += 1
-    dwt, dwa, dba, dwd, dbd = torch.split(partial.sum(0), [H, D * H, D, D * H, D])
-    return du, dwt, dwa.view(D, H), dba, dwd.view(D, H), dbd, dx0
+    return outs
 
 
 fused_semilinear_bwd.launches = 0
 
 
-class _FusedSemilinear(torch.autograd.Function):
-    """K2 forward, K3 backward (the JAX package's ``_fused_fwd``/``_fused_bwd``).
-    The time grid gets no gradient."""
+def fused_semilinear_bwd_members(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
+    """The member-batched K3's wrapper: the arguments and results of
+    :func:`fused_semilinear_bwd_members_plain`, S members in one launch."""
+    m = _method_index("fused_semilinear_bwd_members", method)
+    args = (u, wt, wa, ba, wd, bd, xs, g, ts)
+    _check_shapes(args, _members_shapes("fused_semilinear_bwd_members", u, ts, wa, backward=True))
+    if u.device.type == "cpu":
+        return fused_semilinear_bwd_members_plain(*args, method)
+    outs = _bwd_launch(m, u.shape[0], args)
+    fused_semilinear_bwd_members.launches += 1
+    return outs
+
+
+fused_semilinear_bwd_members.launches = 0
+
+
+def _vmap_members(info, in_dims, args):
+    """The member-batched wrappers' arguments from a vmap rule's: every
+    tensor but the (shared) time grid with its member axis first."""
+    if in_dims[len(args) - 1] is not None:
+        raise ValueError("the fused solve takes one time grid for all members")
+    return tuple(_to_front(t, d, info.batch_size) for t, d in zip(args[:-1], in_dims)) + (args[-1],)
+
+
+class _FusedSemilinearBwd(torch.autograd.Function):
+    """K3 as a function that ``torch.func.vmap`` can batch (the backward of
+    :class:`_FusedSemilinear` runs under the ensemble's vmap)."""
 
     @staticmethod
-    def forward(ctx, u, wt, wa, ba, wd, bd, x0, ts, method):
-        xs = fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method)
-        ctx.save_for_backward(u, wt, wa, ba, wd, bd, xs, ts)
+    def forward(u, wt, wa, ba, wd, bd, xs, g, ts, method):
+        return fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("K3 has no derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, u, wt, wa, ba, wd, bd, xs, g, ts, method):
+        args = _vmap_members(info, in_dims[:9], (u, wt, wa, ba, wd, bd, xs, g, ts))
+        return fused_semilinear_bwd_members(*args, method), (0,) * 7
+
+
+class _FusedSemilinear(torch.autograd.Function):
+    """K2 forward, K3 backward (the JAX package's ``_fused_fwd``/``_fused_bwd``).
+    The time grid gets no gradient. Under ``torch.func.vmap`` (the ensemble's
+    member axis) both run member-batched: one launch for all members."""
+
+    @staticmethod
+    def forward(u, wt, wa, ba, wd, bd, x0, ts, method):
+        return fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, wt, wa, ba, wd, bd, _, ts, method = inputs
+        ctx.save_for_backward(u, wt, wa, ba, wd, bd, output, ts)
         ctx.method = method
-        return xs
 
     @staticmethod
     def backward(ctx, g):
         u, wt, wa, ba, wd, bd, xs, ts = ctx.saved_tensors
-        grads = fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, ctx.method)
+        grads = _FusedSemilinearBwd.apply(u, wt, wa, ba, wd, bd, xs, g, ts, ctx.method)
         return (*grads, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, u, wt, wa, ba, wd, bd, x0, ts, method):
+        args = _vmap_members(info, in_dims[:8], (u, wt, wa, ba, wd, bd, x0, ts))
+        return fused_semilinear_fwd_members(*args, method), 0
 
 
 def fused_semilinear_solve(params, z: Tensor, x0: Tensor, ts, method: str = "midpoint") -> Tensor:

@@ -15,21 +15,35 @@ runs the chain from there, and all threads store the output runs with
 batch by bytes (each array read or written once). A block's shared memory
 caps the steps: at D = 5, T up to 966 forward and 579 backward (CVS and proc
 have 85 steps, challenge 141). The wrappers ask the library for the cap
-(``affine_scan_max_steps``) and raise above it.
+(``affine_scan_max_steps``) and raise above it; the model's entry splits the
+work instead (below).
 
 :func:`affine_scan` (batch-major, the model's entry) and
 :func:`affine_scan_tm` (time-major) are differentiable: a
 ``torch.autograd.Function`` runs K1 forward (saving A and the trajectory) and
 K1-bwd backward, and hands both the tensors it holds, with no copy; where no
-gradient is asked for, :func:`affine_scan` calls K1's wrapper directly.
+gradient is asked for, :func:`affine_scan` calls K1's wrapper directly. Under
+``torch.func.vmap`` (the ensemble's member axis, ``train/ensemble.py``) the
+function folds the member axis into ``Bt`` as a view and launches once for
+all members.
+
+Above the cap the model's entry splits the work (:func:`scan_in_runs`,
+:func:`scan_bwd_in_runs`): the time axis into runs of at most the cap, each
+run's inputs copied into contiguous buffers, the last state of a run the next
+run's ``x0`` forward and, backward, the ``dx0`` of a later run in place of the
+earlier run's last cotangent row; and a width above 32 into slices of at most
+32 components, which are independent recurrences. The operations are the
+plain versions' in their order, so the split result is bit-equal to them.
+Shapes within the cap stay one launch, with no copy.
+
 :func:`affine_scan_fwd` and :func:`affine_scan_bwd` are the kernels'
-wrappers; :func:`affine_scan_batched_plain` and
-:func:`affine_scan_bwd_batched_plain` their plain PyTorch versions, used for
-a tensor on the CPU and held against the kernels on the card;
-:func:`affine_scan_plain` computes the forward time-major, ``(T, ...)``, as a
-batch of one. A wrapper takes contiguous float32
-tensors on one device and raises on anything else; for a CUDA tensor it
-launches the kernel or raises.
+wrappers, one launch each, raising above the cap;
+:func:`affine_scan_batched_plain` and :func:`affine_scan_bwd_batched_plain`
+their plain PyTorch versions, used for a tensor on the CPU and held against
+the kernels on the card; :func:`affine_scan_plain` computes the forward
+time-major, ``(T, ...)``, as a batch of one. A wrapper takes contiguous
+float32 tensors on one device and raises on anything else; for a CUDA tensor
+it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -162,34 +176,175 @@ def affine_scan_bwd(A: Tensor, xs: Tensor, g: Tensor):
 affine_scan_bwd.launches = 0
 
 
-class _AffineScan(torch.autograd.Function):
-    """K1 forward, K1-bwd backward (the JAX package's ``_fwd``/``_bwd``), on
-    batch-major tensors."""
+# a thread per component of a four-trajectory tile (csrc/affine_scan.cu kMaxD)
+_MAX_D = 32
+
+
+def _components(D: int, width: int):
+    return [(d0, min(d0 + width, D)) for d0 in range(0, D, width)]
+
+
+def scan_in_runs(launch, A: Tensor, B: Tensor, x0: Tensor, cap: int, width: int) -> Tensor:
+    """The forward scan of A, B ``(Bt, T, D)`` and x0 ``(Bt, D)`` as
+    launches of ``launch`` (K1's wrapper, or its plain version) on runs of at
+    most ``cap`` steps and ``width`` components, each run's inputs copied into
+    contiguous buffers. A run starts from the previous run's last state, and
+    its rows after the first go to the output: the seam row is written once.
+    Returns the contiguous ``(Bt, T+1, D)`` trajectory."""
+    Bt, T, D = A.shape
+    out = A.new_empty((Bt, T + 1, D))
+    out[:, 0] = x0
+    for d0, d1 in _components(D, width):
+        x = x0[:, d0:d1].contiguous()
+        for t0 in range(0, T, cap):
+            t1 = min(t0 + cap, T)
+            xs = launch(A[:, t0:t1, d0:d1].contiguous(), B[:, t0:t1, d0:d1].contiguous(), x)
+            out[:, t0 + 1:t1 + 1, d0:d1] = xs[:, 1:]
+            x = xs[:, -1].contiguous()
+    return out
+
+
+def scan_bwd_in_runs(launch, A: Tensor, xs: Tensor, g: Tensor, cap: int, width: int):
+    """The reverse sweep of :func:`scan_in_runs` with ``launch`` (K1-bwd's
+    wrapper, or its plain version): runs last to first. A later run covers
+    steps t0..t1-1 with cotangent rows t0..t1 and returns as its dx0 the
+    adjoint at t0, ``A[t0] * lam + g[t0]``; the earlier run takes that value in
+    place of its last cotangent row (``g[t0]`` is already in it), so the
+    operations and their order are those of the unsplit sweep. Returns (dA,
+    dB ``(Bt, T, D)``, dx0 ``(Bt, D)``)."""
+    Bt, T, D = A.shape
+    dA, dB = torch.empty_like(A), torch.empty_like(A)
+    dx0 = A.new_empty((Bt, D))
+    starts = list(range(0, T, cap))
+    for d0, d1 in _components(D, width):
+        lam = None
+        for t0 in reversed(starts):
+            t1 = min(t0 + cap, T)
+            # a copy even where the slice is contiguous already (Bt = 1):
+            # the seam row written below must not reach the caller's g
+            g_run = g[:, t0:t1 + 1, d0:d1].clone(memory_format=torch.contiguous_format)
+            if lam is not None:
+                g_run[:, -1] = lam
+            da, db, lam = launch(A[:, t0:t1, d0:d1].contiguous(), xs[:, t0:t1 + 1, d0:d1].contiguous(), g_run)
+            dA[:, t0:t1, d0:d1] = da
+            dB[:, t0:t1, d0:d1] = db
+        dx0[:, d0:d1] = lam
+    return dA, dB, dx0
+
+
+def _split(A: Tensor, backward: bool):
+    """(cap, width) of the runs K1 (or K1-bwd) takes at A's shape, or None
+    where one launch takes it all: on the CPU (the plain version has no cap),
+    an empty tensor, or T and D within the kernel's limits."""
+    Bt, T, D = A.shape
+    if A.device.type != "cuda" or not (Bt and T and D):
+        return None
+    width = min(D, _MAX_D)
+    cap = _max_steps(width, backward)
+    if D <= width and T <= cap:
+        return None
+    return cap, width
+
+
+def _scan_fwd(A: Tensor, B: Tensor, x0: Tensor) -> Tensor:
+    """K1 on the model's shapes: one launch within the cap, else runs."""
+    split = _split(A, backward=False)
+    if split is None:
+        return affine_scan_fwd(A, B, x0)
+    return scan_in_runs(affine_scan_fwd, A, B, x0, *split)
+
+
+def _scan_bwd(A: Tensor, xs: Tensor, g: Tensor):
+    """K1-bwd on the model's shapes: one launch within the cap, else runs."""
+    split = _split(A, backward=True)
+    if split is None:
+        return affine_scan_bwd(A, xs, g)
+    return scan_bwd_in_runs(affine_scan_bwd, A, xs, g, *split)
+
+
+def _to_front(t: Tensor, dim, size: int) -> Tensor:
+    """A vmapped argument with its member axis first (expanded where the
+    argument is shared by all members)."""
+    return t.movedim(dim, 0) if dim is not None else t.expand(size, *t.shape)
+
+
+def _fold(t: Tensor) -> Tensor:
+    """(S, Bt, ...) -> (S*Bt, ...): a view of a contiguous tensor."""
+    return t.contiguous().reshape(t.shape[0] * t.shape[1], *t.shape[2:])
+
+
+class _AffineScanBwd(torch.autograd.Function):
+    """K1-bwd as a function that ``torch.func.vmap`` can batch (the backward
+    of :class:`_AffineScan` runs under the ensemble's vmap)."""
 
     @staticmethod
-    def forward(ctx, A, B, x0):
-        xs = affine_scan_fwd(A, B, x0)
-        ctx.save_for_backward(A, xs)
-        return xs
+    def forward(A, xs, g):
+        # the model's cotangent is contiguous already (the heads' matmul
+        # makes it), and then contiguous() is no copy
+        return _scan_bwd(A, xs, g.contiguous())
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("K1-bwd has no derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, A, xs, g):
+        S = info.batch_size
+        A, xs, g = (_to_front(t, d, S) for t, d in zip((A, xs, g), in_dims))
+        dA, dB, dx0 = _scan_bwd(_fold(A), _fold(xs), _fold(g))
+        unfold = lambda t: t.reshape(S, -1, *t.shape[1:])  # noqa: E731
+        return (unfold(dA), unfold(dB), unfold(dx0)), (0, 0, 0)
+
+
+class _AffineScan(torch.autograd.Function):
+    """K1 forward, K1-bwd backward (the JAX package's ``_fwd``/``_bwd``), on
+    batch-major tensors. Under ``torch.func.vmap`` the member axis folds into
+    ``Bt``: one launch for all members."""
+
+    @staticmethod
+    def forward(A, B, x0):
+        return _scan_fwd(A, B, x0)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0], output)
 
     @staticmethod
     def backward(ctx, g):
         A, xs = ctx.saved_tensors
-        # the model's cotangent is contiguous already (the heads' matmul
-        # makes it), and then contiguous() is no copy
-        return affine_scan_bwd(A, xs, g.contiguous())
+        return _AffineScanBwd.apply(A, xs, g)
+
+    @staticmethod
+    def vmap(info, in_dims, A, B, x0):
+        S = info.batch_size
+        A, B, x0 = (_to_front(t, d, S) for t, d in zip((A, B, x0), in_dims))
+        xs = _scan_fwd(_fold(A), _fold(B), _fold(x0))
+        return xs.reshape(S, -1, *xs.shape[1:]), 0
+
+
+def _traced(*tensors) -> bool:
+    """Whether autograd or a torch.func transform (the ensemble's vmap and
+    grad) sees any of the tensors: then the entry goes through the
+    ``autograd.Function``."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t) for t in tensors) or (
+        torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
 
 
 def affine_scan(A: Tensor, B: Tensor, x0: Tensor) -> Tensor:
     """Batch-major entry, as ``affine_scan_pallas``: A, B ``(Bt, T, D)``, x0
     ``(Bt, D)`` -> the contiguous trajectory ``(Bt, T+1, D)`` including x0;
-    unbatched ``(T, D)`` and ``(D,)`` too. Differentiable in all three; the
-    kernels take the tensors as they are."""
+    unbatched ``(T, D)`` and ``(D,)`` too. Differentiable in all three, and
+    batched by ``torch.func.vmap``; within the kernels' limits the kernels
+    take the tensors as they are, above them the work is split into runs."""
     if A.ndim == 2:
         return affine_scan(A[None], B[None], x0[None])[0]
-    if torch.is_grad_enabled() and (A.requires_grad or B.requires_grad or x0.requires_grad):
+    if _traced(A, B, x0):
         return _AffineScan.apply(A, B, x0)
-    return affine_scan_fwd(A, B, x0)
+    return _scan_fwd(A, B, x0)
 
 
 def affine_scan_tm(A_tm: Tensor, B_tm: Tensor, x0: Tensor) -> Tensor:

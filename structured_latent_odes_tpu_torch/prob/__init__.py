@@ -6,6 +6,7 @@ from structured_latent_odes_tpu_torch.prob.distributions import (
     normal_logpdf,
     onehot_categorical_logpmf,
     sample_normal_ps,
+    seed_tensor,
     standard_normal_ps,
     sum_event,
 )
@@ -22,6 +23,7 @@ __all__ = [
     "onehot_categorical_logpmf",
     "quantile_laplace_logprob",
     "sample_normal_ps",
+    "seed_tensor",
     "standard_normal_ps",
     "sum_event",
 ]

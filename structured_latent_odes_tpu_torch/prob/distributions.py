@@ -14,7 +14,10 @@ bits; tests feed both packages the same draws instead.
 
 JAX threads keys by splitting them; here a seed for each (step, loss) or
 (epoch, split) comes from :func:`fold_seed`, through the same hash, so a
-training draw depends only on (seed, step, site, sample_id). The JAX key-based
+training draw depends only on (seed, step, site, sample_id). Seeds are host
+integers; an ensemble (``train/ensemble.py``) hands its members' seeds to the
+draws as one int64 tensor (:func:`seed_tensor`), and the hash then runs on the
+device, member s drawing exactly what it would draw alone. The JAX key-based
 samplers ``sample_laplace``, ``sample_bernoulli`` and
 ``sample_onehot_categorical`` are on no path of the port yet (ROADMAP).
 """
@@ -84,8 +87,9 @@ def _mix32(x: Tensor) -> Tensor:
     return x ^ (x >> 16)
 
 
-def _site_word(seed: int, site: str) -> int:
-    """32-bit hash of (seed, site); _mix32 on Python ints, host-side."""
+def _site_word(seed, site: str):
+    """32-bit hash of (seed, site); _mix32 on Python ints, host-side, or on
+    an int64 tensor of seeds (:func:`seed_tensor`) on its device."""
     words = (seed & _MASK32, (seed >> 32) & _MASK32, zlib.crc32(site.encode()))
     h = 0x9E3779B9
     for w in words:
@@ -93,31 +97,49 @@ def _site_word(seed: int, site: str) -> int:
     return h
 
 
-def fold_seed(seed: int, *words) -> int:
+def fold_seed(seed, *words):
     """A 64-bit seed from ``seed`` and ``words`` (ints or strings), e.g. the
-    training step and the loss, through the draws' own hash."""
+    training step and the loss, through the draws' own hash. ``seed`` is an
+    int, or an int64 tensor of seeds (their bits, :func:`seed_tensor`)."""
     for w in words:
         seed = (_site_word(seed, f"fold/{w}") << 32) | _site_word(seed, f"fold/{w}/lo")
     return seed
 
 
-def standard_normal_ps(seed: int, site: str, sample_ids: Tensor, event_shape: Sequence[int],
+def seed_tensor(seeds, device=None) -> Tensor:
+    """64-bit seeds (Python ints, as :func:`fold_seed` returns them) as an
+    int64 tensor holding the same bits, for draws of several models at once:
+    an ensemble's S members draw in one set of device operations what each
+    would draw alone at its own seed."""
+    return torch.tensor([s - (1 << 64) if s >= 1 << 63 else s for s in seeds], dtype=torch.int64, device=device)
+
+
+def standard_normal_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int],
                        dtype=torch.float32) -> Tensor:
-    """Standard-normal draws of shape ``(B, *event_shape)`` on
-    ``sample_ids``' device; row b depends only on (seed, site, sample_ids[b])."""
+    """Standard-normal draws of shape ``(..., B, *event_shape)`` on
+    ``sample_ids``' device; row b depends only on (seed, site, sample_ids[b]).
+
+    ``seed`` is an int, or an int64 tensor of seeds (:func:`seed_tensor`):
+    of shape ``(S,)``, the draws gain a leading member axis, member s's
+    equal to the draws at ``seeds[s]`` alone (``sample_ids`` ``(B,)`` or
+    ``(S, B)``); 0-d, the form it has under ``torch.func.vmap``, they are
+    those of that one seed."""
     n = math.prod(event_shape)
-    sid = sample_ids.to(torch.int64).reshape(-1, 1) & _MASK32
-    key = _mix32(sid ^ _site_word(seed, site))
+    sid = sample_ids.to(torch.int64)[..., None] & _MASK32
+    word = _site_word(seed, site)
+    if isinstance(word, Tensor) and word.ndim:
+        word = word.to(sid.device)[:, None, None]
+    key = _mix32(sid ^ word)
     # counters 2j and 2j+1 feed the two uniforms of element j's Box-Muller
     # pair; one tensor for both keeps the number of small launches down
-    counter = torch.arange(2 * n, device=sample_ids.device, dtype=torch.int64)[None, :]
+    counter = torch.arange(2 * n, device=sample_ids.device, dtype=torch.int64)
     u = ((_mix32(key ^ counter) >> 8).to(torch.float64) + 0.5) / 16777216.0  # (0, 1)
-    u1, u2 = u[:, 0::2], u[:, 1::2]
+    u1, u2 = u[..., 0::2], u[..., 1::2]
     eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-    return eps.to(dtype).reshape(sid.shape[0], *event_shape)
+    return eps.to(dtype).reshape(*key.shape[:-1], *event_shape)
 
 
-def sample_normal_ps(seed: int, site: str, sample_ids: Tensor, loc: Tensor, scale: Tensor,
+def sample_normal_ps(seed, site: str, sample_ids: Tensor, loc: Tensor, scale: Tensor,
                      eps: Tensor | None = None) -> Tensor:
     """``loc + scale * eps`` with per-sample draws; ``loc``/``scale`` are
     ``(B, ...)``. ``eps`` replaces the generated standard-normal draws (tests

@@ -6,7 +6,7 @@ final test evaluation.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 periodic checkpoints and resume (A10-rest), a profiler trace of an epoch
-(A17), and the plotting ``on_epoch`` (A11).
+(A17), and the plotting ``on_epoch`` (A11-rest).
 """
 
 from __future__ import annotations
@@ -195,7 +195,7 @@ def run_training_epochs(
     if profile_dir:
         raise NotImplementedError("the profiler trace of an epoch is not ported yet (ROADMAP A17)")
     if on_epoch is not None and config.get("plot_epoch") and config.get("plot", True):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A11): pass --no-plot")
+        raise NotImplementedError("plotting is not ported yet (ROADMAP A11-rest): pass --no-plot")
     device = tree_leaves(state.params)[0].device
     put = put_batch or (lambda b: device_batch(b, device))
     best = {"params": state.params, "epoch": 0, "criterion": np.inf}

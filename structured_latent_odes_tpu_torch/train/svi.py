@@ -22,6 +22,10 @@ Randomness: the state carries an integer seed and a step counter. Each step's
 main and aux draws are keyed by ``fold_seed(seed, step, 'main' | 'aux')``
 (``prob/distributions.py``), and each particle's by its index, so a draw
 depends only on (seed, step, site, sample_id).
+
+``make_stacked_dual_step`` is the dual step of an ensemble's S members
+(``train/ensemble.py``): stacked parameters, one ``torch.func.vmap`` over the
+members for each loss's gradient, and the members' seeds as one tensor.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_main, param_masks, recon
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
-from structured_latent_odes_tpu_torch.prob import fold_seed
+from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -159,24 +163,33 @@ def value_and_grad(loss_fn, params, *args):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
+def particle_seeds(seed, num_particles: int):
+    """Each particle's seed, ``fold_seed(seed, p)``; a tensor of seeds is
+    taken to hold them already (the stacked step derives them on the host)."""
+    if isinstance(seed, Tensor):
+        return [seed[p] for p in range(num_particles)]
+    return [fold_seed(seed, p) for p in range(num_particles)]
+
+
 def make_losses(spec: ModelSpec, ts: Tensor, num_particles: int = 1):
     """(main_loss, aux_loss) of (params, seed, batch, noise): the mean over
     ``num_particles`` reparameterized particles (Trace_ELBO(num_particles)).
-    ``noise`` is None or one ``noise=`` dict per particle."""
+    ``seed`` is an int, or a tensor of the particles' seeds
+    (:func:`particle_seeds`); ``noise`` is None or one ``noise=`` dict per
+    particle."""
 
     def main_loss(params, seed, batch, noise=None):
         losses, l1s = [], []
-        for p in range(num_particles):
-            loss, mets = elbo_main(spec, params, fold_seed(seed, p), batch, ts,
-                                   noise=None if noise is None else noise[p])
+        for p, sp in enumerate(particle_seeds(seed, num_particles)):
+            loss, mets = elbo_main(spec, params, sp, batch, ts, noise=None if noise is None else noise[p])
             losses.append(loss)
             l1s.append(mets["l1"])
         return torch.stack(losses).mean(), {"l1": torch.stack(l1s).mean()}
 
     def aux_loss(params, seed, batch, noise=None):
         return torch.stack([
-            elbo_aux(spec, params, fold_seed(seed, p), batch, noise=None if noise is None else noise[p])
-            for p in range(num_particles)
+            elbo_aux(spec, params, sp, batch, noise=None if noise is None else noise[p])
+            for p, sp in enumerate(particle_seeds(seed, num_particles))
         ]).mean()
 
     return main_loss, aux_loss
@@ -232,6 +245,56 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
         return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
     return init_state, train_step, train_epoch
+
+
+def stacked_step_seeds(seeds, steps, num_particles: int = 1, device=None) -> Tensor:
+    """The draws' seeds of ``steps`` dual steps of S stacked members: an int64
+    tensor ``(n_steps, S, 2, P)`` holding, for step k and member s, the main
+    and the aux loss's particle seeds that :func:`make_dual_step` derives from
+    ``seeds[s]`` at step k. Derived on the host, for a whole epoch at once, so
+    the step's device operations do not depend on S."""
+    rows = []
+    for k in steps:
+        for seed in seeds:
+            step_seed = fold_seed(seed, k)
+            for loss in ("main", "aux"):
+                rows += particle_seeds(fold_seed(step_seed, loss), num_particles)
+    return seed_tensor(rows, device).reshape(len(steps), len(seeds), 2, num_particles)
+
+
+def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1):
+    """The dual step of S stacked members (the JAX ensemble's vmapped
+    ``make_dual_step``): ``step(state, batch, batch_dims, seeds) -> (state,
+    metrics)``. ``state`` holds stacked parameters and optimizer slots (a
+    leading member axis on every tensor; the step counts are Python ints,
+    shared, since members step in lockstep), the members' seeds as a list and
+    one step counter. ``batch_dims`` names, per batch key, 0 for a leading
+    member axis or None for a value all members share (the mask, ``aux_mult``,
+    ``lr_scale``); ``seeds`` is this step's ``(S, 2, P)`` slice of
+    :func:`stacked_step_seeds`.
+
+    Both gradients are ``torch.func.vmap`` of ``torch.func.grad_and_value``
+    over the members, so every operation, the kernels K1-K3 included, runs
+    once for all members: the step's count of device operations does not
+    grow with S. Member s's result equals :func:`make_dual_step` on member
+    s's slices to float32 roundoff (batched and single matrix products may
+    round differently)."""
+    main_loss, aux_loss = make_losses(spec, ts, num_particles)
+    grad_main = torch.func.grad_and_value(main_loss, has_aux=True)
+    grad_aux = torch.func.grad_and_value(aux_loss)
+
+    def step(state: SVIState, batch, batch_dims, seeds: Tensor):
+        sc = batch.get("lr_scale", 1.0)
+        grads, (loss_m, mets) = torch.func.vmap(grad_main, in_dims=(0, 0, batch_dims))(
+            state.params, seeds[:, 0], batch)
+        params, opt = optim.update_main(grads, state.opt, state.params, sc)
+        grads_a, loss_a = torch.func.vmap(grad_aux, in_dims=(0, 0, batch_dims))(params, seeds[:, 1], batch)
+        params, opt = optim.update_aux(grads_a, opt, params, sc)
+        n = torch.clamp(torch.sum(batch["mask"], dim=-1), min=1.0)
+        metrics = {"loss_main": loss_m / n, "loss_aux": loss_a / n, "l1": mets["l1"]}
+        return SVIState(params, opt, state.seed, state.step + 1), metrics
+
+    return step
 
 
 def eval_seeds(seed: int):

@@ -17,9 +17,10 @@ draw for draw. Each of the sample dump's draws has its own seed, derived from
 the run's seed, the tag (post or prior) and the draw's index.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
-(A10-rest), ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17) and ``--prior-refit-epochs`` (A16).
+plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
+(A10-rest) and ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
+(A17). ``--prior-refit-epochs`` refits the conditional priors after training,
+as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
 from structured_latent_odes_tpu_torch.train.backend import make_training_backend
 from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure
+from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure, refit_priors
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
@@ -82,7 +83,7 @@ def dump_sample_bands(out_dir, reconstruct, params, seed: int, split, num_sample
 def train(config, device="cuda"):
     check_ported(config)
     device = resolve_device(device)
-    full_fp32()
+    full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
     seed = set_seed(config.seed)
@@ -130,6 +131,7 @@ def train(config, device="cuda"):
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),
     )
+    best = refit_priors(config, spec, ts, best, seed, splits["train"], rng)
 
     # the val fold is the test set, evaluated as one full batch
     eval_bs = max(config.mini_batch_size, splits["val"]["observations"].shape[0])
@@ -161,7 +163,7 @@ def train(config, device="cuda"):
     )
     print(final)
     log.debug(final)
-    return {"best": best, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
+    return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
 def parse_args(argv=None):

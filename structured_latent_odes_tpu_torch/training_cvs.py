@@ -16,9 +16,10 @@ draw from the port's counter hash: JAX's threefry bits are not reproduced, so
 a run is not the JAX run of the same seed, draw for draw.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
+plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
 (A10-rest), ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17), ``--prior-refit-epochs`` (A16) and ``--reference-data-dir`` (A8-rest).
+(A17) and ``--reference-data-dir`` (A8-rest). ``--prior-refit-epochs`` refits
+the conditional priors after training, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -65,15 +66,30 @@ def build_splits(config, device="cuda"):
 def check_ported(config) -> None:
     """Raise for the options every driver has that are not ported yet."""
     if config.get("plot", True):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A11): pass --no-plot")
-    if int(config.get("prior_refit_epochs") or 0):
-        raise NotImplementedError("--prior-refit-epochs is not ported yet (ROADMAP A16)")
+        raise NotImplementedError("plotting is not ported yet (ROADMAP A11-rest): pass --no-plot")
+
+
+def refit_priors(config, spec, ts, best, seed: int, train_split, rng):
+    """``--prior-refit-epochs R``: after training, R epochs of main-ELBO
+    updates of the conditional priors alone on the selected params
+    (``train.ensemble.prior_refit``; the posterior is untouched), with the
+    run's host shuffle stream and the refit seed ``fold_seed(eval seed,
+    'refit')`` that an ensemble member uses too. Returns ``best`` with the
+    refit params."""
+    epochs = int(config.get("prior_refit_epochs") or 0)
+    if not epochs:
+        return best
+    from structured_latent_odes_tpu_torch.train.ensemble import prior_refit
+
+    params = prior_refit(spec, ts, config.learning_rate, best["params"], fold_seed(fold_seed(seed, "eval"), "refit"),
+                         train_split, rng, epochs, config.mini_batch_size)
+    return dict(best, params=params)
 
 
 def train(config, device="cuda"):
     check_ported(config)
     device = resolve_device(device)
-    full_fp32()
+    full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
     seed = set_seed(config.seed)
@@ -118,6 +134,7 @@ def train(config, device="cuda"):
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),
     )
+    best = refit_priors(config, spec, ts, best, seed, splits["train"], rng)
 
     # final test on the best params (posterior and prior), with the artifacts
     test_post, test_prior = final_test_eval(
@@ -152,7 +169,7 @@ def train(config, device="cuda"):
     )
     print(elbo_line)
     log.debug(elbo_line)
-    return {"best": best, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
+    return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -177,7 +194,7 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="epoch at which linear lr decay begins")
     p.add_argument("--prior-refit-epochs", type=int, default=None,
                    help="after training, refit only the conditional-prior nets "
-                        "(not ported yet: ROADMAP A16)")
+                        "on the main ELBO for R epochs (fresh Adam; posterior untouched)")
     p.add_argument("--aux-loss-multiplier", type=float, default=None,
                    help="aux classifier site scale (reference: 46)")
     p.add_argument("--seed", type=int, default=None)
@@ -196,7 +213,7 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--ode-atol", type=float, default=None)
     p.add_argument("--data-path", default=None)
     p.add_argument("--results-root", default=".")
-    p.add_argument("--no-plot", action="store_true", help="required until plotting is ported (ROADMAP A11)")
+    p.add_argument("--no-plot", action="store_true", help="required until plotting is ported (ROADMAP A11-rest)")
     p.add_argument("--eval-every", type=int, default=1,
                    help="evaluate val/train stats every N epochs (faster)")
     p.add_argument("--checkpoint-every", type=int, default=0,

@@ -17,9 +17,10 @@ from the port's counter hash, so a run is not the JAX run of the same seed,
 draw for draw.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
-(A10-rest), ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17) and ``--prior-refit-epochs`` (A16).
+plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
+(A10-rest) and ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
+(A17). ``--prior-refit-epochs`` refits the conditional priors after training,
+as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from structured_latent_odes_tpu_torch.train.backend import make_training_backend
 from structured_latent_odes_tpu_torch.train.driver import final_test_eval, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
 from structured_latent_odes_tpu_torch.training_challenge import dump_sample_bands
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure
+from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure, refit_priors
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
@@ -52,7 +53,7 @@ log = logging.getLogger("slode")
 def train(config, device="cuda"):
     check_ported(config)
     device = resolve_device(device)
-    full_fp32()
+    full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
     seed = set_seed(config.seed)
@@ -96,6 +97,7 @@ def train(config, device="cuda"):
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),
     )
+    best = refit_priors(config, spec, ts, best, seed, splits["train"], rng)
 
     test_post, test_prior = final_test_eval(spec, best["params"], fold_seed(seed, "test"), splits["val"],
                                             eval_fns, config.mini_batch_size)
@@ -137,7 +139,7 @@ def train(config, device="cuda"):
     )
     print(final)
     log.debug(final)
-    return {"best": best, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
+    return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
 def parse_args(argv=None):

@@ -17,8 +17,17 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def full_fp32() -> None:
+def full_fp32(deterministic: bool = False) -> None:
     """Full float32 on the card: cuDNN runs float32 convolutions in TF32 by
-    default, which would change the encoder's result."""
+    default, which would change the encoder's result.
+
+    ``deterministic`` also asks cuDNN for convolution algorithms whose sums
+    come out in the same order from run to run. Training needs it: under Adam
+    a gradient element that sums to nearly zero turns that roundoff into a
+    visible difference, and a sweep member would no longer reproduce the
+    sequential run of its seed within tests/test_ensemble.py's bound (rtol
+    2e-4, atol 1e-6). Serving does not, and keeps cuDNN's fastest
+    algorithms."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = deterministic

@@ -292,3 +292,69 @@ def test_served_backends_agree_on_card(cuda):
         for k, v in outs[backend].items():
             ref = outs["semilinear_seq"][k]
             assert float((v - ref).abs().max()) <= 1e-5 + 1e-5 * float(ref.abs().max()), (backend, k)
+
+
+# C1: above the shared-memory cap the model's entry (affine_scan and its
+# autograd node) splits the time axis into runs within the cap, copies each
+# run contiguous, and carries the state (forward) and the adjoint (backward)
+# across the seams: bit for bit the plain versions, in more than one launch.
+@pytest.mark.parametrize("shape", [(2, 581, 5), (2, 969, 5), (16, 4096, 5), (16, 4096, 8), (3, 200, 40)],
+                         ids=["T581", "T969", "T4096-D5", "T4096-D8", "D40"])
+def test_affine_scan_splits_past_shared_memory(cuda, shape):
+    A, B, x0, g = _k1_inputs(cuda, *shape)
+    leaves = [t.clone().requires_grad_() for t in (A, B, x0)]
+    fwd, bwd = recurrence.affine_scan_fwd.launches, recurrence.affine_scan_bwd.launches
+    xs = recurrence.affine_scan(*leaves)
+    grads = torch.autograd.grad(xs, leaves, g)
+    torch.cuda.synchronize()
+    ref = recurrence.affine_scan_batched_plain(A, B, x0)
+    assert xs.is_contiguous() and torch.equal(xs.detach(), ref)
+    for name, o, r in zip(("dA", "dB", "dx0"), grads, recurrence.affine_scan_bwd_batched_plain(A, ref, g)):
+        assert torch.equal(o, r), name
+    assert recurrence.affine_scan_bwd.launches - bwd > 1
+    assert recurrence.affine_scan_fwd.launches - fwd >= 1 + (shape[1] > 966 or shape[2] > 32)
+
+
+def _members_args(cuda, S, B, T, dataset):
+    """S members' K2 arguments at one shape: each member its own weights
+    (init seeds 0..S-1) and latents."""
+    cfg = LOADERS[dataset]()
+    spec = cvs_spec(cfg) if dataset == "cvs" else SPECS[dataset](cfg, n_time=T)
+    per = []
+    for s in range(S):
+        ode = init_params(spec, s, device=cuda)["decoder"]["ode"]
+        z = torch.randn((B, spec.latent_dim), generator=torch.Generator().manual_seed(10 + s)).to(cuda)
+        W = ode["dyn_hidden"]["W"]
+        u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
+        per.append((u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
+                    initialize_state(ode, z)))
+    args = tuple(torch.stack([p[i] for p in per]) for i in range(7))
+    return args + (torch.arange(float(T), device=cuda),)
+
+
+# The member-batched K2 and K3 (the ensemble's launch: member m on
+# blockIdx.y) at the CVS sweep's shape (S = 10, B = 128, (H, D) = (25, 5))
+# and the proc sweep's (S = 5, B = 36, (25, 8)): each member bit for bit a
+# single-member launch on its slices, weight gradients included, and within
+# the K2/K3 tolerances of the plain versions.
+@pytest.mark.parametrize("case", [("cvs", 10, 128, 86), ("proc", 5, 36, 100)], ids=["cvs-S10", "proc-S5"])
+@pytest.mark.parametrize("method", ["midpoint", "rk4"])
+def test_member_batched_fused_kernels(cuda, case, method):
+    dataset, S, B, T = case
+    args = _members_args(cuda, S, B, T, dataset)
+    fwd, bwd = fused_step.fused_semilinear_fwd_members.launches, fused_step.fused_semilinear_bwd_members.launches
+    xs = fused_step.fused_semilinear_fwd_members(*args, method)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    outs = fused_step.fused_semilinear_bwd_members(*args[:6], xs, g, args[7], method)
+    torch.cuda.synchronize()
+    assert (fused_step.fused_semilinear_fwd_members.launches,
+            fused_step.fused_semilinear_bwd_members.launches) == (fwd + 1, bwd + 1)
+    for s in (0, S // 2, S - 1):
+        one = tuple(a[s] for a in args[:7]) + (args[7],)
+        assert torch.equal(xs[s], fused_step.fused_semilinear_fwd(*one, method))
+        single = fused_step.fused_semilinear_bwd(*one[:6], xs[s], g[s], args[7], method)
+        for name, o, r in zip(("du", "dwt", "dwa", "dba", "dwd", "dbd", "dx0"), outs, single):
+            assert torch.equal(o[s], r), name
+        torch.testing.assert_close(xs[s], fused_step.fused_semilinear_fwd_plain(*one, method), rtol=1e-5, atol=1e-5)
+        _assert_bwd_close([o[s] for o in outs],
+                          fused_step.fused_semilinear_bwd_plain(*one[:6], xs[s], g[s], args[7], method))

@@ -1,8 +1,8 @@
 """Import guard: no module of the PyTorch port, and nothing ``chip_smoke.py``
-imports, loads ``jax``, ``optax``, ``pandas`` or any module of the JAX
-package. Run in a subprocess with ``jax``, ``optax`` and ``pandas`` blocked,
-so an import of any fails loudly; every module of the port is walked, the
-training slice's and the proc and challenge workloads' included."""
+imports, loads ``jax``, ``optax``, ``pandas``, ``matplotlib`` or any module
+of the JAX package. Run in a subprocess with those blocked, so an import of
+any fails loudly; every module of the port is walked, the training slice's,
+the proc and challenge workloads' and the sweep's included."""
 
 import os
 import subprocess
@@ -20,6 +20,7 @@ _CHILD = textwrap.dedent(
     sys.modules["jax"] = None  # any import of jax now raises
     sys.modules["optax"] = None
     sys.modules["pandas"] = None  # the card's machine has no pandas
+    sys.modules["matplotlib"] = None  # nor matplotlib (the port's eval is numpy only)
     import structured_latent_odes_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
@@ -41,8 +42,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 42  # every module of the port was imported
+    assert len(walked) >= 47  # every module of the port was imported
     training = {"prob.elbo", "train.svi", "train.driver", "train.backend", "train.artifacts",
                 "train.metrics", "utils.rng", "utils.device", "training_cvs", "data.proc",
-                "data.challenge", "training_proc", "training_challenge"}
+                "data.challenge", "training_proc", "training_challenge", "train.ensemble", "sweep",
+                "eval", "eval.metrics", "eval.__main__"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked

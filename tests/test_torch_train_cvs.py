@@ -102,12 +102,19 @@ def test_checkpoint_restores_in_both_packages(trained, data_dir):
     (ARGS + ["--resume"], "A10-rest"),
     (ARGS + ["--profile-dir", "prof"], "A17"),
     (ARGS + ["--data-parallel", "2"], "A17"),
-    (ARGS + ["--prior-refit-epochs", "2"], "A16"),
+    (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
     (ARGS + ["--reference-data-dir", "ref"], "A8-rest"),
 ], ids=["plot", "checkpoint-every", "resume", "profile-dir", "data-parallel", "prior-refit", "reference-data"])
 def test_unported_options_raise(data_dir, tmp_path, argv, item):
+    """Each option not ported yet raises, naming its ROADMAP item; an option
+    ported since (item None) runs to the end instead."""
+    argv = ["--data-path", data_dir, "--results-root", str(tmp_path)] + argv
+    if item is None:
+        out = training_cvs.main(argv)
+        assert all(torch.isfinite(p).all() for p in jax.tree.leaves(out["best"]["params"]))
+        return
     with pytest.raises(NotImplementedError, match=item):
-        training_cvs.main(["--data-path", data_dir, "--results-root", str(tmp_path)] + argv)
+        training_cvs.main(argv)
 
 
 def test_cuda_device_without_a_card_fails_loudly(data_dir, tmp_path, monkeypatch):
