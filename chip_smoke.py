@@ -11,8 +11,9 @@ Phases, each fatal on any fault:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source and width pair, all
    started together: K2 and K3 (single-member and member-batched launches
-   share a library) at CVS's and challenge's (H, D) = (25, 5) and proc's
-   (25, 8); prints nvcc's -Xptxas -v report.
+   share a library) at CVS's and challenge's (H, D) = (25, 5), proc's
+   (25, 8) and the wide (40, 17) and (128, 32); prints nvcc's -Xptxas -v
+   report and each kernel's registers and spills per method.
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
    versions on the card: K1 and K1-bwd bit for bit at the edges of their
@@ -81,6 +82,23 @@ Phases, each fatal on any fault:
    deploy_mean/ is written, and members 0 and S-1 match the port's
    sequential CLI run at their seeds (final and best params within rtol
    2e-4, atol 1e-6; best epoch equal; criterion within rtol 2e-4).
+8. the rest of solve_ode. C2's kernels (built in phase 2, held against their
+   plain versions in phase 3: K2/K3 at dopri5 at (25, 5) and (25, 8), at
+   midpoint at (H, D) = (40, 17) and (128, 32), a member-batched dopri5
+   launch at S = 5, each with its registers and spills) on the paths that
+   run them, each variant's launches counted: CVS and proc on
+   semilinear_auto at dopri5, proc's stacked step at S = 5 on
+   semilinear_fused at dopri5, the decoder ODE's training step at each wide
+   width. Then the ODE backend menu at CVS full width: generic, adjoint,
+   adaptive, adaptive_per_sample and semilinear_auto each serve a request
+   (B = 100) and take two dual steps (B = 128), timed, with the adaptive
+   solvers' trips per solve; generic is held to semilinear, adjoint's
+   forward to generic's and its first-step gradients to generic's at rk4
+   within rtol 2e-2, atol 1e-2 of each leaf's largest value, the adaptive backends
+   to generic at rk4 within rtol 5e-3, atol 5e-3; semilinear_auto's choice is printed per workload and
+   launches exactly its path's kernels. Last, two-member CVS sweeps on
+   adjoint and on adaptive (cut to one epoch of 40 trajectories), members
+   0 and 1 held to their sequential runs as in phase 7.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
@@ -95,9 +113,11 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -113,7 +133,14 @@ from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
-from structured_latent_odes_tpu_torch.nn.ode_model import OdeModelSpec, initialize_state, ode_model_init, solve_ode
+from structured_latent_odes_tpu_torch.nn.ode_model import (
+    OdeModelSpec,
+    auto_picks_fused,
+    initialize_state,
+    ode_model_init,
+    solve_ode,
+)
+from structured_latent_odes_tpu_torch.ode import solvers
 from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
@@ -223,6 +250,30 @@ MEMBER_SHAPES = {"cvs": (10, TRAIN_B, 86), "proc": (5, 36, 100)}
 # K1 and K1-bwd past their shared-memory cap (C1): the model's entry splits
 # the time axis into runs; held bit for bit at T = 4096 steps
 LONG_T = 4096
+# C2: the fused kernels past one warp's lanes, (H, D) at midpoint; and
+# dopri5 (seven stages) at the repo's widths
+WIDE = ((40, 17), (128, 32))
+# the ODE backend menu (phase 8), at CVS full width
+MENU = ("generic", "adjoint", "adaptive", "adaptive_per_sample", "semilinear_auto")
+# The two-member sweeps on adjoint and adaptive run one epoch (epoch 0) on
+# 40 generated trajectories in place of 1,000: 32 train, one dual step an
+# epoch at the training batch. The adaptive backends' backward solves each
+# of the 85 intervals' augmented system adaptively, one host-synced trip at
+# a time, and its step control rejects its way across every discontinuity
+# of the relu's derivative: about 110 trips an interval, whatever the batch
+# (scripts/menu_step_times.py times a dual step at any batch).
+MENU_SWEEP_DATA = 40
+# adaptive backends against generic at rk4 (the JAX package's own bound,
+# tests/test_solvers.py::test_adaptive_backends_reachable_from_model_path)
+ADAPTIVE_RTOL = ADAPTIVE_ATOL = 5e-3
+# the continuous adjoint's first-step gradients against generic's autograd
+# (tests/test_solvers.py::test_adjoint_gradients_match_discretize)
+ADJOINT_RTOL, ADJOINT_ATOL = 2e-2, 1e-2
+# -Xptxas -v per library: (name, (H, D)) -> {(kernel, method): (registers,
+# spill store bytes, spill load bytes)} (set by phase_build)
+PTXAS = {}
+# per path: each fused wrapper's launches by (method, H, D) (set by counted)
+VARIANT_PATHS = {}
 
 
 def fail(msg: str):
@@ -384,6 +435,56 @@ def phase_build(widths):
           f"({CARD['smi']})")
     for (name, defines), log in logs.items():
         print(f"-- nvcc -Xptxas -v: {name} {dict(defines)}\n{log.strip()}", flush=True)
+        d = dict(defines)
+        PTXAS[name, (d.get("SLODE_H"), d.get("SLODE_D"))] = ptxas_table(log)
+    for (name, width), table in sorted(PTXAS.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
+        for (kernel, method), (regs, st, ld) in sorted(table.items()):
+            print(f"registers {name} (H, D) = {width} {kernel} {method}: {regs} registers, spills {st} bytes "
+                  f"stored / {ld} bytes loaded", flush=True)
+    # the wrappers refuse widths before any build from a mirror of the
+    # kernels' shared-memory layout: hold it to what each library reports
+    for H, D in widths:
+        for method in fused_step.METHODS:
+            for backward, kernel in ((False, "K2"), (True, "K3")):
+                mirror = fused_step.kernel_max_steps(H, D, method, backward)
+                built = fused_step.library_max_steps(H, D, method, backward)
+                check(built == mirror, f"{kernel} at (H, D) = ({H}, {D}) {method}: the library takes {built} steps "
+                      f"a pass, ops/fused_step.py::kernel_max_steps says {mirror}")
+        print(f"steps a pass (H, D) = ({H}, {D}): " + ", ".join(
+            f"{m} K2 {fused_step.kernel_max_steps(H, D, m, False)} K3 {fused_step.kernel_max_steps(H, D, m, True)}"
+            for m in fused_step.METHODS) + " (library = mirror)", flush=True)
+
+
+def ptxas_table(log: str) -> dict:
+    """{(kernel, method): (registers, spill stores, spill loads)} from one
+    library's -Xptxas -v report; method is the tableau of a fused kernel's
+    template argument (fused_step.METHODS order), else ''."""
+    table, current, spills = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(fused_semilinear_(?:fwd|bwd)_kernel)ILi(\d+)E", name)
+            plain = re.search(r"(affine_scan_(?:fwd|bwd)_kernel|reduce_partials)", name)
+            current = ((k.group(1), fused_step.METHODS[int(k.group(2))]) if k
+                       else (plain.group(1) if plain else name, ""))
+            spills = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            table[current] = (int(m.group(1)), *spills)
+    return table
+
+
+def ptxas_of(kernel: str, method: str, width) -> dict:
+    """A fused kernel's registers and spills in the library of ``width``
+    (empty in a rehearsal: nothing is built)."""
+    name = "fused_semilinear_fwd" if kernel == "K2" else "fused_semilinear_bwd"
+    got = PTXAS.get((name, tuple(width)), {}).get((name + "_kernel", method))
+    return {} if got is None else {"registers": got[0], "spill_store_bytes": got[1], "spill_load_bytes": got[2]}
 
 
 def _time(clock: Clock, rehearse: bool, key: str, call, plain, bound_ms, shape: str, plain_iters: int = 3,
@@ -452,19 +553,8 @@ def phase_kernels(device, clock: Clock, rehearse: bool, odes, H: int, D: int):
               f"{max(float((o - r).abs().max()) for o, r in zip(out, refs)):.3e}, bit-equal {ok}", flush=True)
         check(ok, f"K1-bwd differs from its plain version at Bt={Bt} T={steps} D={width}")
 
-    def grid(name: str, steps_plus_one: int = T):
-        if name == "uniform":
-            return torch.arange(float(steps_plus_one))
-        return torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(steps_plus_one)) * 0.2 + 0.05),
-                            dtype=torch.float32)
-
     def k2_inputs(B, grid_name, steps_plus_one: int = T, ode=odes["cvs"]):
-        z = torch.randn((B, ode["latent_to_ode"][0]["W"].shape[1]),
-                        generator=torch.Generator().manual_seed(B)).to(device)
-        W = ode["dyn_hidden"]["W"]
-        u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
-        return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
-                initialize_state(ode, z), grid(grid_name, steps_plus_one).to(device))
+        return _fused_args(device, ode, B, steps_plus_one, grid_name)
 
     def k3_inputs(args, method):
         xs = fused_step.fused_semilinear_fwd(*args, method)
@@ -745,6 +835,229 @@ def phase_members(device, clock: Clock, rehearse: bool, smi: str, res: dict):
                       f"{res[key][wl]['wrapper_ms']:.4f} ms ({smi})", flush=True)
 
 
+def _width_ode(device, H: int, D: int, L: int = 15):
+    """Random ODE weights at (H, D) (the port's init, seed H + D)."""
+    spec = OdeModelSpec(latent_dim=L, ode_state_dim=D, ode_hidden_dim=H)
+    return tree_map(lambda p: p.to(device), ode_model_init(torch.Generator().manual_seed(H + D), spec))
+
+
+def _fused_args(device, ode, B: int, T: int, grid: str = "uniform", seed: int = 0):
+    """K2's arguments for ``ode`` at B trajectories over T times."""
+    z = torch.randn((B, ode["latent_to_ode"][0]["W"].shape[1]), generator=torch.Generator().manual_seed(seed + B))
+    z = z.to(device)
+    W = ode["dyn_hidden"]["W"]
+    u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
+    ts = (torch.arange(float(T)) if grid == "uniform" else torch.tensor(
+        np.cumsum(np.abs(np.random.RandomState(0).randn(T)) * 0.2 + 0.05), dtype=torch.float32)).to(device)
+    return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
+            initialize_state(ode, z), ts)
+
+
+def _k3_worst(outs, refs, m=None) -> dict:
+    """K3's outputs against the plain version's, each under its rule of
+    TOLERANCE_RULES["K3"] (member ``m`` of member-batched outputs)."""
+    worst = {}
+    for name, o, r in zip(TOLERANCE_RULES["K3"], outs, refs):
+        o = o if m is None else o[m]
+        if name == "dx0":
+            worst[name] = ratio(o, r, ATOL, RTOL)
+        elif name == "du":
+            worst[name] = ratio(o, r, DU_ATOL * float(r.abs().max()), RTOL)
+        else:
+            worst[name] = ratio(o, r, max(WGRAD_RTOL * float(r.abs().max()), 1e-30))
+    return worst
+
+
+def phase_c2(device, clock: Clock, rehearse: bool, smi: str, odes: dict):
+    """C2: K2 and K3 at dopri5 (seven stages) at CVS's (25, 5) and proc's
+    (25, 8), and at midpoint past one warp's lanes, (H, D) = (40, 17) and
+    (128, 32) (more than one pass of K3 where its shared memory shortens the
+    pass), against their plain versions at K2's and K3's tolerances (at the
+    training shape and, for the wide widths, at B = 3 over 200 times); then
+    each timed (kernel, wrapper call, plain version) beside its bound and its
+    -Xptxas -v registers and spills; and one member-batched dopri5 launch at
+    the proc sweep's S = 5: each member bit for bit its single-member launch,
+    within the tolerances of the plain version. Returns the records by case."""
+    cases = [("dopri5 cvs", "dopri5", odes["cvs"], TRAIN_B, 86), ("dopri5 proc", "dopri5", odes["proc"], 36, 100)]
+    cases += [(f"wide {H}x{D}", "midpoint", _width_ode(device, H, D), TRAIN_B, 86) for H, D in WIDE]
+    out = {}
+    for case, method, ode, B, T in cases:
+        if rehearse:
+            B = 4
+        H, D = ode["dyn_hidden"]["W"].shape[0], ode["prod"]["W"].shape[0]
+        S = len(fused_step.get_tableau(method).c)
+        rec = {"K2": {"err": 0.0, "worst": {}}, "K3": {"err": 0.0, "worst": {}}}
+        shapes = [(B, T, "uniform")] + ([(3, 200, "nonuniform")] if case.startswith("wide") else [])
+        with torch.inference_mode():
+            for b, t, grid in shapes:
+                args = _fused_args(device, ode, b, t, grid)
+                xs = fused_step.fused_semilinear_fwd(*args, method)
+                clock.sync()
+                ref = fused_step.fused_semilinear_fwd_plain(*args, method)
+                g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device)
+                bargs = (*args[:6], xs, g, args[7])
+                outs = fused_step.fused_semilinear_bwd(*bargs, method)
+                clock.sync()
+                refs = fused_step.fused_semilinear_bwd_plain(*bargs, method)
+                w2 = ratio(xs, ref, ATOL, RTOL)
+                w3 = _k3_worst(outs, refs)
+                rec["K2"]["err"] = max(rec["K2"]["err"], float((xs - ref).abs().max()))
+                rec["K3"]["err"] = max(rec["K3"]["err"], max(float((o - r).abs().max()) for o, r in zip(outs, refs)))
+                rec["K2"]["worst"]["xs"] = max(rec["K2"]["worst"].get("xs", 0.0), w2)
+                for k, v in w3.items():
+                    rec["K3"]["worst"][k] = max(rec["K3"]["worst"].get(k, 0.0), v)
+                print(f"C2 {case} {method} B={b} T={t} H={H} D={D} {grid}: K2 error / tolerance {w2:.3f}; K3 "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in w3.items()), flush=True)
+                check(w2 <= 1.0 and max(w3.values()) <= 1.0, f"C2 {case}: K2/K3 disagree with their plain versions")
+            args = _fused_args(device, ode, B, T)
+            shape = f"{method} B={B} T={T} H={H} D={D}"
+            rec["K2"].update(_time(clock, rehearse, "K2", lambda: fused_step.fused_semilinear_fwd(*args, method),
+                                   lambda: fused_step.fused_semilinear_fwd_plain(*args, method),
+                                   k2_bound_ms(B, T, S, H, D), shape, plain_iters=1))
+            xs = fused_step.fused_semilinear_fwd(*args, method)
+            bargs = (*args[:6], xs, torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device),
+                     args[7])
+            rec["K3"].update(_time(clock, rehearse, "K3", lambda: fused_step.fused_semilinear_bwd(*bargs, method),
+                                   lambda: fused_step.fused_semilinear_bwd_plain(*bargs, method),
+                                   k3_bound_ms(B, T, S, H, D), shape, plain_iters=1))
+        for key in ("K2", "K3"):
+            rec[key].update(method=method, width=[H, D], ptxas=ptxas_of(key, method, (H, D)),
+                            passes_of=fused_step.kernel_max_steps(H, D, method, key == "K3"))
+            print(f"C2 {case} {key}: registers and spills {rec[key]['ptxas']}, passes of at most "
+                  f"{rec[key]['passes_of']} steps ({smi})", flush=True)
+        out[case] = rec
+
+    # one member-batched dopri5 launch at the proc sweep's shape
+    spec = proc_spec(LOADERS["proc"](), n_time=100)
+    S_m, B_m, T_m = (2, 4, 100) if rehearse else MEMBER_SHAPES["proc"]
+    rec = {"K2-members": {"err": 0.0, "worst": {}}, "K3-members": {"err": 0.0, "worst": {}}}
+    with torch.inference_mode():
+        args = _member_args(device, spec, S_m, B_m, T_m)
+        xs = fused_step.fused_semilinear_fwd_members(*args, "dopri5")
+        g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(device)
+        bargs = (*args[:6], xs, g, args[7])
+        outs = fused_step.fused_semilinear_bwd_members(*bargs, "dopri5")
+        clock.sync()
+        same = True
+        for m in range(S_m):
+            one = tuple(a[m] for a in args[:7]) + (args[7],)
+            same &= torch.equal(xs[m], fused_step.fused_semilinear_fwd(*one, "dopri5"))
+            single = fused_step.fused_semilinear_bwd(*one[:6], xs[m], g[m], args[7], "dopri5")
+            same &= all(torch.equal(o[m], r) for o, r in zip(outs, single))
+            ref = fused_step.fused_semilinear_fwd_plain(*one, "dopri5")
+            refs = fused_step.fused_semilinear_bwd_plain(*one[:6], xs[m], g[m], args[7], "dopri5")
+            w2, w3 = ratio(xs[m], ref, ATOL, RTOL), _k3_worst(outs, refs, m)
+            rec["K2-members"]["err"] = max(rec["K2-members"]["err"], float((xs[m] - ref).abs().max()))
+            rec["K3-members"]["err"] = max(rec["K3-members"]["err"],
+                                           max(float((o[m] - r).abs().max()) for o, r in zip(outs, refs)))
+            rec["K2-members"]["worst"]["xs"] = max(rec["K2-members"]["worst"].get("xs", 0.0), w2)
+            for k, v in w3.items():
+                rec["K3-members"]["worst"][k] = max(rec["K3-members"]["worst"].get(k, 0.0), v)
+            check(w2 <= 1.0 and max(w3.values()) <= 1.0, f"C2 member-batched dopri5 member {m}: {w2}, {w3}")
+        for key in rec:
+            rec[key]["worst"]["single-member launch"] = 0.0 if same else math.inf
+        print(f"C2 member-batched dopri5 S={S_m} B={B_m} T={T_m}: every member bit-equal to its single-member "
+              f"launch {same}; worst error / tolerance K2 {rec['K2-members']['worst']['xs']:.3f}, K3 "
+              f"{max(v for k, v in rec['K3-members']['worst'].items() if k != 'single-member launch'):.3f}",
+              flush=True)
+        check(same, "C2 member-batched dopri5: a member differs from its single-member launch")
+        shape = f"dopri5 S={S_m} B={B_m} T={T_m} H=25 D=8"
+        rec["K2-members"].update(_time(
+            clock, rehearse, "K2-members", lambda: fused_step.fused_semilinear_fwd_members(*args, "dopri5"),
+            lambda: fused_step.fused_semilinear_fwd_members_plain(*args, "dopri5"),
+            k2_bound_ms(S_m * B_m, T_m, 7, 25, 8, members=S_m), shape, plain_iters=1))
+        rec["K3-members"].update(_time(
+            clock, rehearse, "K3-members", lambda: fused_step.fused_semilinear_bwd_members(*bargs, "dopri5"),
+            lambda: fused_step.fused_semilinear_bwd_members_plain(*bargs, "dopri5"),
+            k3_bound_ms(S_m * B_m, T_m, 7, 25, 8, members=S_m), shape, plain_iters=1))
+    for key in rec:
+        rec[key].update(method="dopri5", width=[25, 8], ptxas=ptxas_of(key[:2], "dopri5", (25, 8)))
+    out["dopri5 proc members"] = rec
+    return out
+
+
+def _decoder_step(device, spec: OdeModelSpec, B: int, T: int, seed: int):
+    """One training step of the decoder ODE alone (the squared error of its
+    solve against a target, the gradient, an Adam update) and one forward
+    solve, as C1's: the model around it has no config at these widths."""
+    gen = torch.Generator().manual_seed(seed)
+    params = tree_map(lambda p: p.to(device), ode_model_init(gen, spec))
+    z = torch.randn((B, spec.latent_dim), generator=gen).to(device)
+    target = torch.rand((B, T, spec.ode_state_dim), generator=gen).to(device)
+    ts = torch.arange(float(T), device=device)
+    with torch.inference_mode():
+        served = solve_ode(spec, params, z, ts)
+    loss, _, grads = svi.value_and_grad(lambda p: ((solve_ode(spec, p, z, ts) - target) ** 2).mean(), params)
+    new, _ = svi.shared_adam_update(grads, svi.shared_adam_init(params), params, tree_map(lambda _: True, params),
+                                    1e-3)
+    check(torch.isfinite(served).all() and math.isfinite(float(loss))
+          and all(torch.isfinite(p).all() for p in tree_leaves(new)), f"decoder ODE step {spec}: non-finite")
+    return float(loss)
+
+
+def phase_c2_paths(device, data_dir: str, rehearse: bool, smi: str, paths: dict):
+    """The paths that launch C2's kernels, each counted: CVS on
+    semilinear_auto at dopri5 (a served request and a dual step: K2/K3 at
+    (25, 5)), proc's dual step there (K2/K3 at (25, 8)), the proc sweep's
+    stacked dual step at S = 5 on semilinear_fused at dopri5 (the
+    member-batched K2/K3), and the decoder ODE's training step at each wide
+    width on semilinear_fused (K2/K3 at (40, 17) and (128, 32))."""
+    ts = torch.arange(86.0, device=device)
+    cfg = _config(data_dir, "semilinear_auto")
+    cfg.solver = "dopri5"
+    spec = cvs_spec(cfg)
+    splits = training_cvs.build_splits(cfg, device=device)[0]
+    params = init_params(spec, 0, device=device)
+    recon_fn, _ = serve.make_predict_fns(spec, np.arange(86.0, dtype=np.float32), device)
+    test = {k: torch.as_tensor(v, device=device) for k, v in splits["test"].items()}
+    test["sample_id"] = torch.arange(test["observations"].shape[0], device=device)
+    train = {k: v[0] for k, v in device_batch(stacked_minibatches(splits["train"], TRAIN_B, shuffle=False),
+                                               device).items()}
+
+    def cvs_path():
+        recon_fn(params, 0, test, True)
+        init_state, train_step, _ = svi.make_train_step(spec, ts, cfg.learning_rate, params)
+        train_step(init_state(params, 0), train)
+
+    counted(paths, "c2 cvs dopri5 semilinear_auto", ("K2", "K3"), rehearse, cvs_path)
+    pcfg = _workload_config("proc", "semilinear_auto")
+    pcfg.solver = "dopri5"
+    pspec = proc_spec(pcfg, n_time=100)
+    _, psplits, ptimes = serve._build("proc", pcfg, device)
+    pbatch = {k: v[0] for k, v in device_batch(stacked_minibatches(psplits["train"], 36, shuffle=False),
+                                                device).items()}
+    pts = torch.as_tensor(ptimes, device=device)
+    pparams = init_params(pspec, 0, device=device)
+
+    def proc_path():
+        init_state, train_step, _ = svi.make_train_step(pspec, pts, pcfg.learning_rate, pparams)
+        train_step(init_state(pparams, 0), pbatch)
+
+    counted(paths, "c2 proc dopri5 semilinear_auto", ("K2", "K3"), rehearse, proc_path)
+    fcfg = _workload_config("proc", "semilinear_fused")
+    fcfg.solver = "dopri5"
+    fspec = proc_spec(fcfg, n_time=100)
+    S = 2 if rehearse else MEMBER_SHAPES["proc"][0]
+    members = [init_params(fspec, fold_seed(12 + m, "init"), device=device) for m in range(S)]
+    optim = svi.make_dual_optimizer(fspec, members[0], fcfg.learning_rate)
+    state = ensemble.stack_states([svi.SVIState(p, optim.init(p), fold_seed(12 + m, "train"), 0)
+                                   for m, p in enumerate(members)])
+    stacked = {k: v.expand(S, *v.shape).contiguous() for k, v in pbatch.items() if k != "mask"}
+    stacked["mask"] = pbatch["mask"]
+    dims = {k: 0 for k in stacked}
+    dims["mask"] = None
+    step = svi.make_stacked_dual_step(fspec, pts, optim)
+    seeds = svi.stacked_step_seeds(state.seed, range(1), device=device)
+    counted(paths, "c2 proc stacked S=5 dopri5 semilinear_fused", ("K2-members", "K3-members"), rehearse,
+            lambda: step(state, stacked, dims, seeds[0]))
+    for H, D in WIDE:
+        wspec = OdeModelSpec(latent_dim=15, ode_state_dim=D, ode_hidden_dim=H, backend="semilinear_fused")
+        loss = counted(paths, f"c2 decoder ODE {H}x{D} semilinear_fused", ("K2", "K3"), rehearse,
+                       lambda: _decoder_step(device, wspec, 4 if rehearse else TRAIN_B, 86, H + D))
+        print(f"C2 decoder ODE training step (H, D) = ({H}, {D}) on semilinear_fused: loss {loss:.6f} ({smi})",
+              flush=True)
+
+
 def _profile_ops(fn, repeats: int) -> int:
     """Device operations (kernels, copies, sets) per call of ``fn``, from a
     torch.profiler trace of ``repeats`` calls."""
@@ -898,6 +1211,8 @@ def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, 
 def zero_counts():
     for wrapper in KERNELS.values():
         wrapper.launches = 0
+        if hasattr(wrapper, "variants"):
+            wrapper.variants.clear()
 
 
 def read_counts():
@@ -917,6 +1232,7 @@ def counted(paths: dict, name: str, expected, rehearse: bool, fn):
     zero_counts()
     out = fn()
     paths[name] = counts = read_counts()
+    VARIANT_PATHS[name] = {key: collections.Counter(w.variants) for key, w in KERNELS.items() if hasattr(w, "variants")}
     print(f"launches {name}: {counts}", flush=True)
     for key, n in counts.items():
         want = key in expected and not rehearse
@@ -1250,6 +1566,197 @@ def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str
     return step_ms
 
 
+def _trips():
+    """The adaptive solvers' trip counters, summed: solves, trips, accepted."""
+    return solvers.odeint_adaptive.trips + solvers.odeint_adaptive_per_sample.trips
+
+
+def _two_dual_steps(spec, params, batch, ts, lr: float):
+    """Two dual steps from ``params``: the first written out as
+    svi.make_dual_step runs it, so that its losses and gradients (main, then
+    aux after the main update) come back for the checks, the second by
+    make_dual_step itself. Returns ((losses, gradients), state, metrics)."""
+    optim = svi.make_dual_optimizer(spec, params, lr)
+    main_loss, aux_loss = svi.make_losses(spec, ts)
+    seed = fold_seed(0, 0)
+    loss_m, _, g_m = svi.value_and_grad(main_loss, params, fold_seed(seed, "main"), batch)
+    params1, opt = optim.update_main(g_m, optim.init(params), params)
+    loss_a, _, g_a = svi.value_and_grad(aux_loss, params1, fold_seed(seed, "aux"), batch)
+    params1, opt = optim.update_aux(g_a, opt, params1)
+    state, mets = svi.make_dual_step(spec, ts, optim)(svi.SVIState(params1, opt, 0, 1), batch)
+    return ([loss_m, loss_a], tree_leaves(g_m) + tree_leaves(g_a)), state, mets
+
+
+def _per_solve(before, after) -> str:
+    d = {k: after[k] - before[k] for k in ("solves", "trips", "accepted")}
+    if not d["solves"]:
+        return "no adaptive solve"
+    return (f"{d['solves']} adaptive solves, {d['trips'] / d['solves']:.1f} trips a solve "
+            f"({d['accepted'] / d['solves']:.1f} accepted)")
+
+
+def phase_menu(device, clock: Clock, data_dir: str, rehearse: bool, smi: str, paths: dict):
+    """Phase 8, the ODE backend menu at CVS full width (T = 86, latent 15,
+    ODE state 5, hidden 25; a request is the test split, B = 100, a training
+    batch B = 128; random weights from seed 0): for generic, adjoint,
+    adaptive, adaptive_per_sample and semilinear_auto, one served request
+    and two dual steps, each timed, with launches counted per path and the
+    adaptive solvers' trips per solve; then the checks: generic (midpoint)
+    served within ATOL + RTOL * max of semilinear's; adjoint's forward equal
+    to generic's to float32 roundoff and its first-step gradients within
+    rtol 2e-2, atol 1e-2 of generic's autograd gradients at rk4 (each leaf
+    to its largest value; at midpoint printed, not held); the adaptive
+    backends' served solution and bands within rtol 5e-3, atol 5e-3 of
+    generic at rk4, their first-step gradients finite and not all zero;
+    semilinear_auto's choice printed at the three workloads' widths and at
+    the CVS sweep's S = 10, and its launches those of the path it chose."""
+    cfg = _config(data_dir, "semilinear")
+    splits = training_cvs.build_splits(cfg, device=device)[0]
+    ts = torch.arange(86.0, device=device)
+    times = np.arange(86.0, dtype=np.float32)
+    params = init_params(cvs_spec(cfg), 0, device=device)
+    test = {k: torch.as_tensor(v, device=device) for k, v in splits["test"].items()}
+    test["sample_id"] = torch.arange(test["observations"].shape[0], device=device)
+    train = {k: v[0] for k, v in device_batch(stacked_minibatches(splits["train"], TRAIN_B, shuffle=False),
+                                               device).items()}
+
+    def spec_of(backend, solver="midpoint"):
+        c = _config(data_dir, backend)
+        c.solver = solver
+        return cvs_spec(c)
+
+    def expected(backend, training: bool):
+        if backend == "semilinear":  # the reference: served only
+            return ("K1",)
+        if backend != "semilinear_auto":
+            return ()
+        fused = auto_picks_fused(spec_of(backend).decoder.ode, torch.empty((TRAIN_B, 15), device=device))
+        if fused:
+            return ("K2", "K3") if training else ("K2",)
+        return ("K1", "K1-bwd") if training else ("K1",)
+
+    served, first, times_ms = {}, {}, {}
+    runs = [(b, "midpoint") for b in MENU] + [("semilinear", "midpoint"), ("generic", "rk4")]
+    for backend, solver in runs:
+        name = backend if solver == "midpoint" else f"{backend} {solver}"
+        spec = spec_of(backend, solver)
+        recon_fn, _ = serve.make_predict_fns(spec, times, device)
+        t0, before = time.perf_counter(), _trips()
+        out = counted(paths, f"menu serve {name}", expected(backend, False), rehearse,
+                      lambda: recon_fn(params, 0, test, True))
+        clock.sync()
+        req_ms = (time.perf_counter() - t0) * 1e3
+        req_trips = _per_solve(before, _trips())
+        served[name] = {k: v for k, v in out.items() if k != "l1"}
+        check(all(torch.isfinite(v).all() for v in served[name].values()), f"menu {name}: non-finite served output")
+        if name not in MENU:  # the references serve only
+            continue
+        full_fp32(deterministic=True)  # the trainers' cuDNN settings
+        t0, before = time.perf_counter(), _trips()
+        first[name], state, mets = counted(paths, f"menu train {name}", expected(backend, True), rehearse,
+                                           lambda: _two_dual_steps(spec, params, train, ts, cfg.learning_rate))
+        clock.sync()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 2
+        step_trips = _per_solve(before, _trips())
+        full_fp32()
+        check(math.isfinite(float(mets["loss_main"])) and all(torch.isfinite(p).all()
+                                                              for p in tree_leaves(state.params)),
+              f"menu {name}: non-finite training step")
+        times_ms[name] = (req_ms, step_ms)
+        print(f"menu {name:20s}: request B={test['observations'].shape[0]} {req_ms:.1f} ms ({req_trips}); dual "
+              f"step B={TRAIN_B} {step_ms:.1f} ms a step ({step_trips}) ({smi})", flush=True)
+
+    def scaled(a, b, atol, rtol):
+        """max|a - b| against atol + rtol * max|b| (the served bands are
+        sums over the state's components: held to their largest value)."""
+        return float((a - b).abs().max()) / (atol + rtol * float(b.abs().max()))
+
+    # generic (midpoint) against semilinear; adjoint's forward against generic's
+    for name, ref in (("generic", "semilinear"), ("adjoint", "generic")):
+        worst = max(scaled(served[name][k], served[ref][k], ATOL, RTOL) for k in served[ref])
+        print(f"menu {name} served vs {ref}: worst error / tolerance {worst:.3f} ({ATOL:g} + {RTOL:g} * max)",
+              flush=True)
+        check(worst <= 1.0, f"menu: {name}'s served outputs disagree with {ref}'s")
+    # the adaptive backends against generic at rk4, elementwise (JAX's bound)
+    for name in ("adaptive", "adaptive_per_sample"):
+        worst = max(ratio(served[name][k], served["generic rk4"][k], ADAPTIVE_ATOL, ADAPTIVE_RTOL)
+                    for k in ("solution_xt", "mu_25", "mu_50", "mu_75"))
+        print(f"menu {name} served vs generic rk4: worst error / tolerance {worst:.3f} "
+              f"(rtol {ADAPTIVE_RTOL:g}, atol {ADAPTIVE_ATOL:g})", flush=True)
+        check(worst <= 1.0, f"menu: {name}'s served outputs disagree with generic at rk4")
+        grads = first[name][1]
+        check(all(torch.isfinite(g).all() for g in grads) and any(float(g.abs().sum()) > 0 for g in grads),
+              f"menu {name}: first-step gradients not finite or all zero")
+    # The continuous adjoint's first-step gradients against generic's
+    # autograd ones, each leaf to its own scale (max|a - g| <= atol + rtol *
+    # max|g|). The two differ by the solver's discretisation error, which
+    # at CVS's unit steps is large at midpoint (O(h^2): printed, not held)
+    # and small at rk4 (O(h^4): held); an elementwise rtol would hold the
+    # elements of a leaf that pass near zero to atol alone.
+    for solver in ("rk4",):
+        first[f"adjoint {solver}"] = _first_step(spec_of("adjoint", solver), params, train, ts, cfg.learning_rate)
+        first[f"generic {solver}"] = _first_step(spec_of("generic", solver), params, train, ts, cfg.learning_rate)
+    for solver, held in (("midpoint", False), ("rk4", True)):
+        sfx = "" if solver == "midpoint" else f" {solver}"
+        (la, ga), (lg, gg) = first["adjoint" + sfx], first["generic" + sfx]
+        worst = max(float((a - g).abs().max()) / (ADJOINT_ATOL + ADJOINT_RTOL * float(g.abs().max()))
+                    for a, g in zip(ga, gg))
+        print(f"menu adjoint first-step gradients vs generic's autograd at {solver}: worst error / tolerance "
+              f"{worst:.3f} (rtol {ADJOINT_RTOL:g}, atol {ADJOINT_ATOL:g} of each leaf's largest"
+              f"{'' if held else '; printed, not held'}); losses {[float(x) for x in la]} vs "
+              f"{[float(x) for x in lg]}", flush=True)
+        check(not held or worst <= 1.0, f"menu: the adjoint's first-step gradients disagree with generic's at {solver}")
+
+    # semilinear_auto's choice at each workload's widths and batches, and
+    # at the CVS sweep's ten members (under the stacked step's vmap z holds
+    # one member's batch)
+    for wl, B, D in (("cvs", SERVE_B, 5), ("cvs", TRAIN_B, 5), ("proc", 78, 8), ("proc", 36, 8),
+                     ("challenge", 7, 5), ("challenge", 32, 5), ("cvs sweep S=10", TRAIN_B, 5)):
+        for solver in ("midpoint", "rk4", "dopri5"):
+            ode = OdeModelSpec(latent_dim=15, ode_state_dim=D, ode_hidden_dim=25, solver=solver,
+                               backend="semilinear_auto")
+            z = torch.empty((B, 15), device=device)
+            pick = "fused K2/K3" if auto_picks_fused(ode, z) else "K1/K1-bwd"
+            print(f"semilinear_auto on {device.type}: {wl} B={B} D={D} {solver}: {pick}", flush=True)
+    return times_ms
+
+
+def phase_menu_sweeps(device, workdir: str, rehearse: bool, smi: str, paths: dict):
+    """Two-member CVS sweeps (seeds 12, 13), one epoch, on adjoint and on
+    adaptive, each member held to the sequential CLI run of its seed at
+    the ensemble bounds (phase_sweeps' checks). Cut to keep the phase to
+    minutes (MENU_SWEEP_DATA): one epoch (epoch 0) in place of two, 40
+    generated trajectories (32 train: one dual step, at the training batch)
+    in place of 1,000, and no per-epoch train-split statistics."""
+    data_dir = os.path.join(workdir, "cvs-menu")
+    make_dataset(data_dir, data_size=MENU_SWEEP_DATA, device=device)
+    for backend in ("adjoint", "adaptive"):
+        t0, before = time.perf_counter(), _trips()
+        root = os.path.join(workdir, f"sweep-menu-{backend}")
+        common = ["--num-epochs", "0", "--ode-backend", backend, "--device", str(device), "--data-path", data_dir]
+        run = counted(paths, f"sweep cvs {backend}", (), rehearse, lambda: sweep.run(
+            sweep.parse_args(["cvs", "--seeds", "12,13", "--results-root", root] + common)))
+        wall = time.perf_counter() - t0
+        for i, seed in enumerate((12, 13)):
+            out = counted(paths, f"sequential cvs {backend} seed {seed}", (), rehearse, lambda: training_cvs.main(
+                ["--seed", str(seed), "--no-plot", "--no-eval-train", "--results-root",
+                 os.path.join(root, f"sequential{seed}")] + common))
+            worst = 0.0
+            for tree, ref in ((run.result.state.params, out["state"].params),
+                              (run.result.best_params, out["best"]["params"])):
+                for a, b in zip(tree_leaves(tree), tree_leaves(ref)):
+                    worst = max(worst, float(((a[i] - b).abs() / (1e-6 + 2e-4 * b.abs())).max()))
+            crit_err = abs(run.result.best_crit[i] - out["best"]["criterion"]) / abs(out["best"]["criterion"])
+            print(f"sweep cvs {backend} member {i} (seed {seed}) vs its sequential run: params worst error / "
+                  f"tolerance {worst:.3f} (rtol 2e-4, atol 1e-6); best epoch {run.result.best_epoch[i]} vs "
+                  f"{out['best']['epoch']}; criterion rel {crit_err:.2e}", flush=True)
+            check(worst <= 1.0, f"sweep cvs {backend} member {i}: params differ from the sequential run")
+            check(int(run.result.best_epoch[i]) == int(out["best"]["epoch"]) and crit_err <= 2e-4,
+                  f"sweep cvs {backend} member {i}: best epoch or criterion differ from the sequential run")
+        print(f"== sweep cvs {backend} x 2 members: {wall:.2f} s wall; {_per_solve(before, _trips())} in the sweep "
+              f"and its sequential runs ({smi})", flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--rehearse", action="store_true", help="CPU dry run with the plain versions")
@@ -1263,7 +1770,7 @@ def main(argv=None):
     wl_cfgs = {wl: LOADERS[wl]() for wl in WORKLOADS}
     if not args.rehearse:
         phase("2: build")
-        phase_build(sorted({(H, D)} | {(c.ode_hidden_dim, c.ode_state_dim) for c in wl_cfgs.values()}))
+        phase_build(sorted({(H, D)} | {(c.ode_hidden_dim, c.ode_state_dim) for c in wl_cfgs.values()} | set(WIDE)))
     clock = Clock(device)
     odes = {"cvs": init_params(cvs_spec(cfg), 0, device=device)["decoder"]["ode"]}
     for wl, w in WORKLOADS.items():
@@ -1275,6 +1782,8 @@ def main(argv=None):
     phase_long_horizon(device, clock, args.rehearse, smi, res, paths)
     phase("3: member-batched K2 and K3")
     phase_members(device, clock, args.rehearse, smi, res)
+    phase("3: C2, K2 and K3 at dopri5 and at wide widths")
+    c2 = phase_c2(device, clock, args.rehearse, smi, odes)
 
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
@@ -1291,6 +1800,12 @@ def main(argv=None):
         phase_stacked_step(device, clock, data_dir, args.rehearse, smi)
         phase("7: sweeps")
         phase_sweeps(device, workdir, data_dir, args.rehearse, smi, paths)
+        phase("8: the paths through C2's kernels")
+        phase_c2_paths(device, data_dir, args.rehearse, smi, paths)
+        phase("8: the ODE backend menu")
+        phase_menu(device, clock, data_dir, args.rehearse, smi, paths)
+        phase("8: sweeps on adjoint and adaptive")
+        phase_menu_sweeps(device, workdir, args.rehearse, smi, paths)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1324,6 +1839,30 @@ def main(argv=None):
                                                      "challenge_train", "c1_D5", "c1_D8", "proc")
                if other in res[key]},
         })
+    # C2's kernels: K2 and K3 at dopri5 and at the wide widths, each with
+    # the launches of its variant (method, H, D) on the path that runs it
+    c2_paths = {"dopri5 cvs": "c2 cvs dopri5 semilinear_auto", "dopri5 proc": "c2 proc dopri5 semilinear_auto",
+                "dopri5 proc members": "c2 proc stacked S=5 dopri5 semilinear_fused",
+                **{f"wide {H}x{D}": f"c2 decoder ODE {H}x{D} semilinear_fused" for H, D in WIDE}}
+    names = {"K2": "fused_semilinear_fwd", "K3": "fused_semilinear_bwd", "K2-members": "fused_semilinear_fwd_members",
+             "K3-members": "fused_semilinear_bwd_members"}
+    for case, rec in c2.items():
+        for key, t in rec.items():
+            variant = (t["method"], *t["width"])
+            main_path = c2_paths[case]
+            n = VARIANT_PATHS[main_path][key][variant]
+            check(args.rehearse or n > 0, f"C2 {case} {key}: its path {main_path!r} never launched {variant}")
+            kernels.append({
+                "name": f"{names[key]} ({t['method']}, H={t['width'][0]}, D={t['width'][1]})", "route": "cuda",
+                "source": K2_SOURCE if key.startswith("K2") else K3_SOURCE,
+                "replaces": K2_REPLACES if key.startswith("K2") else K3_REPLACES,
+                "launches": n, "main_path": main_path, "max_abs_err": t["err"],
+                "tolerance": {out: {"rule": TOLERANCE_RULES[key][out], "worst_error_over_tolerance": v}
+                              for out, v in t["worst"].items()},
+                "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"], "ptxas": t["ptxas"],
+                **({"passes_of": t["passes_of"]} if "passes_of" in t else {}),
+            })
     check(all(math.isfinite(k["ms"]) for k in kernels), "non-finite kernel time")
     if args.rehearse:
         print(json.dumps({"kernels": kernels}))

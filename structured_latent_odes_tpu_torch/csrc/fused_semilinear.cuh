@@ -7,9 +7,10 @@
 // projection u, the stage time and the weights, never the state x, so every
 // step's affine map x_{t+1} = A_t x_t + B_t can be computed independently of
 // every other step. A block owns one trajectory at a time and walks its steps
-// in passes of at most kMaxSteps steps: first one thread per step computes the
-// step's stages and (A_t, B_t) in parallel (stages() and rk_run() below), then
-// D threads run the short serial recurrence over the pass from shared memory
+// in passes of at most fwd_max_steps / bwd_max_steps steps: first one thread
+// per step computes the step's stages and (A_t, B_t) in parallel (stages()
+// and rk_run() below), then the block's threads run the short serial
+// recurrence of each state component over the pass from shared memory
 // (scan_forward, scan_reverse). Blocks loop over trajectories; the grid is as
 // many blocks as fit on the card at once (blocks_for), each taking an equal
 // share of the batch, and each block loads the weights once.
@@ -22,7 +23,13 @@
 // of member m is bit-equal to a launch on member m's slices alone.
 //
 // H and D are compile-time constants (-DSLODE_H, -DSLODE_D) so the per-thread
-// arrays stay in registers; ops/_build.py compiles one library per (H, D).
+// arrays stay in registers where they fit; ops/_build.py compiles one library
+// per (H, D). Any width builds: a loop over hidden units or state components
+// strides by the block (at least one warp), so a thread owns kPerH units and
+// kPerD components (one each up to 32). Past the registers the arrays spill
+// to local memory (slow, right). The hard limit is shared memory: a pass of
+// one step must fit in kSmemLimit (fwd_max_steps, bwd_max_steps; the
+// wrappers in ops/fused_step.py refuse a wider model before any build).
 
 #pragma once
 
@@ -57,17 +64,33 @@ constexpr int kRowWd = 1 + D;
 constexpr int kRowU = 1 + 2 * D;
 constexpr int kRow = (kRowU + 1 + 3) / 4 * 4;
 
-// Steps per pass: one thread per step, in whole warps. The lanes of one warp
-// cover K3's reduction (a lane per hidden unit and per bias element) and the
-// recurrence (a thread per state component).
+// Steps per pass at most: one thread per step, in whole warps. A pass is
+// shorter where its shared memory would exceed kSmemLimit (fwd_max_steps,
+// bwd_max_steps below).
 constexpr int kMaxSteps = 128;
 constexpr int kMaxThreads = kMaxSteps;
-static_assert(H <= 32 && 2 * D <= 32, "the widths must fit one warp's lanes");
+// the shared memory one block may opt in to on an H100 (227 KB)
+constexpr size_t kSmemLimit = 232448;
+// hidden units and state components per thread where a loop strides over
+// them by the block's threads (at least 32)
+constexpr int kPerH = (H + 31) / 32;
+constexpr int kPerD = (D + 31) / 32;
+
+// The loops over the H hidden units: unrolled in full up to one warp's worth
+// (the repo's widths), by 4 past it, where full unrolling multiplies the
+// code by H for no register it could keep.
+#if SLODE_H <= 32
+#define SLODE_UNROLL_H _Pragma("unroll")
+#else
+#define SLODE_UNROLL_H _Pragma("unroll 4")
+#endif
 
 // The order of the methods is the wrappers' METHODS tuple (ops/fused_step.py).
-enum Method { kEuler = 0, kMidpoint = 1, kHeun = 2, kRk4 = 3 };
+enum Method { kEuler = 0, kMidpoint = 1, kHeun = 2, kRk4 = 3, kDopri5 = 4 };
 
-// Butcher tableaus (structured_latent_odes_tpu_torch/ode/tableaus.py).
+// Butcher tableaus (structured_latent_odes_tpu_torch/ode/tableaus.py). Each
+// coefficient is the tableau's double rounded once to float, as the plain
+// versions' float32 arithmetic takes a Python float.
 template <int M> struct Tableau;
 template <> struct Tableau<kEuler> {
   static constexpr int S = 1;
@@ -103,6 +126,48 @@ template <> struct Tableau<kRk4> {
     return (i == 0 || i == 3) ? static_cast<float>(1.0 / 6.0)
                               : static_cast<float>(1.0 / 3.0);
   }
+};
+// Dormand-Prince 5(4) at a fixed step: only b (the 5th-order weights) enters;
+// the embedded error weights and the dense output belong to the adaptive
+// solver (ode/solvers.py), not to these kernels.
+template <> struct Tableau<kDopri5> {
+  static constexpr int S = 7;
+  __host__ __device__ static constexpr float c(int i) {
+    return static_cast<float>(i == 1   ? 1.0 / 5.0
+                              : i == 2 ? 3.0 / 10.0
+                              : i == 3 ? 4.0 / 5.0
+                              : i == 4 ? 8.0 / 9.0
+                              : i >= 5 ? 1.0
+                                       : 0.0);
+  }
+  __host__ __device__ static constexpr double a64(int i, int j) {
+    switch (i * 8 + j) {
+      case 1 * 8 + 0: return 1.0 / 5.0;
+      case 2 * 8 + 0: return 3.0 / 40.0;
+      case 2 * 8 + 1: return 9.0 / 40.0;
+      case 3 * 8 + 0: return 44.0 / 45.0;
+      case 3 * 8 + 1: return -56.0 / 15.0;
+      case 3 * 8 + 2: return 32.0 / 9.0;
+      case 4 * 8 + 0: return 19372.0 / 6561.0;
+      case 4 * 8 + 1: return -25360.0 / 2187.0;
+      case 4 * 8 + 2: return 64448.0 / 6561.0;
+      case 4 * 8 + 3: return -212.0 / 729.0;
+      case 5 * 8 + 0: return 9017.0 / 3168.0;
+      case 5 * 8 + 1: return -355.0 / 33.0;
+      case 5 * 8 + 2: return 46732.0 / 5247.0;
+      case 5 * 8 + 3: return 49.0 / 176.0;
+      case 5 * 8 + 4: return -5103.0 / 18656.0;
+      case 6 * 8 + 0: return 35.0 / 384.0;
+      case 6 * 8 + 2: return 500.0 / 1113.0;
+      case 6 * 8 + 3: return 125.0 / 192.0;
+      case 6 * 8 + 4: return -2187.0 / 6784.0;
+      case 6 * 8 + 5: return 11.0 / 84.0;
+      default: return 0.0;
+    }
+  }
+  __host__ __device__ static constexpr float a(int i, int j) { return static_cast<float>(a64(i, j)); }
+  // b is the last row of a (the FSAL property), with b_6 = 0
+  __host__ __device__ static constexpr float b(int i) { return i < 6 ? a(6, i) : 0.f; }
 };
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
@@ -205,7 +270,7 @@ __device__ __forceinline__ void stages(const float (&tau)[S], const float* __res
 #pragma unroll
     for (int i = 0; i < D; ++i) sa[s][i] = sd[s][i] = 0.f;
   }
-#pragma unroll
+  SLODE_UNROLL_H
   for (int j = 0; j < H; ++j) {
     float r[kRow];
     load_row(rows, j, r);
@@ -309,9 +374,53 @@ __device__ __forceinline__ void scan_reverse(const float* A, float* Gl, int n, i
   }
 }
 
-// Steps per pass and threads per block for a grid of T times.
-inline int chunk_for(int T) { return std::min(T - 1, kMaxSteps); }
-inline int threads_for(int T) { return (std::max(chunk_for(T), 1) + 31) / 32 * 32; }
+// K3's (step, stage) rows of the reduction: sa (D), sd (D), tau, padded to
+// float4s
+constexpr int kCoefTau = 2 * D;
+constexpr int kCoef = (kCoefTau + 1 + 3) / 4 * 4;
+
+// Threads per block for passes of chunk steps: one per step, whole warps.
+__host__ __device__ constexpr int threads_for_chunk(int chunk) { return ((chunk > 1 ? chunk : 1) + 31) / 32 * 32; }
+
+// The shared memory, in floats, of a K2 block walking passes of chunk steps:
+// the weight rows, the biases, and the pass's A_t and B_t.
+__host__ __device__ constexpr size_t fwd_smem_floats(int chunk) {
+  return static_cast<size_t>(H) * kRow + 2 * D + 2 * static_cast<size_t>(chunk) * D;
+}
+
+// The same for K3 at S stages: the weight rows, the (step, stage) rows of
+// the reduction, dL/dh (S * H * (chunk | 1)), the pass's A_t and adjoint, the
+// biases, and each warp's weight-gradient sums and du.
+template <int S>
+__host__ __device__ constexpr size_t bwd_smem_floats(int chunk) {
+  return static_cast<size_t>(H) * kRow + static_cast<size_t>(chunk) * S * kCoef +
+         static_cast<size_t>(S) * H * (chunk | 1) + 2 * static_cast<size_t>(chunk) * D + 2 * D +
+         static_cast<size_t>(threads_for_chunk(chunk) / 32) * (kParams + H);
+}
+
+// The longest pass (at most kMaxSteps) whose shared memory fits in
+// kSmemLimit; 0 where not even one step fits, and the C entry points refuse
+// the launch (ops/fused_step.py::kernel_max_steps computes the same and
+// raises first; fused_semilinear_{fwd,bwd}_max_steps report these values, and
+// chip_smoke.py's build phase holds the mirror to them). At the repo's widths (H = 25, D <= 8) every method takes
+// kMaxSteps.
+__host__ __device__ constexpr int fwd_max_steps() {
+  int c = kMaxSteps;
+  while (c > 0 && fwd_smem_floats(c) * sizeof(float) > kSmemLimit) --c;
+  return c;
+}
+
+template <int S>
+__host__ __device__ constexpr int bwd_max_steps() {
+  int c = kMaxSteps;
+  while (c > 0 && bwd_smem_floats<S>(c) * sizeof(float) > kSmemLimit) --c;
+  return c;
+}
+
+// Steps per pass and threads per block for a grid of T times, with passes of
+// at most max_steps.
+inline int chunk_for(int T, int max_steps) { return std::min(T - 1, max_steps); }
+inline int threads_for(int T, int max_steps) { return threads_for_chunk(chunk_for(T, max_steps)); }
 
 // Opts the kernel in to smem bytes of dynamic shared memory where that is
 // above the default. Returns a CUDA error code.

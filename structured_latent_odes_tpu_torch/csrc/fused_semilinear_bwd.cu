@@ -22,7 +22,8 @@
 //   1. one thread per step recomputes the step's S stages (all at once,
 //      sharing the weight loads) and A_t into shared memory, and keeps the
 //      stages' (a, d) and x_t in registers; the block stages g_t;
-//   2. D threads run the adjoint over the pass in reverse, from shared
+//   2. a thread per state component (several in turn past the block's
+//      threads) runs the adjoint over the pass in reverse, from shared
 //      memory, leaving lam_{t+1} where g_t was: one fmaf a step in
 //      descending time, so dx0 does not depend on the launch geometry;
 //   3. one thread per step again: the VJP of its step (the two RK runs'
@@ -31,8 +32,8 @@
 //   4. every warp reduces its share of the pass's rows (steps n-1-w,
 //      n-1-w-warps, ..., stages ascending) into sums of its own: lane j owns
 //      hidden unit j's du[j], dw_t[j], W_a[:, j] and W_d[:, j], the relu mask
-//      recomputed from the pre-activation u[j] + tau * w_t[j]; lanes j < 2D
-//      also b_a and b_d.
+//      recomputed from the pre-activation u[j] + tau * w_t[j], and bias
+//      element j of [b_a, b_d] (past 32 units, lane l owns l, l + 32, ...).
 // The sums stay in shared memory, one owner lane each: no atomics. du and
 // dx0 belong to the trajectory and are written when it is done (du summed
 // over the warps in warp order); each block writes its weight-gradient sums
@@ -51,8 +52,10 @@
 // nothing across grid steps (ops/fused_step.py:171-178 there).
 //
 // Layout: trajectory-major, as K2: u (B, H), xs and g (B, T, D), du (B, H),
-// dx0 (B, D). Shared memory grows with the pass length and S (rk4 at 85
-// steps: 59 KB), so the launch opts in above 48 KB.
+// dx0 (B, D). Shared memory grows with the pass length, S, H and D (rk4 at
+// 85 steps, (25, 5): 59 KB), so the launch opts in above 48 KB, and passes
+// are cut short where they would pass 227 KB (bwd_max_steps: at (128, 32)
+// midpoint takes passes of 64 steps, dopri5 of 27).
 //
 // No tensor cores, as K2: the products are 25 -> 5 per stage, and TF32 would
 // not keep the 1e-5 float32 tolerances.
@@ -65,10 +68,8 @@ namespace {
 
 using namespace slode;
 
-// a (step, stage) row of the reduction: sa (D), sd (D), tau, padded to float4s
-constexpr int kCoefTau = 2 * D;
-constexpr int kCoef = (kCoefTau + 1 + 3) / 4 * 4;
-// threads of the reduction: one per hidden unit, and one per bias element
+// the reduction's owners: one per hidden unit, and one per bias element,
+// lanes striding over them
 constexpr int kRed = H > 2 * D ? H : 2 * D;
 
 // The VJP of the two RK runs of element i onto the stages' (a, d), for one
@@ -97,20 +98,14 @@ __device__ __forceinline__ void rk_run_bwd(float dout, float hstep, int i,
   }
 }
 
-template <int S>
-constexpr size_t smem_floats(int chunk, int warps) {
-  return static_cast<size_t>(H) * kRow + static_cast<size_t>(chunk) * S * kCoef +
-         static_cast<size_t>(S) * H * (chunk | 1) + 2 * static_cast<size_t>(chunk) * D + 2 * D +
-         static_cast<size_t>(warps) * (kParams + H);
-}
-
 // Blocks per SM that ptxas must leave room for. At D = 5, 4 caps it at 128
 // registers a thread, which euler needs to build without spills and midpoint
 // and heun reach anyway. At D = 8 (proc) midpoint and heun spilled 92-96
 // bytes under that cap; 3 (168 registers) leaves room for them. rk4's stages
-// need more (at D = 8 it spills 28 bytes at the 255-register limit).
+// need more (at D = 8 it spills 28 bytes at the 255-register limit), as do
+// dopri5's and any state wider than 8: they get the full 255.
 template <int M>
-constexpr int kBwdMinBlocks = M == kRk4 ? 1 : (D <= 5 ? 4 : 3);
+constexpr int kBwdMinBlocks = (M == kRk4 || M == kDopri5 || D > 8) ? 1 : (D <= 5 ? 4 : 3);
 
 template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kBwdMinBlocks<M>)
@@ -119,10 +114,11 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
                             const Weights weights, float* __restrict__ du,
                             float* __restrict__ dx0, float* __restrict__ partial, int B, int T) {
   constexpr int S = Tableau<M>::S;
+  constexpr int kSteps = bwd_max_steps<S>();
   const int steps = T - 1;
-  const int chunk = min(steps, kMaxSteps);
+  const int chunk = min(steps, kSteps);
   const int cpad = chunk | 1;  // odd stride: dh's writes and reads are conflict-free
-  const bool one_pass = steps <= kMaxSteps;  // then each thread's step is the same for every trajectory
+  const bool one_pass = steps <= kSteps;  // then each thread's step is the same for every trajectory
   const int warps = blockDim.x / 32;
   extern __shared__ float4 smem4[];
   float* rows = reinterpret_cast<float*>(smem4);  // H * kRow
@@ -145,12 +141,21 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
   dx0 += static_cast<size_t>(m) * B * D;
   partial += static_cast<size_t>(m) * gridDim.x * kParams;
   const Weights w = member_weights(weights, m);
-  // u[b, tid] and g[b, T-1, tid] of the block's next trajectory, loaded while
-  // the block works on the current one
-  float u_next = 0.f;
-  float l_next = 0.f;
-  if (tid < H) u_next = u[static_cast<size_t>(blockIdx.x) * H + tid];
-  if (tid < D) l_next = g[(static_cast<size_t>(blockIdx.x) * T + T - 1) * D + tid];
+  // u[b, j] and g[b, T-1, i] of the block's next trajectory for the
+  // thread's hidden units j = tid + q * blockDim.x and state components i
+  // (one each up to 32), loaded while the block works on the current one
+  float u_next[kPerH];
+  float l_next[kPerD];
+#pragma unroll
+  for (int q = 0; q < kPerH; ++q) {
+    const int j = tid + q * blockDim.x;
+    u_next[q] = j < H ? u[static_cast<size_t>(blockIdx.x) * H + j] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < kPerD; ++q) {
+    const int i = tid + q * blockDim.x;
+    l_next[q] = i < D ? g[(static_cast<size_t>(blockIdx.x) * T + T - 1) * D + i] : 0.f;
+  }
   load_weights(w, rows, bias);
   for (int k = tid; k < warps * (kParams + H); k += blockDim.x) acc[k] = 0.f;  // acc and dus
   float tau[S];
@@ -160,14 +165,23 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     const int next = b + gridDim.x;
     const size_t row0 = static_cast<size_t>(b) * T;
-    if (tid < H) {
-      rows[tid * kRow + kRowU] = u_next;
-      if (next < B) u_next = u[static_cast<size_t>(next) * H + tid];
+#pragma unroll
+    for (int q = 0; q < kPerH; ++q) {
+      const int j = tid + q * blockDim.x;
+      if (j < H) {
+        rows[j * kRow + kRowU] = u_next[q];
+        if (next < B) u_next[q] = u[static_cast<size_t>(next) * H + j];
+      }
     }
-    float l = 0.f;  // threads tid < D: component tid of the adjoint
-    if (tid < D) {
-      l = l_next;
-      if (next < B) l_next = g[(static_cast<size_t>(next) * T + T - 1) * D + tid];
+    float l[kPerD];  // the adjoint of the thread's state components
+#pragma unroll
+    for (int q = 0; q < kPerD; ++q) {
+      const int i = tid + q * blockDim.x;
+      l[q] = 0.f;
+      if (i < D) {
+        l[q] = l_next[q];
+        if (next < B) l_next[q] = g[(static_cast<size_t>(next) * T + T - 1) * D + i];
+      }
     }
     __syncthreads();
 
@@ -206,7 +220,11 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
       }
       __syncthreads();
       // 2. the adjoint over the pass, in reverse
-      if (tid < D) scan_reverse(Ac, lam, n, tid, l);
+#pragma unroll
+      for (int q = 0; q < kPerD; ++q) {
+        const int i = tid + q * blockDim.x;
+        if (i < D) scan_reverse(Ac, lam, n, i, l[q]);
+      }
       __syncthreads();
       // 3. the VJP of step t down to the heads' pre-sigmoid sums and dL/dh
       if (item) {
@@ -249,7 +267,7 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
             dst[q] = make_float4(c[4 * q], c[4 * q + 1], c[4 * q + 2], c[4 * q + 3]);
           }
         }
-#pragma unroll
+        SLODE_UNROLL_H
         for (int j = 0; j < H; ++j) {
           float r[kRow];
           load_row(rows, j, r);
@@ -267,10 +285,9 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
       }
       __syncthreads();
       // 4. this pass's rows into the sums: warp w takes the steps k = n-1-w,
-      // n-1-w-warps, ... (stages ascending) into its own sums; lane j owns
-      // hidden unit j's sums and bias element j
-      if (lane < kRed) {
-        const int j = lane;
+      // n-1-w-warps, ... (stages ascending) into its own sums; lane l owns
+      // hidden units j = l, l + 32, ... and bias elements j, one at a time
+      for (int j = lane; j < kRed; j += 32) {
         const bool hid = j < H;
         const bool bel = j < 2 * D;
         float* wacc = acc + warp * kParams;
@@ -338,14 +355,18 @@ fused_semilinear_bwd_kernel(const float* __restrict__ u, const float* __restrict
       }
       __syncthreads();
     }
-    if (tid < D) dx0[static_cast<size_t>(b) * D + tid] = l;
-    if (tid < H) {  // the warps' du, in warp order; reset for the next trajectory
+#pragma unroll
+    for (int q = 0; q < kPerD; ++q) {
+      const int i = tid + q * blockDim.x;
+      if (i < D) dx0[static_cast<size_t>(b) * D + i] = l[q];
+    }
+    for (int j = tid; j < H; j += blockDim.x) {  // the warps' du, in warp order; reset for the next trajectory
       float sum = 0.f;
       for (int v = 0; v < warps; ++v) {
-        sum += dus[v * H + tid];
-        dus[v * H + tid] = 0.f;
+        sum += dus[v * H + j];
+        dus[v * H + j] = 0.f;
       }
-      du[static_cast<size_t>(b) * H + tid] = sum;
+      du[static_cast<size_t>(b) * H + j] = sum;
     }
   }
   __syncthreads();
@@ -387,14 +408,18 @@ reduce_partials(const float* __restrict__ partial, float* __restrict__ grads, in
 }
 
 template <int M>
+constexpr int kBwdSteps = bwd_max_steps<Tableau<M>::S>();
+
+template <int M>
 size_t smem_bytes(int T) {
-  return sizeof(float) * smem_floats<Tableau<M>::S>(chunk_for(T), threads_for(T) / 32);
+  return sizeof(float) * bwd_smem_floats<Tableau<M>::S>(chunk_for(T, kBwdSteps<M>));
 }
 
 template <int M>
 int blocks(int B, int T) {
+  if (kBwdSteps<M> < 1) return -static_cast<int>(cudaErrorInvalidValue);  // not one step fits
   int n = 0;
-  const int err = blocks_for(fused_semilinear_bwd_kernel<M>, threads_for(T), smem_bytes<M>(T), B, &n);
+  const int err = blocks_for(fused_semilinear_bwd_kernel<M>, threads_for(T, kBwdSteps<M>), smem_bytes<M>(T), B, &n);
   return err != 0 ? -err : n;
 }
 
@@ -402,10 +427,11 @@ template <int M>
 int launch(const float* u, const float* xs, const float* g, const float* ts, const Weights& w,
            float* du, float* dx0, float* partial, float* grads, int S, int B, int T, int n_blocks,
            cudaStream_t stream) {
+  if (kBwdSteps<M> < 1) return static_cast<int>(cudaErrorInvalidValue);  // the wrapper raises first
   const size_t smem = smem_bytes<M>(T);
   const int err = opt_in(fused_semilinear_bwd_kernel<M>, smem);
   if (err != 0) return err;
-  fused_semilinear_bwd_kernel<M><<<dim3(n_blocks, S), threads_for(T), smem, stream>>>(
+  fused_semilinear_bwd_kernel<M><<<dim3(n_blocks, S), threads_for(T, kBwdSteps<M>), smem, stream>>>(
       u, xs, g, ts, w, du, dx0, partial, B, T);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -415,6 +441,19 @@ int launch(const float* u, const float* xs, const float* g, const float* ts, con
 }
 
 }  // namespace
+
+// The steps one pass of K3 takes in this library at method (bwd_max_steps),
+// as fused_semilinear_fwd_max_steps for K2.
+extern "C" int fused_semilinear_bwd_max_steps(int method) {
+  switch (method) {
+    case kEuler: return kBwdSteps<kEuler>;
+    case kMidpoint: return kBwdSteps<kMidpoint>;
+    case kHeun: return kBwdSteps<kHeun>;
+    case kRk4: return kBwdSteps<kRk4>;
+    case kDopri5: return kBwdSteps<kDopri5>;
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // The grid fused_semilinear_bwd should be launched with for (method, B, T) on
 // the current device (blocks_for in fused_semilinear.cuh), so the wrapper can
@@ -427,6 +466,7 @@ extern "C" int fused_semilinear_bwd_blocks(int method, int B, int T) {
     case kMidpoint: return blocks<kMidpoint>(B, T);
     case kHeun: return blocks<kHeun>(B, T);
     case kRk4: return blocks<kRk4>(B, T);
+    case kDopri5: return blocks<kDopri5>(B, T);
     default: return -static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -458,6 +498,8 @@ extern "C" int fused_semilinear_bwd(int method, const float* u, const float* xs,
       return launch<kHeun>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
     case kRk4:
       return launch<kRk4>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
+    case kDopri5:
+      return launch<kDopri5>(u, xs, g, ts, w, du, dx0, partial, grads, S, B, T, n_blocks, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

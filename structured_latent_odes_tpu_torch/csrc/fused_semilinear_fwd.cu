@@ -26,11 +26,13 @@
 // Design: parallel over steps, then a short scan (fused_semilinear.cuh). The
 // heads never read x, so the steps' affine maps are independent. A block owns
 // one trajectory at a time (blocks loop over trajectories, as many blocks as
-// fit on the card) and walks its steps in passes of up to kMaxSteps:
+// fit on the card) and walks its steps in passes of up to 128 steps (fewer
+// where the pass's shared memory would pass 227 KB: fwd_max_steps):
 //   1. one thread per step evaluates all S stages of its step at once, so
 //      each float4 load of a weight row from shared memory feeds 2*D*S FMAs,
 //      and writes (A_t, B_t) to shared memory;
-//   2. after one __syncthreads, D threads run x = A*x + B over the pass,
+//   2. after one __syncthreads, a thread per state component (past the
+//      block's threads, several in turn) runs x = A*x + B over the pass,
 //      writing each x_{t+1} over B_t;
 //   3. the block copies the pass's rows of x to the output, contiguous.
 // The next trajectory's u row and x0 are loaded while the block works on the
@@ -65,9 +67,10 @@ using namespace slode;
 // blocks of the CVS grid's 96 threads fit on an SM, and that was the fastest
 // setting tried on the H100 (against 1, 7 and none). A wider state needs
 // more: at D = 8 (proc) the cap of 80 that 6 gives spilled 12-44 bytes, and 4
-// (128 registers) spills none. rk4's stages need more registers.
+// (128 registers) spills none. rk4's and dopri5's stages need more registers,
+// as does any state wider than 8: they get the full 255.
 template <int M>
-constexpr int kFwdMinBlocks = M == kRk4 ? 1 : (D <= 5 ? 6 : 4);
+constexpr int kFwdMinBlocks = (M == kRk4 || M == kDopri5 || D > 8) ? 1 : (D <= 5 ? 6 : 4);
 
 template <int M>
 __global__ void __launch_bounds__(kMaxThreads, kFwdMinBlocks<M>)
@@ -75,9 +78,10 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
                             const float* __restrict__ ts, const Weights weights,
                             float* __restrict__ out, int B, int T) {
   constexpr int S = Tableau<M>::S;
+  constexpr int kSteps = fwd_max_steps();
   const int steps = T - 1;
-  const int chunk = min(steps, kMaxSteps);
-  const bool one_pass = steps <= kMaxSteps;  // then each thread's step is the same for every trajectory
+  const int chunk = min(steps, kSteps);
+  const bool one_pass = steps <= kSteps;  // then each thread's step is the same for every trajectory
   extern __shared__ float4 smem4[];
   float* rows = reinterpret_cast<float*>(smem4);  // H * kRow
   float* bias = rows + H * kRow;                  // 2D
@@ -90,12 +94,21 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
   x0 += static_cast<size_t>(m) * B * D;
   out += static_cast<size_t>(m) * B * T * D;
   const Weights w = member_weights(weights, m);
-  // u[b, tid] and x0[b, tid] of the block's next trajectory, loaded while
-  // the block works on the current one
-  float u_next = 0.f;
-  float x_next = 0.f;
-  if (tid < H) u_next = u[static_cast<size_t>(blockIdx.x) * H + tid];
-  if (tid < D) x_next = x0[static_cast<size_t>(blockIdx.x) * D + tid];
+  // u[b, j] and x0[b, i] of the block's next trajectory for the thread's
+  // hidden units j = tid + q * blockDim.x and state components i (one each up
+  // to 32), loaded while the block works on the current one
+  float u_next[kPerH];
+  float x_next[kPerD];
+#pragma unroll
+  for (int q = 0; q < kPerH; ++q) {
+    const int j = tid + q * blockDim.x;
+    u_next[q] = j < H ? u[static_cast<size_t>(blockIdx.x) * H + j] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < kPerD; ++q) {
+    const int i = tid + q * blockDim.x;
+    x_next[q] = i < D ? x0[static_cast<size_t>(blockIdx.x) * D + i] : 0.f;
+  }
   load_weights(w, rows, bias);
   float tau[S];
   float hstep = 0.f;
@@ -104,15 +117,24 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
   for (int b = blockIdx.x; b < B; b += gridDim.x) {
     const int next = b + gridDim.x;
     const size_t row0 = static_cast<size_t>(b) * T;
-    if (tid < H) {
-      rows[tid * kRow + kRowU] = u_next;
-      if (next < B) u_next = u[static_cast<size_t>(next) * H + tid];
+#pragma unroll
+    for (int q = 0; q < kPerH; ++q) {
+      const int j = tid + q * blockDim.x;
+      if (j < H) {
+        rows[j * kRow + kRowU] = u_next[q];
+        if (next < B) u_next[q] = u[static_cast<size_t>(next) * H + j];
+      }
     }
-    float x = 0.f;
-    if (tid < D) {
-      x = x_next;
-      out[row0 * D + tid] = x;
-      if (next < B) x_next = x0[static_cast<size_t>(next) * D + tid];
+    float x[kPerD];  // the thread's state components
+#pragma unroll
+    for (int q = 0; q < kPerD; ++q) {
+      const int i = tid + q * blockDim.x;
+      x[q] = 0.f;
+      if (i < D) {
+        x[q] = x_next[q];
+        out[row0 * D + i] = x[q];
+        if (next < B) x_next[q] = x0[static_cast<size_t>(next) * D + i];
+      }
     }
     __syncthreads();
 
@@ -134,7 +156,11 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
       }
       __syncthreads();
       // 2. the recurrence, one thread per state component
-      if (tid < D) scan_forward(Ac, Bc, n, tid, x);
+#pragma unroll
+      for (int q = 0; q < kPerD; ++q) {
+        const int i = tid + q * blockDim.x;
+        if (i < D) scan_forward(Ac, Bc, n, i, x[q]);
+      }
       __syncthreads();
       // 3. rows t0+1 .. t0+n of the trajectory
       float* dst = out + (row0 + t0 + 1) * D;
@@ -147,8 +173,10 @@ fused_semilinear_fwd_kernel(const float* __restrict__ u, const float* __restrict
 template <int M>
 int launch(const float* u, const float* x0, const float* ts, const Weights& w, float* out,
            int S, int B, int T, cudaStream_t stream) {
-  const int threads = threads_for(T);
-  const size_t smem = sizeof(float) * (H * kRow + 2 * D + 2 * static_cast<size_t>(chunk_for(T)) * D);
+  constexpr int kSteps = fwd_max_steps();
+  if (kSteps < 1) return static_cast<int>(cudaErrorInvalidValue);  // not one step fits (the wrapper raises first)
+  const int threads = threads_for(T, kSteps);
+  const size_t smem = sizeof(float) * fwd_smem_floats(chunk_for(T, kSteps));
   int blocks = 0;
   const int err = blocks_for(fused_semilinear_fwd_kernel<M>, threads, smem, B, &blocks);
   if (err != 0) return err;
@@ -157,6 +185,15 @@ int launch(const float* u, const float* x0, const float* ts, const Weights& w, f
 }
 
 }  // namespace
+
+// The steps one pass of K2 takes in this library at method (fwd_max_steps:
+// the same at every method), so that the wrapper's mirror of the shared-memory
+// layout (ops/fused_step.py::kernel_max_steps) can be held against it; minus
+// a CUDA error code for an unknown method.
+extern "C" int fused_semilinear_fwd_max_steps(int method) {
+  if (method < kEuler || method > kDopri5) return -static_cast<int>(cudaErrorInvalidValue);
+  return fwd_max_steps();
+}
 
 // S members, each: u: (B, H); x0: (B, D); wt: (H,) every wt_stride floats,
 // member m's m * wt_mstride floats on; wa, wd: (D, H); ba, bd: (D,); out:
@@ -175,6 +212,7 @@ extern "C" int fused_semilinear_fwd(int method, const float* u, const float* x0,
     case kMidpoint: return launch<kMidpoint>(u, x0, ts, w, out, S, B, T, s);
     case kHeun: return launch<kHeun>(u, x0, ts, w, out, S, B, T, s);
     case kRk4: return launch<kRk4>(u, x0, ts, w, out, S, B, T, s);
+    case kDopri5: return launch<kDopri5>(u, x0, ts, w, out, S, B, T, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

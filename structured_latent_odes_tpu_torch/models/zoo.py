@@ -44,6 +44,8 @@ def _common(config, latent_dim: int, n_time: int):
         ode_hidden_dim=config.ode_hidden_dim,
         solver=config.solver,
         backend=ode_backend,
+        rtol=config.get("ode_rtol", 1e-6),
+        atol=config.get("ode_atol", 1e-8),
     )
     decoder = DecoderSpec(
         kind="quantile" if _likelihood(config) == "quantile" else "gaussian",

@@ -9,14 +9,30 @@
 Port layout: ``dyn_hidden.W`` is ``(H, L+1)`` and its column 0 is the time
 weight (row 0 of the JAX package's ``(L+1, H)`` kernel).
 
-``solve_ode`` runs the four semilinear backends, forward and backward:
-'semilinear' and 'semilinear_pallas' run kernels K1 and K1-bwd (PyTorch has
-no associative scan, and both compute the same recurrence),
-'semilinear_seq' the plain loop under autograd, 'semilinear_fused' kernels
-K2 and K3. Outside the kernels (the latent projection, ``initialize_state``,
-the stage heads of the scan backends, the RK coefficients) gradients come
-from torch autograd, as the JAX package leaves them to XLA. The other
-backends raise.
+``solve_ode`` runs every backend of the JAX package but one, forward and
+backward:
+
+- 'semilinear' and 'semilinear_pallas' run kernels K1 and K1-bwd (PyTorch
+  has no associative scan, and both compute the same recurrence);
+- 'semilinear_seq' the plain loop under autograd;
+- 'semilinear_fused' kernels K2 and K3 (the whole solve);
+- 'semilinear_auto' one of the two kernel paths, chosen from the shapes, the
+  solver and the device before any launch (:func:`auto_picks_fused`): on the
+  card K2/K3 wherever they take the solver and the widths (the H100 showed
+  no crossover), else K1/K1-bwd; on the CPU the K1 path's plain version, as
+  the JAX package off a TPU takes its associative scan;
+- 'generic' (fixed-step RK on the full right-hand side ``a - d * x``, under
+  autograd), 'adjoint' (the same forward, the continuous adjoint backward),
+  'adaptive' (dopri5 with one step schedule for the batch) and
+  'adaptive_per_sample' (dopri5 with one schedule per trajectory), both
+  adaptive ones with the adaptive continuous adjoint backward
+  (``ode/solvers.py``, ``ode/adjoint.py``; plain PyTorch, as in the JAX
+  package no Pallas kernel backs them).
+
+Outside the kernels (the latent projection, ``initialize_state``, the stage
+heads of the scan backends, the RK coefficients) gradients come from torch
+autograd, as the JAX package leaves them to XLA. 'semilinear_timepar'
+raises: it waits for ROADMAP A17.
 """
 
 from __future__ import annotations
@@ -29,8 +45,10 @@ import torch.nn.functional as F
 
 from structured_latent_odes_tpu_torch.nn.init import torch_linear_default, xavier_uniform
 from structured_latent_odes_tpu_torch.nn.layers import linear_apply
+from structured_latent_odes_tpu_torch.ode.adjoint import odeint_adaptive_adjoint, odeint_adjoint
 from structured_latent_odes_tpu_torch.ode.semilinear import solve_semilinear
-from structured_latent_odes_tpu_torch.ops.fused_step import fused_semilinear_solve
+from structured_latent_odes_tpu_torch.ode.solvers import odeint, odeint_adaptive_per_sample
+from structured_latent_odes_tpu_torch.ops.fused_step import fused_semilinear_solve, kernels_take
 
 Tensor = torch.Tensor
 
@@ -38,19 +56,23 @@ _SCAN_BACKENDS = {
     "semilinear": "kernel",
     "semilinear_pallas": "kernel",
     "semilinear_seq": "seq",
+    "semilinear_auto": "kernel",  # where auto_picks_fused is false
 }
 
-_NOT_PORTED = {
-    "generic": "ROADMAP A14",
-    "adjoint": "ROADMAP A14",
-    "adaptive": "ROADMAP A14",
-    "adaptive_per_sample": "ROADMAP A14",
-    "semilinear_timepar": "ROADMAP A17",
-    "semilinear_auto": (
-        "ROADMAP A19, an H100 measurement of its crossover thresholds (the JAX "
-        "package's _PALLAS_MIN_LANES and _FUSED_MIN_LANES were measured on a TPU)"
-    ),
-}
+_NOT_PORTED = {"semilinear_timepar": "ROADMAP A17"}
+
+# the backends whose step schedules follow the data (dopri5 with step control)
+ADAPTIVE_BACKENDS = ("adaptive", "adaptive_per_sample")
+
+
+def solve_is_per_member(spec: OdeModelSpec) -> bool:
+    """Whether an ensemble's members go through this spec's solve one at a
+    time rather than under one ``torch.func.vmap``: the adaptive backends,
+    whose loops read each member's own condition on the host (and a float32
+    dopri5 solve at rtol 1e-6 turns the roundoff by which batched and single
+    products differ into up to 1e-4 of its scale, where its step control
+    meets the relu's kinks)."""
+    return spec.backend in ADAPTIVE_BACKENDS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,8 +82,13 @@ class OdeModelSpec:
     ode_hidden_dim: int
     solver: str = "midpoint"
     # 'semilinear' (K1, default), 'semilinear_pallas' (K1), 'semilinear_seq'
-    # (plain loop), 'semilinear_fused' (K2: whole solve in one kernel)
+    # (plain loop), 'semilinear_fused' (K2: whole solve in one kernel),
+    # 'semilinear_auto' (K1 or K2 by shape, solver and device), 'generic',
+    # 'adjoint', 'adaptive', 'adaptive_per_sample' (module docstring)
     backend: str = "semilinear"
+    # the adaptive backends' tolerances
+    rtol: float = 1e-6
+    atol: float = 1e-8
 
 
 def ode_model_init(gen: torch.Generator, spec: OdeModelSpec):
@@ -94,6 +121,44 @@ def dynamics_prod_degr(params, t: Tensor, z: Tensor) -> Tuple[Tensor, Tensor]:
     return a, d
 
 
+def dynamics_rhs(params, t: Tensor, x: Tensor, z: Tensor) -> Tensor:
+    """The full right-hand side ``dx/dt = a(t, z) - d(t, z) * x`` at a scalar
+    time t, for the generic, adjoint and adaptive solvers."""
+    a, d = dynamics_prod_degr(params, t, z)
+    return a - d * x
+
+
+def dynamics_rhs_per_sample_time(params, t: Tensor, x: Tensor, z: Tensor) -> Tensor:
+    """The right-hand side at per-sample times ``t (B, 1)`` aligned to
+    ``z (B, L)``: the signature the per-sample adaptive solver drives (each
+    trajectory at its own clock)."""
+    W, b = params["dyn_hidden"]["W"], params["dyn_hidden"]["b"]
+    h = torch.relu(F.linear(z, W[:, 1:], b) + t * W[:, 0])  # (B, H)
+    a = torch.sigmoid(h @ params["prod"]["W"].T + params["prod"]["b"])
+    d = torch.sigmoid(h @ params["degr"]["W"].T + params["degr"]["b"])
+    return a - d * x
+
+
+# 'semilinear_auto' on the H100: scripts/auto_crossover.py ran the K1/K1-bwd
+# path and the fused K2/K3 path end to end (served requests, and stacked dual
+# steps at S = 1, 5 and 10 members) at B = 7 .. 16,411, midpoint, rk4 and
+# dopri5, (H, D) = (25, 5) and (25, 8). The fused path was ahead, or level
+# within the quartile spread with fewer device operations, at all 168 points
+# (PERF.md section 6, "semilinear_auto's crossover"; an NVIDIA H100 80GB HBM3
+# at 700.00 W): there is no crossover width, so the choice reads no batch
+# size. No TPU threshold carries over.
+def auto_picks_fused(spec: OdeModelSpec, z: Tensor) -> bool:
+    """'semilinear_auto''s choice, from the shapes, the solver and the device
+    alone, before any launch: the fused K2/K3 path on a CUDA tensor where the
+    kernels take the solver and the widths, else the K1 path (on the CPU,
+    its plain version)."""
+    return (
+        z.device.type == "cuda"
+        and z.ndim == 2
+        and kernels_take(spec.solver, spec.ode_hidden_dim, spec.ode_state_dim)
+    )
+
+
 def solve_ode(spec: OdeModelSpec, params, z: Tensor, ts) -> Tensor:
     """Integrate from x0(z) over ts. Returns (B, T, D)."""
     if spec.backend in _NOT_PORTED:
@@ -102,11 +167,32 @@ def solve_ode(spec: OdeModelSpec, params, z: Tensor, ts) -> Tensor:
             f"{_NOT_PORTED[spec.backend]}"
         )
     x0 = initialize_state(params, z)
-    if spec.backend == "semilinear_fused":
+    if spec.backend == "semilinear_fused" or (spec.backend == "semilinear_auto" and auto_picks_fused(spec, z)):
         return fused_semilinear_solve(params, z, x0, ts, method=spec.solver)
     if spec.backend in _SCAN_BACKENDS:
         return solve_semilinear(
             lambda stage_ts: dynamics_prod_degr(params, stage_ts, z),
             x0, ts, method=spec.solver, backend=_SCAN_BACKENDS[spec.backend],
         )
+    if spec.backend == "generic":
+        return odeint(lambda t, x: dynamics_rhs(params, t, x, z), x0, ts, method=spec.solver).movedim(0, 1)
+    # params and z go in as the solve's args, so the adjoint's backward
+    # reaches them (a closure would hide them from it)
+    if spec.backend == "adjoint":
+        return odeint_adjoint(_rhs_of_args, x0, ts, (params, z), method=spec.solver).movedim(0, 1)
+    if spec.backend in ADAPTIVE_BACKENDS:
+        forward = None
+        if spec.backend == "adaptive_per_sample":
+            def forward(x0_, args):
+                return odeint_adaptive_per_sample(
+                    lambda t, x: dynamics_rhs_per_sample_time(args[0], t, x, args[1]), x0_, ts,
+                    rtol=spec.rtol, atol=spec.atol)
+        sol = odeint_adaptive_adjoint(_rhs_of_args, x0, ts, (params, z), rtol=spec.rtol, atol=spec.atol,
+                                      forward=forward)
+        return sol.movedim(0, 1)  # time-major -> (B, T, D)
     raise ValueError(f"unknown ode backend {spec.backend!r}")
+
+
+def _rhs_of_args(t: Tensor, x: Tensor, args) -> Tensor:
+    """``dynamics_rhs`` with (params, z) as the solver's args."""
+    return dynamics_rhs(args[0], t, x, args[1])

@@ -18,7 +18,11 @@ the ``(B, T-1, S, H)`` stage activations that the unfused path materializes:
 K2 reads ``u`` once and writes the trajectory once; K3 recomputes the stages
 from ``u`` and the saved trajectory. Both are bound by operations:
 ``B * (T-1) * S * (4*D*H + 2*H)`` flops forward, about three times that
-backward. Trajectories are trajectory-major ``(B, T, D)`` throughout.
+backward. Trajectories are trajectory-major ``(B, T, D)`` throughout. Both
+take every tableau of ``ode/tableaus.py`` (:data:`METHODS`, dopri5 at a fixed
+step included) and any width whose one-step pass fits in a block's shared
+memory (:func:`kernel_max_steps`; at least H = 128, D = 32): wider models
+raise a ``ValueError`` that names the limit before any build.
 
 The latent projection ``u = z @ W[:, 1:].T + b`` and ``x0`` stay in PyTorch,
 as in the JAX package, and take their gradients from autograd.
@@ -43,6 +47,7 @@ reaches the member-batched wrappers.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -56,8 +61,17 @@ from structured_latent_odes_tpu_torch.ops.recurrence import _to_front
 
 Tensor = torch.Tensor
 
-# the kernels' Method enum, in order
-METHODS = ("euler", "midpoint", "heun", "rk4")
+# the kernels' Method enum, in order: every tableau of ode/tableaus.py (at a
+# fixed step dopri5 enters through its 5th-order weights b alone)
+METHODS = ("euler", "midpoint", "heun", "rk4", "dopri5")
+
+# The kernels' one hard width limit (csrc/fused_semilinear.cuh): a block keeps
+# the weights, one pass of steps and, in K3, the stage rows and each warp's
+# weight-gradient sums in shared memory, at most 227 KB (232,448 bytes) on an
+# H100. Passes shorten as H and D grow; where not one step fits, the
+# wrappers refuse the width before any build.
+SMEM_LIMIT = 232448
+_MAX_STEPS = 128
 
 # (method, u, x0, ts, wt, wt_stride, wt_mstride, wa, ba, wd, bd, out, S, B, T, stream)
 _FWD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
@@ -198,13 +212,66 @@ def _method_index(name: str, method: str) -> int:
     return METHODS.index(method)
 
 
-def _kernel_args(name: str, args, S: int):
+def _smem_floats(H: int, D: int, S: int, chunk: int, backward: bool) -> int:
+    """Shared memory, in floats, of a K2 (K3 if ``backward``) block walking
+    passes of ``chunk`` steps at S stages: ``fwd_smem_floats`` and
+    ``bwd_smem_floats`` of csrc/fused_semilinear.cuh."""
+    row = (1 + 2 * D + 1 + 3) // 4 * 4
+    if not backward:
+        return H * row + 2 * D + 2 * chunk * D
+    coef = (2 * D + 1 + 3) // 4 * 4
+    warps = (max(chunk, 1) + 31) // 32
+    return H * row + chunk * S * coef + S * H * (chunk | 1) + 2 * chunk * D + 2 * D + warps * (H + 2 * D * H + 2 * D + H)
+
+
+def kernel_max_steps(H: int, D: int, method: str, backward: bool) -> int:
+    """The steps a pass of K2 (K3 if ``backward``) takes at (H, D) and
+    ``method``: at most 128, fewer where the pass's shared memory would pass
+    :data:`SMEM_LIMIT`; 0 where not one step fits (``fwd_max_steps`` and
+    ``bwd_max_steps`` of csrc/fused_semilinear.cuh)."""
+    S = len(get_tableau(method).c)
+    c = _MAX_STEPS
+    while c > 0 and 4 * _smem_floats(H, D, S, c, backward) > SMEM_LIMIT:
+        c -= 1
+    return c
+
+
+def library_max_steps(H: int, D: int, method: str, backward: bool) -> int:
+    """The steps a pass of K2 (K3 if ``backward``) takes as the library built
+    for (H, D) reports them (``fused_semilinear_{fwd,bwd}_max_steps``): what
+    :func:`kernel_max_steps` mirrors, asked of the kernels' own layout.
+    Builds the library (nvcc) where it is not built yet."""
+    name = "fused_semilinear_bwd" if backward else "fused_semilinear_fwd"
+    fn = _build.function(name, name + "_max_steps", [ctypes.c_int], (("SLODE_H", H), ("SLODE_D", D)))
+    return fn(_method_index(name, method))
+
+
+def kernels_take(method: str, H: int, D: int) -> bool:
+    """Whether K2 and K3 take ``method`` at widths (H, D)."""
+    return method in METHODS and all(kernel_max_steps(H, D, method, b) > 0 for b in (False, True))
+
+
+def _check_widths(name: str, H: int, D: int, method: str) -> None:
+    """Refuse, before any build, the widths at which not one step of K2 or
+    K3 fits in a block's shared memory."""
+    for backward, kernel in ((False, "K2"), (True, "K3")):
+        if kernel_max_steps(H, D, method, backward) < 1:
+            S = len(get_tableau(method).c)
+            need = 4 * _smem_floats(H, D, S, 1, backward)
+            raise ValueError(
+                f"{name}: (H, D) = ({H}, {D}) at {method}: one step of {kernel} needs {need} bytes of shared memory "
+                f"a block, past the card's limit of {SMEM_LIMIT} bytes (227 KB)")
+
+
+def _kernel_args(name: str, args, S: int, method: str):
     """The kernels' library defines and weight arguments: w_t (a column of
     the hidden layer's weight, passed with its stride and, for S members
     ``(S, H)``, its member stride), W_a, b_a, W_d, b_d. The kernels take the
-    time grid itself and compute the stage times from it."""
+    time grid itself and compute the stage times from it. Widths past the
+    kernels' shared memory raise here, before any build."""
     _build.check_cuda(name, *args)
     u, wt, wa, ba, wd, bd = args[:6]
+    _check_widths(name, u.shape[-1], wa.shape[-2], method)
     defines = (("SLODE_H", u.shape[-1]), ("SLODE_D", wa.shape[-2]))
     strides = (wt.stride(1), wt.stride(0)) if S else (wt.stride(0), 0)
     return defines, (wt, *strides, wa.contiguous(), ba.contiguous(), wd.contiguous(), bd.contiguous())
@@ -222,6 +289,13 @@ def _members_shapes(name: str, u, ts, wa, backward: bool):
     return ((S, B, H), (S, H), (S, D, H), (S, D), (S, D, H), (S, D)) + state + ((T,),)
 
 
+def _count(wrapper, method: str, H: int, D: int) -> None:
+    """One launch of ``wrapper``'s kernel: its count, and the count of its
+    (method, H, D) variant (a library and tableau)."""
+    wrapper.launches += 1
+    wrapper.variants[method, H, D] += 1
+
+
 # S = 0 below: one model, the arrays without a member axis (a launch of one
 # member); S > 0: S members, each array but ts with a leading member axis
 
@@ -230,7 +304,7 @@ def _fwd_launch(m: int, S: int, args) -> Tensor:
     """K2 over ``args``; returns the trajectories ``([S,] B, T, D)``."""
     u, wt, wa, ba, wd, bd, x0, ts = args
     B, T, D = u.shape[-2], ts.shape[0], wa.shape[-2]
-    defines, weights = _kernel_args("fused_semilinear_fwd", args, S)
+    defines, weights = _kernel_args("fused_semilinear_fwd", args, S, METHODS[m])
     out = torch.empty((S,) * bool(S) + (B, T, D), dtype=torch.float32, device=u.device)
     fn = _build.function("fused_semilinear_fwd", "fused_semilinear_fwd", _FWD_ARGTYPES, defines)
     _build.launch("fused_semilinear_fwd", fn, m, u.contiguous(), x0.contiguous(), ts.contiguous(),
@@ -251,11 +325,12 @@ def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
     if u.device.type == "cpu":
         return fused_semilinear_fwd_plain(*args, method)
     out = _fwd_launch(m, 0, args)
-    fused_semilinear_fwd.launches += 1
+    _count(fused_semilinear_fwd, method, u.shape[-1], wa.shape[-2])
     return out
 
 
 fused_semilinear_fwd.launches = 0
+fused_semilinear_fwd.variants = collections.Counter()
 
 
 def fused_semilinear_fwd_members(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
@@ -267,11 +342,12 @@ def fused_semilinear_fwd_members(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> 
     if u.device.type == "cpu":
         return fused_semilinear_fwd_members_plain(*args, method)
     out = _fwd_launch(m, u.shape[0], args)
-    fused_semilinear_fwd_members.launches += 1
+    _count(fused_semilinear_fwd_members, method, u.shape[-1], wa.shape[-2])
     return out
 
 
 fused_semilinear_fwd_members.launches = 0
+fused_semilinear_fwd_members.variants = collections.Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,7 +370,7 @@ def _bwd_launch(m: int, S: int, args):
     B, H = u.shape[-2:]
     T, D = ts.shape[0], wa.shape[-2]
     lead = (S,) * bool(S)
-    defines, weights = _kernel_args("fused_semilinear_bwd", args, S)
+    defines, weights = _kernel_args("fused_semilinear_bwd", args, S, METHODS[m])
     n_blocks = _bwd_blocks(defines, m, B, T, u.device.index) if B else 0
     fn = _build.function("fused_semilinear_bwd", "fused_semilinear_bwd", _BWD_ARGTYPES, defines)
     P = H + 2 * D * H + 2 * D
@@ -321,11 +397,12 @@ def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     if u.device.type == "cpu":
         return fused_semilinear_bwd_plain(*args, method)
     outs = _bwd_launch(m, 0, args)
-    fused_semilinear_bwd.launches += 1
+    _count(fused_semilinear_bwd, method, u.shape[-1], wa.shape[-2])
     return outs
 
 
 fused_semilinear_bwd.launches = 0
+fused_semilinear_bwd.variants = collections.Counter()
 
 
 def fused_semilinear_bwd_members(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
@@ -337,11 +414,12 @@ def fused_semilinear_bwd_members(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     if u.device.type == "cpu":
         return fused_semilinear_bwd_members_plain(*args, method)
     outs = _bwd_launch(m, u.shape[0], args)
-    fused_semilinear_bwd_members.launches += 1
+    _count(fused_semilinear_bwd_members, method, u.shape[-1], wa.shape[-2])
     return outs
 
 
 fused_semilinear_bwd_members.launches = 0
+fused_semilinear_bwd_members.variants = collections.Counter()
 
 
 def _vmap_members(info, in_dims, args):

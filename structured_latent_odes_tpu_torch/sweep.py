@@ -30,8 +30,8 @@ it), and the notebook headline metric (eval/metrics.py) is computed; a
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
 ``--ensemble-parallel`` and ``--ensemble-data-parallel`` above 1 (A17),
-``--reference-data-dir`` (A8-rest), and the ODE backends the port lacks (A14,
-A17, A19).
+``--reference-data-dir`` (A8-rest), and the ODE backend
+``semilinear_timepar`` (A17).
 """
 
 from __future__ import annotations
@@ -544,6 +544,8 @@ def parse_args(argv=None):
     p.add_argument("--heldout", default=None, help="proc zero-shot device")
     p.add_argument("--num-samples", type=int, default=None)
     p.add_argument("--ode-backend", default=None)
+    p.add_argument("--ode-rtol", type=float, default=None, help="the adaptive backends' relative tolerance")
+    p.add_argument("--ode-atol", type=float, default=None, help="the adaptive backends' absolute tolerance")
     p.add_argument("--data-path", default=None)
     p.add_argument("--reference-data-dir", default=None,
                    help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")

@@ -7,7 +7,9 @@ and batch loops are Python loops, as in the sequential driver, and the member
 axis is ``torch.func.vmap`` inside each dual step
 (``svi.make_stacked_dual_step``): every operation of a step, the kernels K1-K3
 included, runs once for all S members, so S members cost one step's device
-operations at S times the width. Parameters and Adam slots are stacked along
+operations at S times the width. On the adaptive ODE backends the members
+go one at a time instead (``svi.over_members``), in the dual step, the
+prior refit and the evaluation alike. Parameters and Adam slots are stacked along
 a leading member axis; the Adam step counts stay Python ints, shared, since
 members step in lockstep (for ``shared`` and for ``split``).
 
@@ -58,6 +60,7 @@ from structured_latent_odes_tpu_torch.train.svi import (
     eval_seeds,
     make_dual_optimizer,
     make_stacked_dual_step,
+    over_members,
     shared_adam_init,
     shared_adam_update,
     stacked_step_seeds,
@@ -216,11 +219,11 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float):
 
     def update(params, slots, seeds: Tensor, batch, dims, noise=None):
         """One refit step of the stacked members: the main-ELBO gradient of
-        each (``torch.func.vmap``; ``dims`` as for the dual step, ``noise``
+        each (:func:`over_members`; ``dims`` as for the dual step, ``noise``
         None or member-stacked ``noise=`` draws), then Adam on the priors
         alone."""
         prior_only = {g: tree_map(lambda _: g == "priors", params[g]) for g in params}
-        grads = torch.func.vmap(grad, in_dims=(0, 0, dims, None if noise is None else 0))(params, seeds, batch, noise)
+        grads = over_members(spec, grad, (0, 0, dims, None if noise is None else 0))(params, seeds, batch, noise)
         return shared_adam_update(grads, slots, params, prior_only, lr)
 
     def refit(best_params, seeds, train_split, refit_perms, mask, shared_data: bool = True):
@@ -329,7 +332,7 @@ def make_ensemble_runner(
         lm_sum = la_sum = None
         for i in range(val_stack["mask"].shape[0 if shared_data else 1]):
             batch = {k: v[i] if shared_data else v[:, i] for k, v in val_stack.items()}
-            lm, la = torch.func.vmap(evaluate, in_dims=(0, 0, dims))(params, seeds, batch)
+            lm, la = over_members(spec, evaluate, (0, 0, dims))(params, seeds, batch)
             lm_sum, la_sum = (lm, la) if lm_sum is None else (lm_sum + lm, la_sum + la)
         return lm_sum, la_sum
 

@@ -38,6 +38,7 @@ import torch
 
 from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_main, param_masks, recon
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
+from structured_latent_odes_tpu_torch.nn.ode_model import solve_is_per_member
 from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -262,6 +263,30 @@ def stacked_step_seeds(seeds, steps, num_particles: int = 1, device=None) -> Ten
     return seed_tensor(rows, device).reshape(len(steps), len(seeds), 2, num_particles)
 
 
+def over_members(spec: ModelSpec, fn, in_dims):
+    """``fn`` mapped over S stacked members, ``in_dims`` as for
+    ``torch.func.vmap`` (0 for a leading member axis, None for a shared
+    value, a dict of them for a dict argument): one ``torch.func.vmap``, or,
+    where the spec's ODE solve runs one member at a time
+    (:func:`~structured_latent_odes_tpu_torch.nn.ode_model.solve_is_per_member`),
+    ``fn`` on each member's slices with the results stacked, so that each
+    member is the computation it would be on its own."""
+    if not solve_is_per_member(spec.decoder.ode):
+        return torch.func.vmap(fn, in_dims=in_dims)
+
+    def member(arg, dim, m: int):
+        if isinstance(dim, dict):
+            return {k: member(v, dim[k], m) for k, v in arg.items()}
+        return arg if dim is None else tree_map(lambda t: t.select(dim, m), arg)
+
+    def looped(*args):
+        S = next(tree_leaves(a)[0].shape[d] for a, d in zip(args, in_dims) if isinstance(d, int))
+        outs = [fn(*(member(a, d, m) for a, d in zip(args, in_dims))) for m in range(S)]
+        return tree_map(lambda *xs: torch.stack(xs), *outs)
+
+    return looped
+
+
 def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1):
     """The dual step of S stacked members (the JAX ensemble's vmapped
     ``make_dual_step``): ``step(state, batch, batch_dims, seeds) -> (state,
@@ -274,21 +299,22 @@ def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, nu
     :func:`stacked_step_seeds`.
 
     Both gradients are ``torch.func.vmap`` of ``torch.func.grad_and_value``
-    over the members, so every operation, the kernels K1-K3 included, runs
-    once for all members: the step's count of device operations does not
-    grow with S. Member s's result equals :func:`make_dual_step` on member
-    s's slices to float32 roundoff (batched and single matrix products may
-    round differently)."""
+    over the members (:func:`over_members`), so every operation, the kernels
+    K1-K3 included, runs once for all members: the step's count of device
+    operations does not grow with S. Member s's result equals
+    :func:`make_dual_step` on member s's slices to float32 roundoff (batched
+    and single matrix products may round differently). On the adaptive ODE
+    backends the members go one at a time, and each equals its sequential
+    dual step."""
     main_loss, aux_loss = make_losses(spec, ts, num_particles)
     grad_main = torch.func.grad_and_value(main_loss, has_aux=True)
     grad_aux = torch.func.grad_and_value(aux_loss)
 
     def step(state: SVIState, batch, batch_dims, seeds: Tensor):
         sc = batch.get("lr_scale", 1.0)
-        grads, (loss_m, mets) = torch.func.vmap(grad_main, in_dims=(0, 0, batch_dims))(
-            state.params, seeds[:, 0], batch)
+        grads, (loss_m, mets) = over_members(spec, grad_main, (0, 0, batch_dims))(state.params, seeds[:, 0], batch)
         params, opt = optim.update_main(grads, state.opt, state.params, sc)
-        grads_a, loss_a = torch.func.vmap(grad_aux, in_dims=(0, 0, batch_dims))(params, seeds[:, 1], batch)
+        grads_a, loss_a = over_members(spec, grad_aux, (0, 0, batch_dims))(params, seeds[:, 1], batch)
         params, opt = optim.update_aux(grads_a, opt, params, sc)
         n = torch.clamp(torch.sum(batch["mask"], dim=-1), min=1.0)
         metrics = {"loss_main": loss_m / n, "loss_aux": loss_a / n, "l1": mets["l1"]}

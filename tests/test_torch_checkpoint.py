@@ -19,6 +19,7 @@ from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.train import checkpoint as port_ckpt
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(params=["Mechanistic", "MechanisticGauss"])

@@ -23,6 +23,7 @@ from structured_latent_odes_tpu_torch.data import loader as port_loader
 from structured_latent_odes_tpu_torch.data import transforms as port_tf
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.training_cvs import build_splits
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 STATE_TOL = 1e-5
 

@@ -14,6 +14,7 @@ import torch
 
 from structured_latent_odes_tpu import prob as jprob
 from structured_latent_odes_tpu_torch import prob
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 

@@ -11,9 +11,9 @@ params within 3e-7 abs (tests/test_torch_svi.py's bound after a step).
 
 Held against the port itself:
 - a stacked dual step of S = 3 members equals three single dual steps on
-  ``semilinear``, ``semilinear_fused``, ``semilinear_seq`` and with ``split``,
-  params within 1e-6 relative to their leaf (batched and single products
-  round differently);
+  ``semilinear``, ``semilinear_fused``, ``semilinear_seq``, ``adjoint`` and
+  with ``split``, and two members one on ``adaptive``, params within 1e-6
+  relative to their leaf (batched and single products round differently);
 - a two-member run equals the port's sequential driver at each seed for the
   four policies: params and best params within rtol 2e-4, atol 1e-6, best
   epoch equal and criterion within rtol 2e-4 (tests/test_ensemble.py's
@@ -62,6 +62,7 @@ from structured_latent_odes_tpu_torch.train import svi
 from structured_latent_odes_tpu_torch.train.backend import make_training_backend
 from structured_latent_odes_tpu_torch.train.driver import device_batch, run_training_epochs
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 T = 16
 N_TRAIN, N_VAL, BS = 10, 6, 4
@@ -229,13 +230,16 @@ def _members(spec, S):
     return [init_params(spec, fold_seed(s, "init"), device="cpu") for s in range(S)]
 
 
-@pytest.mark.parametrize("case", ["semilinear", "semilinear_fused", "semilinear_seq", "split"])
+# The adaptive backend's stacked step takes its members one at a time
+# (train/svi.py::over_members): two members and one step (each
+# member's adjoint solves take seconds on the CPU), held as the others.
+@pytest.mark.parametrize("case", ["semilinear", "semilinear_fused", "semilinear_seq", "split", "adjoint", "adaptive"])
 def test_stacked_step_matches_single_steps(case):
     backend = "semilinear" if case == "split" else case
     config = _config(1, backend=backend)
     spec = cvs_spec(config, n_time=T)
     ts = torch.arange(float(T))
-    S = 3
+    S, n_steps = (2, 1) if case == "adaptive" else (3, 2)
     params = _members(spec, S)
     optimizer = "split" if case == "split" else "shared"
     init_state, step, _ = svi.make_train_step(spec, ts, LR, params[0], optimizer=optimizer)
@@ -246,9 +250,9 @@ def test_stacked_step_matches_single_steps(case):
     splits = _splits()
     perms = np.stack([ens.build_epoch_perms(N_TRAIN, BS, 0, np.random.RandomState(s))[0][0] for s in range(S)])
     mask = torch.from_numpy(ens.build_epoch_perms(N_TRAIN, BS, 0, np.random.RandomState(0))[1])
-    seeds = svi.stacked_step_seeds(stacked.seed, range(2))
+    seeds = svi.stacked_step_seeds(stacked.seed, range(n_steps))
     dims = {"observations": 0, "iext": 0, "rtpr": 0, "sample_id": 0, "mask": None}
-    for i in range(2):
+    for i in range(n_steps):
         batch = {k: torch.from_numpy(v[perms[:, i]]) for k, v in splits["train"].items()}
         batch.update(sample_id=torch.from_numpy(perms[:, i]), mask=mask[i])
         stacked, mets = sstep(stacked, batch, dims, seeds[i])
@@ -258,7 +262,7 @@ def test_stacked_step_matches_single_steps(case):
     for s in range(S):
         for a, b in zip(tree_leaves(stacked.params), tree_leaves(singles[s].params)):
             assert float((a[s] - b).abs().max()) <= 1e-6 * max(float(b.abs().max()), 1.0)
-    assert stacked.step == 2 and stacked.seed == [10, 11, 12]
+    assert stacked.step == n_steps and stacked.seed == [10 + s for s in range(S)]
 
 
 @pytest.mark.parametrize("policy", ["cvs", "cvs-schedules", "proc", "proc_heldout", "challenge"])

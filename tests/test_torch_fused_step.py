@@ -1,7 +1,10 @@
 """K2 and K3 (ops/fused_step.py) in the PyTorch port: their plain versions,
 which the wrappers take for CPU tensors, against the JAX package's fused
 whole-solve Pallas kernels and their custom VJP (interpret mode off-TPU), for
-every method they support, on a uniform and on a non-uniform time grid.
+every method they take (dopri5 at a fixed step included), on a uniform and on
+a non-uniform time grid, and at widths past one warp's lanes ((H, D) =
+(40, 17), which JAX pads to (40, 24)); and the one width limit the kernels
+keep, a block's shared memory, refused before any build.
 
 Tolerance 1e-5, as the JAX package's own fused-vs-sequential test: the
 stage heads' sums and the sigmoids round differently in the two packages.
@@ -18,6 +21,7 @@ from structured_latent_odes_tpu.ops.fused_step import fused_semilinear_solve
 from structured_latent_odes_tpu_torch.interop import params_from_jax
 from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state as port_initialize_state
 from structured_latent_odes_tpu_torch.ops import fused_step as port
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 L, D, H = 15, 5, 25
 B, T = 13, 21
@@ -43,7 +47,7 @@ def _setup():
 
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
-@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4", "dopri5"])
 def test_fused_plain_matches_jax_kernel(method, grid):
     params, z, x0 = _setup()
     ts = GRIDS[grid]
@@ -54,11 +58,12 @@ def test_fused_plain_matches_jax_kernel(method, grid):
     np.testing.assert_allclose(out, ref, rtol=0, atol=TOL)
 
 
-def test_fused_rejects_unsupported_method():
-    params, z, x0 = _setup()
-    p_port = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
-    with pytest.raises(ValueError, match="supports"):
-        port.fused_semilinear_solve(p_port, torch.from_numpy(z), torch.from_numpy(x0), GRIDS["uniform"], "dopri5")
+def test_fused_methods_are_every_tableau():
+    """The kernels' METHODS (the Method enum of csrc/fused_semilinear.cuh)
+    cover every tableau the JAX package's fused solve takes."""
+    from structured_latent_odes_tpu.ode.tableaus import TABLEAUS
+
+    assert set(port.METHODS) == set(TABLEAUS)
 
 
 def _leaves(tree, prefix=""):
@@ -111,7 +116,7 @@ def _assert_grads_close(got, ref, what):
 
 
 @pytest.mark.parametrize("grid", sorted(GRIDS))
-@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4"])
+@pytest.mark.parametrize("method", ["euler", "midpoint", "heun", "rk4", "dopri5"])
 def test_fused_gradients_match_jax(method, grid):
     """K3's plain sweep, reached through the autograd.Function of
     fused_semilinear_solve, against jax.grad of the JAX package's fused solve
@@ -135,6 +140,45 @@ def test_fused_gradients_padding_edges():
     w = np.random.RandomState(5).uniform(-1, 1, (130, 2, D)).astype(np.float32)
     ref = _jax_grads(params, z, ts, w, "midpoint")
     _assert_grads_close(_port_grads(params, z, ts, w, "midpoint", port.fused_semilinear_solve), ref, "K3 plain")
+
+
+@pytest.mark.parametrize("method", ["midpoint", "dopri5"])
+def test_fused_wide_widths_match_jax(method):
+    """(H, D) = (40, 17): past one warp's lanes in both widths (the kernels'
+    lanes stride over hidden units and state components), values and
+    gradients against the JAX fused solve, which pads to (40, 24)."""
+    L_w, H_w, D_w = 6, 40, 17
+    spec = OdeModelSpec(latent_dim=L_w, ode_state_dim=D_w, ode_hidden_dim=H_w)
+    params = ode_model_init(jax.random.key(5), spec)
+    z = np.random.RandomState(6).randn(7, L_w).astype(np.float32)
+    ts = GRIDS["nonuniform"][:9]
+    x0 = np.asarray(initialize_state(params, jnp.asarray(z)))
+    ref = np.asarray(fused_semilinear_solve(params, jnp.asarray(z), jnp.asarray(x0), ts, method=method))
+    p_port = params_from_jax(jax.tree.map(np.asarray, params), device="cpu")
+    out = port.fused_semilinear_solve(p_port, torch.from_numpy(z), torch.from_numpy(x0), ts, method).numpy()
+    assert out.shape == ref.shape == (7, 9, D_w)
+    np.testing.assert_allclose(out, ref, rtol=0, atol=TOL)
+    w = np.random.RandomState(7).uniform(-1, 1, (7, 9, D_w)).astype(np.float32)
+    _assert_grads_close(_port_grads(params, z, ts, w, method, port.fused_semilinear_solve),
+                        _jax_grads(params, z, ts, w, method), "K3 plain, wide")
+
+
+@pytest.mark.parametrize("method", ["euler", "midpoint", "rk4", "dopri5"])
+def test_fused_width_limit_is_shared_memory(method):
+    """The kernels' one hard limit: a block's shared memory (227 KB on an
+    H100). Every method takes (128, 32), in passes shorter than 128 steps
+    where needed (the pass lengths of csrc/fused_semilinear.cuh's
+    fwd_max_steps / bwd_max_steps); (512, 64) is refused with a ValueError
+    that names the limit, before any build."""
+    assert port.kernels_take(method, 128, 32) and port.kernels_take(method, 25, 8)
+    assert port.kernel_max_steps(25, 8, method, backward=True) == 128  # the repo's widths: one pass of 128
+    steps = {"euler": 91, "midpoint": 64, "rk4": 37, "dopri5": 27}[method]
+    assert port.kernel_max_steps(128, 32, method, backward=True) == steps
+    assert port.kernel_max_steps(128, 32, method, backward=False) == 128
+    assert not port.kernels_take(method, 512, 64)
+    with pytest.raises(ValueError, match="232448 bytes"):
+        port._check_widths("fused_semilinear_fwd", 512, 64, method)
+    port._check_widths("fused_semilinear_fwd", 128, 32, method)
 
 
 def test_fused_plain_layout_is_time_major():

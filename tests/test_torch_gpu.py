@@ -25,7 +25,7 @@ import torch
 
 from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_config
 from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec, recon
-from structured_latent_odes_tpu_torch.nn.ode_model import initialize_state
+from structured_latent_odes_tpu_torch.nn.ode_model import OdeModelSpec, initialize_state, ode_model_init
 from structured_latent_odes_tpu_torch.ops import fused_step, recurrence
 
 pytestmark = pytest.mark.gpu
@@ -338,7 +338,7 @@ def _members_args(cuda, S, B, T, dataset):
 # single-member launch on its slices, weight gradients included, and within
 # the K2/K3 tolerances of the plain versions.
 @pytest.mark.parametrize("case", [("cvs", 10, 128, 86), ("proc", 5, 36, 100)], ids=["cvs-S10", "proc-S5"])
-@pytest.mark.parametrize("method", ["midpoint", "rk4"])
+@pytest.mark.parametrize("method", ["midpoint", "rk4", "dopri5"])
 def test_member_batched_fused_kernels(cuda, case, method):
     dataset, S, B, T = case
     args = _members_args(cuda, S, B, T, dataset)
@@ -358,3 +358,127 @@ def test_member_batched_fused_kernels(cuda, case, method):
         torch.testing.assert_close(xs[s], fused_step.fused_semilinear_fwd_plain(*one, method), rtol=1e-5, atol=1e-5)
         _assert_bwd_close([o[s] for o in outs],
                           fused_step.fused_semilinear_bwd_plain(*one[:6], xs[s], g[s], args[7], method))
+
+
+def _wide_args(cuda, H, D, B, T, L=15):
+    """K2's arguments at any widths: the port's ODE init at (L, D, H), a
+    non-uniform grid of T times."""
+    spec = OdeModelSpec(latent_dim=L, ode_state_dim=D, ode_hidden_dim=H)
+    ode = {k: v for k, v in ode_model_init(torch.Generator().manual_seed(H + D), spec).items()}
+    ode = torch.utils._pytree.tree_map(lambda t: t.to(cuda), ode)
+    z = torch.randn((B, L), generator=torch.Generator().manual_seed(B)).to(cuda)
+    ts = torch.tensor(np.cumsum(np.abs(np.random.RandomState(0).randn(T)) * 0.2 + 0.05), dtype=torch.float32,
+                      device=cuda)
+    W = ode["dyn_hidden"]["W"]
+    u = torch.nn.functional.linear(z, W[:, 1:], ode["dyn_hidden"]["b"])
+    return (u, W[:, 0], ode["prod"]["W"], ode["prod"]["b"], ode["degr"]["W"], ode["degr"]["b"],
+            initialize_state(ode, z), ts)
+
+
+# Widths past one warp's lanes (ROADMAP C2): (40, 17) and (128, 32), where
+# lanes stride over hidden units and state components, a thread owns several
+# components' scans, and K3's passes shorten to fit shared memory (at
+# (128, 32): 64 steps at midpoint, 27 at dopri5, so T = 200 takes several
+# passes); B = 3 and 130, T = 2 (one step), 86 and 200.
+@pytest.mark.parametrize("T", [2, 86, 200])
+@pytest.mark.parametrize("B", [3, 130])
+@pytest.mark.parametrize("width", [(40, 17), (128, 32)], ids=["H40-D17", "H128-D32"])
+@pytest.mark.parametrize("method", ["midpoint", "dopri5"])
+def test_fused_kernels_wide_widths(cuda, method, width, B, T):
+    args = _wide_args(cuda, *width, B, T)
+    xs = fused_step.fused_semilinear_fwd(*args, method)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(xs, fused_step.fused_semilinear_fwd_plain(*args, method), rtol=1e-5, atol=1e-5)
+    g = torch.randn(xs.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    bargs = (*args[:6], xs, g, args[7])
+    outs = fused_step.fused_semilinear_bwd(*bargs, method)
+    torch.cuda.synchronize()
+    _assert_bwd_close(outs, fused_step.fused_semilinear_bwd_plain(*bargs, method))
+
+
+@pytest.mark.parametrize("width", [(25, 5), (25, 8), (40, 17), (128, 32)], ids=["cvs", "proc", "H40-D17", "H128-D32"])
+def test_fused_kernel_max_steps_mirror_the_libraries(cuda, width):
+    """The wrappers' mirror of K2's and K3's shared-memory layout
+    (kernel_max_steps, which refuses widths before any build) agrees with
+    the steps a pass each built library reports, at every method."""
+    for method in fused_step.METHODS:
+        for backward in (False, True):
+            assert fused_step.library_max_steps(*width, method, backward) == \
+                fused_step.kernel_max_steps(*width, method, backward), (method, backward)
+
+
+def test_fused_kernels_refuse_past_shared_memory(cuda):
+    """(H, D) = (512, 64): not one step of K2 fits in a block's 227 KB; the
+    wrapper raises a ValueError naming the limit, before nvcc runs."""
+    args = _wide_args(cuda, 512, 64, 2, 5)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_step.fused_semilinear_fwd(*args, "midpoint")
+
+
+def test_semilinear_auto_launches_the_path_it_picks(cuda):
+    """semilinear_auto on the card at CVS's widths takes the fused path (the
+    H100's crossover, nn/ode_model.py): one K2 launch forward, one K3
+    backward, no K1; its result within 1e-5 + 1e-5 * |x| of semilinear's."""
+    from structured_latent_odes_tpu_torch.nn.ode_model import auto_picks_fused, solve_ode
+
+    spec = OdeModelSpec(latent_dim=15, ode_state_dim=5, ode_hidden_dim=25, backend="semilinear_auto")
+    ode = torch.utils._pytree.tree_map(lambda t: t.to(cuda).requires_grad_(),
+                                       ode_model_init(torch.Generator().manual_seed(0), spec))
+    z = torch.randn((128, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
+    ts = torch.arange(86.0, device=cuda)
+    assert auto_picks_fused(spec, z)
+    counts = (fused_step.fused_semilinear_fwd.launches, fused_step.fused_semilinear_bwd.launches,
+              recurrence.affine_scan_fwd.launches)
+    out = solve_ode(spec, ode, z, ts)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (fused_step.fused_semilinear_fwd.launches, fused_step.fused_semilinear_bwd.launches,
+            recurrence.affine_scan_fwd.launches) == (counts[0] + 1, counts[1] + 1, counts[2])
+    ref = solve_ode(OdeModelSpec(15, 5, 25, backend="semilinear"), ode, z, ts)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("per_row", [False, True], ids=["batchwide", "per_sample"])
+def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
+    """The adaptive solvers on the card replay a CUDA graph of a loop trip
+    from the third trip on (ode/solvers.py::_Trip): the same operations as
+    the trips run eagerly, so the solve, its trip count and its accepted
+    steps are bit for bit those of an eager solve; and so are the adaptive
+    adjoint's gradients (the augmented system's trips, each stage a
+    vector-Jacobian product, replayed)."""
+    from structured_latent_odes_tpu_torch.nn import ode_model
+    from structured_latent_odes_tpu_torch.ode import solvers
+
+    spec = OdeModelSpec(latent_dim=15, ode_state_dim=5, ode_hidden_dim=25,
+                        backend="adaptive_per_sample" if per_row else "adaptive")
+    ode = torch.utils._pytree.tree_map(lambda t: t.to(cuda), ode_model_init(torch.Generator().manual_seed(0), spec))
+    z = torch.randn((16, 15), generator=torch.Generator().manual_seed(1)).to(cuda)
+    ts = torch.arange(12.0, device=cuda)
+
+    def run(graphs: bool):
+        warm = solvers._Trip.__init__
+
+        def init(self, trip, device):
+            warm(self, trip, device)
+            if not graphs:
+                self.warm = None
+
+        solvers._Trip.__init__ = init
+        try:
+            counter = solvers.odeint_adaptive_per_sample.trips if per_row else solvers.odeint_adaptive.trips
+            before = dict(counter)
+            leaves = [t.detach().requires_grad_() for t in torch.utils._pytree.tree_leaves(ode)]
+            params = torch.utils._pytree.tree_unflatten(leaves, torch.utils._pytree.tree_structure(ode))
+            out = ode_model.solve_ode(spec, params, z, ts)
+            grads = torch.autograd.grad(out.square().sum(), leaves)
+            torch.cuda.synchronize()
+            return out.detach(), grads, {k: counter[k] - before.get(k, 0) for k in ("trips", "accepted")}
+        finally:
+            solvers._Trip.__init__ = warm
+
+    out, grads, trips = run(True)
+    ref, ref_grads, ref_trips = run(False)
+    assert trips == ref_trips and trips["trips"] > 3
+    assert torch.equal(out, ref)
+    for g, r in zip(grads, ref_grads):
+        assert torch.equal(g, r)

@@ -2,7 +2,8 @@
 imports, loads ``jax``, ``optax``, ``pandas``, ``matplotlib`` or any module
 of the JAX package. Run in a subprocess with those blocked, so an import of
 any fails loudly; every module of the port is walked, the training slice's,
-the proc and challenge workloads' and the sweep's included."""
+the proc and challenge workloads', the sweep's and the generic, adjoint and
+adaptive solvers' included."""
 
 import os
 import subprocess
@@ -42,9 +43,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 47  # every module of the port was imported
+    assert len(walked) >= 49  # every module of the port was imported
     training = {"prob.elbo", "train.svi", "train.driver", "train.backend", "train.artifacts",
                 "train.metrics", "utils.rng", "utils.device", "training_cvs", "data.proc",
                 "data.challenge", "training_proc", "training_challenge", "train.ensemble", "sweep",
-                "eval", "eval.metrics", "eval.__main__"}
+                "eval", "eval.metrics", "eval.__main__", "ode.solvers", "ode.adjoint"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked

@@ -18,6 +18,7 @@ from structured_latent_odes_tpu_torch.nn import decoders as port_dec
 from structured_latent_odes_tpu_torch.nn import init as port_init
 from structured_latent_odes_tpu_torch.nn import layers as port_layers
 from structured_latent_odes_tpu_torch.nn.ode_model import OdeModelSpec as PortOdeSpec
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

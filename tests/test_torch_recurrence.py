@@ -17,6 +17,7 @@ import torch
 from structured_latent_odes_tpu.ode import solve_affine_recurrence
 from structured_latent_odes_tpu.ops.recurrence import affine_scan_pallas, affine_scan_pallas_tm
 from structured_latent_odes_tpu_torch.ops import recurrence as port
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 

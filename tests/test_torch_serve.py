@@ -23,6 +23,7 @@ from structured_latent_odes_tpu.train import checkpoint as jax_ckpt
 from structured_latent_odes_tpu_torch import serve
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.interop import params_to_jax
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 

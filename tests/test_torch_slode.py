@@ -31,6 +31,7 @@ from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.interop import params_from_jax
 from structured_latent_odes_tpu_torch.models import classifier, cvs_spec, recon
 from structured_latent_odes_tpu_torch.prob import sample_normal_ps, standard_normal_ps
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 RTOL = 1e-6

@@ -79,6 +79,7 @@ from structured_latent_odes_tpu_torch.train import svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
 from structured_latent_odes_tpu_torch.train.svi import value_and_grad
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 LOSS_RTOL = 2e-6
 L1_RTOL = 1e-5

@@ -39,6 +39,7 @@ from structured_latent_odes_tpu_torch.models import cvs_spec, param_masks
 from structured_latent_odes_tpu_torch.train import svi
 from structured_latent_odes_tpu_torch.train.driver import _stats_from_fused, device_batch, eval_split
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 T = 16
 LR = 1e-3

@@ -28,11 +28,13 @@ import torch
 from structured_latent_odes_tpu import sweep as jsweep
 from structured_latent_odes_tpu.eval import __main__ as jeval_cli
 from structured_latent_odes_tpu.eval import metrics as jmetrics
-from structured_latent_odes_tpu_torch import sweep
+from structured_latent_odes_tpu_torch import sweep, training_cvs
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.eval import __main__ as eval_cli
 from structured_latent_odes_tpu_torch.eval import metrics
 from structured_latent_odes_tpu_torch.utils.device import full_fp32
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 K, T, N, DRAWS = 3, 10, 12, 4
 
@@ -345,9 +347,27 @@ def test_sweep_cli_challenge_without_data_seed_averages_nothing(tmp_path):
     (["--ensemble-parallel", "2"], "A17"),
     (["--ensemble-data-parallel", "2"], "A17"),
     (["--reference-data-dir", "ref"], "A8-rest"),
-    (["--ode-backend", "adjoint"], "A14"),
-    (["--ode-backend", "semilinear_auto"], "A19"),
-], ids=["ensemble-parallel", "ensemble-data-parallel", "reference-data", "adjoint", "semilinear_auto"])
+    (["--ode-backend", "semilinear_timepar"], "A17"),
+], ids=["ensemble-parallel", "ensemble-data-parallel", "reference-data", "semilinear_timepar"])
 def test_unported_sweep_options_raise(tmp_path, argv, item):
     with pytest.raises(NotImplementedError, match=item):
         sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--results-root", str(tmp_path)] + argv)
+
+
+@pytest.mark.parametrize("backend", ["adjoint", "semilinear_auto"])
+def test_sweep_ode_backends_match_sequential(cvs_data, tmp_path, backend):
+    """A two-member CVS sweep on the adjoint and semilinear_auto backends,
+    each member against the port's sequential CLI run of its seed: final
+    and best params within rtol 2e-4, atol 1e-6, best epoch equal, criterion
+    within rtol 2e-4 (tests/test_ensemble.py's bounds)."""
+    common = ["--num-epochs", "1", "--mini-batch-size", "16", "--data-path", cvs_data, "--ode-backend", backend,
+              "--device", "cpu"]
+    run = sweep.run(sweep.parse_args(["cvs", "--seeds", "3,4", "--results-root", str(tmp_path / "sweep")] + common))
+    for i, seed in enumerate((3, 4)):
+        out = training_cvs.main(["--seed", str(seed), "--no-plot", "--no-eval-train",
+                                 "--results-root", str(tmp_path / f"seq{seed}")] + common)
+        for tree, ref in ((run.result.state.params, out["state"].params), (run.result.best_params, out["best"]["params"])):
+            for a, b in zip(tree_leaves(tree), tree_leaves(ref)):
+                np.testing.assert_allclose(a[i].numpy(), b.numpy(), rtol=2e-4, atol=1e-6)
+        assert int(run.result.best_epoch[i]) == int(out["best"]["epoch"])
+        np.testing.assert_allclose(run.result.best_crit[i], out["best"]["criterion"], rtol=2e-4)

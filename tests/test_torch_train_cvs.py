@@ -17,6 +17,7 @@ from structured_latent_odes_tpu_torch import serve as port_serve
 from structured_latent_odes_tpu_torch import training_cvs
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.interop import params_to_jax
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 # the artifact files of tests/test_e2e_cvs.py, plus the rest of the contract
 ARTIFACTS = (

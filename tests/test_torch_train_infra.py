@@ -25,6 +25,7 @@ from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint, driver, metrics, svi
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 
 def test_metrics_match_jax():

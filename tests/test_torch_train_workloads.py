@@ -23,6 +23,7 @@ from structured_latent_odes_tpu_torch import training_challenge, training_proc
 from structured_latent_odes_tpu_torch.data.configs import LOADERS
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
 ARGS = ["--num-epochs", "1", "--no-plot", "--no-eval-train", "--num-samples", "2", "--device", "cpu"]
 DRIVERS = {"proc": training_proc, "challenge": training_challenge}
@@ -156,8 +157,8 @@ UNPORTED = [
     (ARGS + ["--data-parallel", "2"], "A17"),
     (ARGS + ["--time-parallel", "2"], "A17"),
     (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
-    (ARGS + ["--ode-backend", "generic"], "A14"),
-    (ARGS + ["--ode-backend", "semilinear_auto"], "A19"),
+    (ARGS + ["--ode-backend", "generic"], None),  # ported: runs (tests/test_torch_ode_model.py holds its numbers)
+    (ARGS + ["--ode-backend", "semilinear_auto"], None),  # ported: runs
 ]
 UNPORTED_IDS = ["plot", "checkpoint-every", "resume", "profile-dir", "data-parallel", "time-parallel",
                 "prior-refit", "generic", "semilinear_auto"]
