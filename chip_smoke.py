@@ -99,6 +99,26 @@ Phases, each fatal on any fault:
    launches exactly its path's kernels. Last, two-member CVS sweeps on
    adjoint and on adaptive (cut to one epoch of 40 trajectories), members
    0 and 1 held to their sequential runs as in phase 7.
+9. the rest of the training surface. Batch-exact resume at full width:
+   training_cvs.main on semilinear_fused (K2, K3) and on semilinear (K1,
+   K1-bwd) and training_proc.main on semilinear_fused, each once over
+   epochs 0-2 with --checkpoint-every 1 and once over epochs 0-1 followed
+   by --resume to epoch 2; every leaf of train_state.npz and best_model.npz
+   and every .npy artifact bit for bit equal, and each run launching its
+   backend's forward and backward kernels and no other. The profiler trace
+   of a CVS run on semilinear_fused (--profile-dir): the file parses and its
+   device events name K2's and K3's kernels. The native host library: where
+   g++ is on PATH it must build; its parse of the six proc files equals the
+   csv parse element for element (host time of both printed) and its pack
+   equals the numpy gather at proc's training split. The reference's CVS
+   pickles written from the generated data: build_splits from them equals
+   the cvs.npz splits, and one epoch trained from each is bit for bit the
+   same. 2^20 draws of each of the samplers (Laplace, Bernoulli, one-hot
+   categorical) on the card within 5 standard errors of their means and
+   variances, the uniform words bit for bit the CPU's. Plotting: without
+   matplotlib or scikit-learn a CVS run with plots on must raise naming the
+   package and --no-plot before its first launch; with both, one epoch's
+   plots are drawn. The phase prints its wall time.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
@@ -1757,6 +1777,238 @@ def phase_menu_sweeps(device, workdir: str, rehearse: bool, smi: str, paths: dic
               f"and its sequential runs ({smi})", flush=True)
 
 
+# phase 9: resume runs (workload, backend), each held bit for bit to its
+# uninterrupted run; the samplers' draws on the card
+RESUME_RUNS = (("cvs", "semilinear_fused"), ("cvs", "semilinear"), ("proc", "semilinear_fused"))
+SAMPLER_DRAWS = 1 << 20
+DRIVERS = {"cvs": training_cvs, "proc": training_proc}
+
+
+def _leaves(rd: str) -> dict:
+    """A results directory's arrays by name: every leaf of train_state.npz
+    and best_model.npz, and every .npy artifact."""
+    out = {}
+    for npz in ("train_state.npz", "best_model.npz"):
+        path = os.path.join(rd, npz)
+        if os.path.exists(path):
+            with np.load(path) as z, open(path + ".json") as f:
+                out.update({f"{npz}:{p}": z[f"leaf_{i}"] for i, p in enumerate(json.load(f)["paths"])})
+    for name in sorted(os.listdir(rd)):
+        if name.endswith(".npy"):
+            out[name] = np.load(os.path.join(rd, name))
+    return out
+
+
+def _bit_equal(a: str, b: str, what: str) -> int:
+    """Every array of results directory ``b`` bit for bit ``a``'s (NaNs in
+    equal places); returns the number compared."""
+    la, lb = _leaves(a), _leaves(b)
+    check(sorted(la) == sorted(lb), f"{what}: the arrays differ in name: {sorted(set(la) ^ set(lb))}")
+    differ = []
+    for name, x in la.items():
+        y = lb[name]
+        if x.shape != y.shape or x.dtype != y.dtype or not np.array_equal(x, y, equal_nan=x.dtype.kind == "f"):
+            err = float(np.abs(x.astype(np.float64) - y.astype(np.float64)).max()) if x.shape == y.shape else None
+            differ.append(f"{name} (max |diff| {err})")
+    check(not differ, f"{what}: not bit for bit equal: {differ}")
+    return len(la)
+
+
+def phase_resume(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
+    """Each RESUME_RUNS case at full width: epochs 0-2 uninterrupted with
+    --checkpoint-every 1, and epochs 0-1 then --resume to epoch 2; every
+    array of the two results directories bit for bit equal. Each run's
+    launches counted: its backend's forward and backward kernels, no other."""
+    for wl, backend in RESUME_RUNS:
+        common = ["--no-plot", "--ode-backend", backend, "--checkpoint-every", "1", "--device", str(device)]
+        if wl == "cvs":
+            common += ["--data-path", data_dir]
+        else:
+            common += ["--num-samples", "2" if rehearse else str(LOADERS[wl]().num_samples)]
+        full, part = (os.path.join(workdir, f"resume-{wl}-{backend}-{k}") for k in ("full", "part"))
+        driver = DRIVERS[wl]
+        t0 = time.perf_counter()
+        out = counted(paths, f"resume {wl} {backend}: epochs 0-2", TRAINING[backend], rehearse,
+                      lambda: driver.main(common + ["--num-epochs", "2", "--results-root", full]))
+        t1 = time.perf_counter()
+        counted(paths, f"resume {wl} {backend}: epochs 0-1", TRAINING[backend], rehearse,
+                lambda: driver.main(common + ["--num-epochs", "1", "--results-root", part]))
+        t2 = time.perf_counter()
+        resumed = counted(paths, f"resume {wl} {backend}: --resume to epoch 2", TRAINING[backend], rehearse,
+                          lambda: driver.main(common + ["--num-epochs", "2", "--resume", "--results-root", part]))
+        t3 = time.perf_counter()
+        n = _bit_equal(out["out_dir"], resumed["out_dir"], f"resume {wl} {backend}")
+        check(out["best"]["epoch"] == resumed["best"]["epoch"], f"resume {wl} {backend}: best epochs differ")
+        print(f"== resume {wl} {backend}: {n} arrays (train_state.npz and best_model.npz leaves, .npy artifacts) "
+              f"bit for bit equal; best epoch {out['best']['epoch']}; runs of 3, 2 and 1 epochs in "
+              f"{t1 - t0:.2f}, {t2 - t1:.2f}, {t3 - t2:.2f} s ({CARD['smi']})", flush=True)
+
+
+# the fused kernels' names in a profiler trace (csrc/fused_semilinear_*.cu)
+TRACE_NAMES = {"K2": "fused_semilinear_fwd_kernel", "K3": "fused_semilinear_bwd_kernel"}
+
+
+def phase_trace(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
+    """A CVS run on semilinear_fused with --profile-dir: the trace of epoch 1
+    parses, and its device events name K2's and K3's kernels."""
+    prof = os.path.join(workdir, "profile")
+    counted(paths, "trace cvs semilinear_fused", TRAINING["semilinear_fused"], rehearse, lambda: training_cvs.main([
+        "--num-epochs", "1", "--no-plot", "--ode-backend", "semilinear_fused", "--data-path", data_dir,
+        "--profile-dir", prof, "--results-root", os.path.join(workdir, "trace"), "--device", str(device)]))
+    (name,) = os.listdir(prof)
+    with open(os.path.join(prof, name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+    found = {key: sum(n for k, n in kernels.items() if pattern in k) for key, pattern in TRACE_NAMES.items()}
+    print(f"trace {name}: {len(events)} events, {sum(kernels.values())} device kernel events of "
+          f"{len(kernels)} names; K2 {found['K2']}, K3 {found['K3']} (launches in the traced run: "
+          f"{paths['trace cvs semilinear_fused']})", flush=True)
+    if not rehearse:
+        check(all(found.values()), f"the trace names no device event of {TRACE_NAMES}: {sorted(kernels)[:20]}")
+
+
+def phase_native(rehearse: bool, smi: str):
+    """Where g++ is on PATH the port's library must build (from the source,
+    again if an earlier phase built it); its parse of the six proc files
+    equals the csv parse element for element, and its pack equals the numpy
+    gather at proc's training split. Host time of a parse of the six files
+    each way: the least of three passes, the two ways in turns."""
+    from structured_latent_odes_tpu_torch import native
+    from structured_latent_odes_tpu_torch.data import proc as proc_data
+
+    if native.compiler() is None:
+        print("native: no C++ compiler on PATH; the port parses with csv (nothing built)", flush=True)
+        return
+    if os.path.exists(native.LIBRARY):
+        os.remove(native.LIBRARY)  # a process that loaded it keeps its mapping
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    check(native.lib() is not None, "native: the library built but does not load")
+    cfg = LOADERS["proc"]()
+    files = [os.path.join(cfg.data_path, f) for f in cfg.data.files]
+    parsed, ms = {}, {True: [], False: []}
+    for _ in range(3):
+        for use_native in (True, False):
+            t0 = time.perf_counter()
+            parsed[use_native] = [proc_data.parse_file(p, cfg.data, use_native=use_native) for p in files]
+            ms[use_native].append((time.perf_counter() - t0) * 1e3)
+    for p, a, b in zip(files, parsed[True], parsed[False]):
+        check(len(a) == len(b) and all(x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a, b)),
+              f"native parse of {p} differs from the csv parse")
+    splits, _ = proc_data.build_splits(cfg)
+    train = splits["train"]
+    n = train["observations"].shape[0]
+    sel = np.concatenate([np.random.RandomState(0).permutation(n), np.zeros(-n % 36, dtype=int)])
+    for k, v in train.items():
+        check(np.array_equal(native.pack_epoch_native(v, sel, len(sel)), v[sel].astype(np.float32)),
+              f"native pack of proc train {k} differs from the numpy gather")
+    print(f"native: {native.LIBRARY} built in {build_s:.2f} s; the six proc files parsed equal element for "
+          f"element; host time of the six, least of 3 passes: native {min(ms[True]):.3f} ms, csv "
+          f"{min(ms[False]):.3f} ms (passes {[round(t, 3) for t in ms[True]]} and "
+          f"{[round(t, 3) for t in ms[False]]}; {smi}); pack of proc's training split ({n} rows) equal to the "
+          f"numpy gather", flush=True)
+
+
+def phase_pickles(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
+    """The generated CVS data with its norm params as the reference's four
+    torch.save pickles: build_splits from them equals the cvs.npz splits,
+    and one epoch trained from each gives bit for bit the same artifacts."""
+    ref = os.path.join(workdir, "cvs-pickles")
+    os.makedirs(ref)
+    with np.load(os.path.join(data_dir, "cvs.npz")) as z:
+        d = {k: z[k] for k in z.files}
+    torch.save({"train": torch.from_numpy(d["train_obs"]), "test": torch.from_numpy(d["test_obs"])},
+               os.path.join(ref, "processed_data.pkl"))
+    for split in ("train", "test"):
+        torch.save({"i_ext": d[f"{split}_iext"], "r_tpr_mod": d[f"{split}_rtpr"]},
+                   os.path.join(ref, f"{split}_params_data.pkl"))
+    torch.save({k[len("norm_"):]: v for k, v in d.items() if k.startswith("norm_")},
+               os.path.join(ref, "data_norm_params.pkl"))
+    from_npz, from_pkl = _config(data_dir, "semilinear_fused"), _config(data_dir, "semilinear_fused")
+    from_pkl.reference_data_dir = ref
+    a, b = training_cvs.build_splits(from_npz, device)[0], training_cvs.build_splits(from_pkl, device)[0]
+    for name in a:
+        for k in a[name]:
+            check(a[name][k].dtype == b[name][k].dtype and np.array_equal(a[name][k], b[name][k]),
+                  f"pickles: split {name} {k} differs from the cvs.npz split")
+    runs = {}
+    for tag, extra in (("cvs.npz", ["--data-path", data_dir]), ("pickles", ["--reference-data-dir", ref])):
+        runs[tag] = counted(paths, f"pickles: one epoch from {tag}", TRAINING["semilinear_fused"], rehearse,
+                            lambda: training_cvs.main(["--num-epochs", "0", "--no-plot", "--ode-backend",
+                                                       "semilinear_fused", "--device", str(device), "--results-root",
+                                                       os.path.join(workdir, f"pickles-{tag}")] + extra))
+    n = _bit_equal(runs["cvs.npz"]["out_dir"], runs["pickles"]["out_dir"], "pickles against cvs.npz")
+    print(f"pickles: splits equal to cvs.npz's; one epoch from each: {n} arrays bit for bit equal", flush=True)
+
+
+def phase_samplers(device, rehearse: bool):
+    """SAMPLER_DRAWS draws of each of the three samplers on the card: means
+    and variances within 5 standard errors; the uniform words bit for bit
+    the CPU's."""
+    from structured_latent_odes_tpu_torch import prob
+
+    n = 4096 if rehearse else SAMPLER_DRAWS
+    ids = torch.arange(n, device=device)
+    words = prob.uniform_words_ps(11, "check", ids, 3)
+    check(torch.equal(words.cpu(), prob.uniform_words_ps(11, "check", ids.cpu(), 3)),
+          "sampler: the uniform words differ from the CPU's")
+
+    def within(name, x, mean, var, m4):
+        x = x.double()
+        se_mean = math.sqrt(var / n)
+        se_var = math.sqrt((m4 - (n - 3) / (n - 1) * var ** 2) / n)
+        z = (abs(float(x.mean()) - mean) / se_mean, abs(float(x.var()) - var) / se_var)
+        print(f"sampler {name}: mean {float(x.mean()):.6f} (want {mean:.6f}), variance {float(x.var()):.6f} "
+              f"(want {var:.6f}): {z[0]:.2f} and {z[1]:.2f} standard errors", flush=True)
+        check(max(z) <= 5, f"sampler {name}: more than 5 standard errors off")
+
+    ones = torch.ones(n, 1, device=device)
+    within("laplace(1.5, 2)", prob.sample_laplace(1, "lap", ids, 1.5 * ones, 2.0 * ones), 1.5, 8.0, 24 * 16.0)
+    p = 0.3
+    within("bernoulli(0.3)", prob.sample_bernoulli(2, "bern", ids, p * ones), p, p * (1 - p), p * (1 - p) * (
+        (1 - p) ** 3 + p ** 3))
+    probs = torch.tensor([0.1, 0.6, 0.3], device=device).expand(n, 3)
+    cat = prob.sample_onehot_categorical(3, "cat", ids, probs)
+    check(torch.equal(cat.sum(-1), torch.ones(n, device=device)), "sampler: categorical draws are not one-hot")
+    for j, q in enumerate((0.1, 0.6, 0.3)):
+        within(f"categorical class {j} ({q})", cat[:, j], q, q * (1 - q), q * (1 - q) * ((1 - q) ** 3 + q ** 3))
+
+
+def phase_plot_check(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
+    """Plotting on: where matplotlib or scikit-learn is missing the CVS run
+    must raise naming it and --no-plot before any kernel launches; where both
+    are there, one epoch's plots are drawn."""
+    from structured_latent_odes_tpu_torch.utils import plotting
+
+    missing = []
+    for name in plotting.PACKAGES:
+        try:
+            __import__(name)
+        except ImportError:
+            missing.append(name)
+    root = os.path.join(workdir, "plots")
+    argv = ["--num-epochs", "0", "--ode-backend", "semilinear_fused", "--data-path", data_dir, "--results-root", root,
+            "--device", str(device)]
+    if missing:
+        def run():
+            try:
+                training_cvs.main(argv)
+            except ImportError as e:
+                return str(e)
+            fail(f"plotting: a run without --no-plot did not raise though {missing} cannot be imported")
+
+        msg = counted(paths, "plots without their packages", (), rehearse, run)
+        check(plotting.PACKAGES[missing[0]] in msg and "--no-plot" in msg, f"plotting: the error {msg!r}")
+        print(f"plotting: {missing} not importable here; the run raised before its first step: {msg}", flush=True)
+        return
+    out = counted(paths, "plots cvs semilinear_fused", TRAINING["semilinear_fused"], rehearse,
+                  lambda: training_cvs.main(argv))
+    pngs = sorted(f for f in os.listdir(out["out_dir"]) if f.endswith(".png"))
+    check({"val_0_post.png", "z_TSNE_0.png"} <= set(pngs), f"plotting: {pngs}")
+    print(f"plotting: matplotlib and scikit-learn here; one epoch drew {pngs}", flush=True)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--rehearse", action="store_true", help="CPU dry run with the plain versions")
@@ -1806,6 +2058,20 @@ def main(argv=None):
         phase_menu(device, clock, data_dir, args.rehearse, smi, paths)
         phase("8: sweeps on adjoint and adaptive")
         phase_menu_sweeps(device, workdir, args.rehearse, smi, paths)
+        t9 = time.perf_counter()
+        phase("9: batch-exact resume")
+        phase_resume(device, workdir, data_dir, args.rehearse, paths)
+        phase("9: the profiler trace")
+        phase_trace(device, workdir, data_dir, args.rehearse, paths)
+        phase("9: the native host library")
+        phase_native(args.rehearse, smi)
+        phase("9: the reference's CVS pickles")
+        phase_pickles(device, workdir, data_dir, args.rehearse, paths)
+        phase("9: the samplers")
+        phase_samplers(device, args.rehearse)
+        phase("9: plotting")
+        phase_plot_check(device, workdir, data_dir, args.rehearse, paths)
+        print(f"== phase 9 took {time.perf_counter() - t9:.1f} s ({smi})", flush=True)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -9,8 +9,10 @@ The port imports neither ``jax`` nor any module of the JAX package: what it
 needs of the latter's numpy-only code (configs, tableaus, transforms, loader
 helpers) it keeps as its own copy.
 
-Status: CVS serving (``serve.py``) and CVS training (``training_cvs.py``)
-end to end, with the four kernels of the ODE solve, forward and backward
-(``ops/recurrence.py``, ``ops/fused_step.py``). What is left is listed in
-ROADMAP.md.
+Status: everything the JAX package does on one device: serving, training
+(with checkpoints, batch-exact resume, a profiler trace and the plots), the
+sweeps and the eval of the CVS, proc and challenge workloads, with the four
+kernels of the ODE solve, forward and backward (``ops/recurrence.py``,
+``ops/fused_step.py``). What is left, the layouts over several devices, is
+listed in ROADMAP.md.
 """

@@ -12,6 +12,7 @@ States: normalized (p_a/100, p_v/10, s, sv/100); observations (p_a, p_v, f_hr).
 from __future__ import annotations
 
 import os
+from typing import Dict
 
 import numpy as np
 import torch
@@ -129,28 +130,59 @@ def make_dataset(output_dir: str, data_size: int = 1000, seq_len: int = 86, delt
     return path
 
 
-def load_splits(config, device="cuda"):
+def load_reference_pickles(data_dir: str) -> Dict[str, np.ndarray]:
+    """The reference's ``torch.save``d pickles: ``processed_data.pkl``
+    (observations ``train`` and ``test``), ``train_params_data.pkl`` and
+    ``test_params_data.pkl`` (``i_ext``, ``r_tpr_mod``), and, when present,
+    ``data_norm_params.pkl``, the authors' saved normalization constants,
+    under ``norm_params``. Unpickling runs code: read only files you trust."""
+    obs = torch.load(os.path.join(data_dir, "processed_data.pkl"), weights_only=False)
+    train_params = torch.load(os.path.join(data_dir, "train_params_data.pkl"), weights_only=False)
+    test_params = torch.load(os.path.join(data_dir, "test_params_data.pkl"), weights_only=False)
+    out = {
+        "train_obs": np.asarray(obs["train"], dtype=np.float32),
+        "test_obs": np.asarray(obs["test"], dtype=np.float32),
+        "train_iext": np.asarray(train_params["i_ext"], dtype=np.float32),
+        "train_rtpr": np.asarray(train_params["r_tpr_mod"], dtype=np.float32),
+        "test_iext": np.asarray(test_params["i_ext"], dtype=np.float32),
+        "test_rtpr": np.asarray(test_params["r_tpr_mod"], dtype=np.float32),
+    }
+    norm_path = os.path.join(data_dir, "data_norm_params.pkl")
+    if os.path.exists(norm_path):
+        norm = torch.load(norm_path, weights_only=False)
+        out["norm_params"] = {k: np.asarray(v, dtype=np.float32) for k, v in norm.items()}
+    return out
+
+
+def load_splits(config, reference_dir: str | None = None, device="cuda"):
     """Train/val/test splits with binarized labels, and the norm params.
 
-    Generates ``cvs.npz`` under ``config.data_path`` (on ``device``) when it
-    is missing. The train part splits 90/10 into train/val. Each split is a
-    dict of numpy arrays: observations (N, T, K), labels (N, 1).
+    From the reference's pickles in ``reference_dir`` when it is given (the
+    norm params from ``data_norm_params.pkl``, else computed over the train
+    observations); otherwise from ``cvs.npz`` under ``config.data_path``,
+    generated there (on ``device``) when it is missing. The train part splits
+    90/10 into train/val. Each split is a dict of numpy arrays: observations
+    (N, T, K), labels (N, 1).
     """
-    path = os.path.join(config.data_path, "cvs.npz")
-    if not os.path.exists(path):
-        print(f"CVS dataset not found at {path} — generating on {device}...")
-        make_dataset(
-            config.data_path,
-            data_size=config.data_size,
-            seq_len=config.seq_len,
-            delta_t=config.delta_t,
-            noise_std=config.get("noise_std", 0.05),
-            seed=config.seed,
-            device=device,
-        )
-    with np.load(path) as z:
-        d = {k: z[k] for k in z.files}
-    norm_params = {k[len("norm_"):]: d[k] for k in list(d) if k.startswith("norm_")}
+    if reference_dir is not None:
+        d = load_reference_pickles(reference_dir)
+        norm_params = d.get("norm_params") or find_norm_params(d["train_obs"])
+    else:
+        path = os.path.join(config.data_path, "cvs.npz")
+        if not os.path.exists(path):
+            print(f"CVS dataset not found at {path} — generating on {device}...")
+            make_dataset(
+                config.data_path,
+                data_size=config.data_size,
+                seq_len=config.seq_len,
+                delta_t=config.delta_t,
+                noise_std=config.get("noise_std", 0.05),
+                seed=config.seed,
+                device=device,
+            )
+        with np.load(path) as z:
+            d = {k: z[k] for k in z.files}
+        norm_params = {k[len("norm_"):]: d[k] for k in list(d) if k.startswith("norm_")}
 
     buffer = int(round(d["train_obs"].shape[0] * 0.9))
 

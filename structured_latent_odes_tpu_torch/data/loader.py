@@ -4,9 +4,9 @@ padding with a per-sample ``mask``, the minibatch iterators and the stacked
 whole-epoch layout. Each batch carries ``sample_id``, the sample's index in
 its split, which keys its random draws.
 
-``stacked_minibatches`` gathers with numpy indexing where the JAX package
-calls its ctypes packer (``native.pack_epoch_native``); the values are the
-same.
+``stacked_minibatches`` packs its float32 arrays with the native packer
+(``native.pack_epoch_native``) where the library loads, and gathers with
+numpy indexing otherwise; the values are the same.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ from __future__ import annotations
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+
+from structured_latent_odes_tpu_torch import native
 
 Split = Dict[str, np.ndarray]
 
@@ -114,7 +116,14 @@ def stacked_minibatches(
     sel = np.concatenate([idx, np.zeros(padded - n, dtype=int)])
     mask = np.zeros(padded, dtype=np.float32)
     mask[:n] = 1.0
-    out = {k: v[sel].reshape((n_batches, batch_size) + v.shape[1:]) for k, v in split.items() if k != "mask"}
+    out = {}
+    for k, v in split.items():
+        if k == "mask":
+            continue
+        packed = native.pack_epoch_native(v, sel, padded) if v.dtype == np.float32 else None
+        if packed is None:
+            packed = v[sel]
+        out[k] = packed.reshape((n_batches, batch_size) + v.shape[1:])
     out["mask"] = mask.reshape(n_batches, batch_size)
     out["sample_id"] = sel.astype(np.int32).reshape(n_batches, batch_size)
     return out

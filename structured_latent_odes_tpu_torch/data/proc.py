@@ -10,11 +10,14 @@ JAX package's ``data/proc.py``:
 - log1p of the input concentrations;
 - a 4-fold cross-validation split or a held-out-device (zero-shot) split.
 
-The files are parsed with the standard library's ``csv`` module, with the
-semantics of the JAX package's pandas path (``read_csv(na_filter=False)``):
-the first data row is the time row, a header is cut at its first ``.``, and
-readings are parsed as floats and stored as float32. Binding the JAX
-package's C++ parser (``native/``) is ROADMAP A13-native.
+Each file is parsed by the repo's C++ parser (``native/``, bound by the
+port's own ``native`` module) where the library builds, and otherwise with
+the standard library's ``csv`` module, with the semantics of the JAX
+package's pandas path (``read_csv(na_filter=False)``): the first data row is
+the time row, a header is cut at its first ``.``, and readings are parsed as
+floats and stored as float32. The two parses give equal arrays (tested). The
+C++ parser releases the GIL, so ``build_dataset`` parses the files in
+threads.
 """
 
 from __future__ import annotations
@@ -23,9 +26,12 @@ import csv
 import os
 import re
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+
+from structured_latent_odes_tpu_torch import native
 
 
 # ---------------------------------------------------------------------------
@@ -55,12 +61,21 @@ def _floats(cells: List[str]) -> np.ndarray:
     return np.array([float(c) for c in cells], dtype=np.float32)
 
 
-def parse_file(csv_path: str, data_cfg) -> Optional[Tuple[np.ndarray, ...]]:
-    """Parse one plate-reader CSV.
+def parse_file(csv_path: str, data_cfg, use_native: bool = True) -> Optional[Tuple[np.ndarray, ...]]:
+    """Parse one plate-reader CSV, with the C++ parser where ``use_native``
+    and the library loads, else with ``csv``.
 
     Returns (device_indices (L,), treatments (L, C), times (T,),
     observations (L, S, T)) or None if no configured device appears.
     """
+    dtype = np.float32 if data_cfg.dtype == "float32" else np.float64
+    if use_native:
+        res = native.parse_proc_csv_native(csv_path, data_cfg.devices, data_cfg.conditions, data_cfg.signals)
+        if res is not None:
+            dev, treat, times, obs = res
+            return dev, treat.astype(dtype), times.astype(dtype), obs.astype(dtype)
+        if native.lib() is not None:
+            return None  # parsed, and no configured device appears
     with open(csv_path, newline="") as f:
         rows = [r for r in csv.reader(f) if r]  # blank lines skipped, as pandas does
     header, time_row, data_rows = rows[0], rows[1], rows[2:]
@@ -89,8 +104,6 @@ def parse_file(csv_path: str, data_cfg) -> Optional[Tuple[np.ndarray, ...]]:
     readings = np.stack([_floats(data_rows[i][5:]) for i in keep_locs])
     obs = np.stack([readings[:, header_signals == sig] for sig in data_cfg.signals], axis=1)  # (L, S, T)
     times = _floats(time_row[5:])[header_signals == "OD"]
-
-    dtype = np.float32 if data_cfg.dtype == "float32" else np.float64
     return device_idx, treatments.astype(dtype), times.astype(dtype), obs.astype(dtype)
 
 
@@ -156,7 +169,9 @@ def build_dataset(config) -> Dict[str, np.ndarray]:
     """Parse and merge all configured files into one dataset dict:
     observations (L, S, T), dev_1hot (L, depth), inputs (L, 2) [log1p],
     devices (L,), times (T,), scales (S,)."""
-    parsed = [parse_file(os.path.join(config.data_path, f), config.data) for f in config.data.files]
+    paths = [os.path.join(config.data_path, f) for f in config.data.files]
+    with ThreadPoolExecutor(max_workers=len(paths)) as ex:
+        parsed = list(ex.map(lambda p: parse_file(p, config.data), paths))
     parsed = [p for p in parsed if p is not None]
     devices = np.concatenate([p[0] for p in parsed])
     inputs = np.concatenate([p[1] for p in parsed])

@@ -1,5 +1,6 @@
 """Aggregate metrics over the ``.npy`` artifacts (the JAX package's
-``eval``, numpy only; figures are not ported yet, ROADMAP A11-rest)."""
+``eval``): the metrics are numpy only; ``eval.figures`` imports matplotlib
+when it draws."""
 
 from structured_latent_odes_tpu_torch.eval.metrics import (  # noqa: F401
     challenge_outcome_averaged_l1,

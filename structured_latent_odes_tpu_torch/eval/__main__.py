@@ -9,8 +9,8 @@ Usage:
 
 Consumes the ``.npy`` artifacts dumped at test time (train/artifacts.py) and
 prints the same quantities the reference's evaluation notebooks print
-(BASELINE.md table). Numpy only; ``--figures`` (matplotlib) is not ported yet
-and raises (ROADMAP A11-rest).
+(BASELINE.md table). The metrics are numpy only; ``--figures`` renders the
+aggregate figures (``eval/figures.py``) and needs matplotlib.
 """
 
 import argparse
@@ -37,15 +37,12 @@ def main(argv=None):
     p.add_argument("dataset", choices=sorted(METRICS))
     p.add_argument("results_dir")
     p.add_argument("--json", action="store_true", help="print one JSON line")
-    p.add_argument("--figures", action="store_true",
-                   help="render aggregate figures (not ported yet: ROADMAP A11-rest)")
+    p.add_argument("--figures", action="store_true", help="render aggregate figures")
     p.add_argument("--gt", default=None, metavar="CVS_NPZ",
                    help="cvs only: also score vs the NOISE-FREE ground-truth "
                         "test trajectories in the given cvs.npz")
     args = p.parse_args(argv)
 
-    if args.figures:
-        raise NotImplementedError("figures are not ported yet (ROADMAP A11-rest)")
     name, fn = METRICS[args.dataset]
     out = {}
     for tag in ("post", "prior"):
@@ -75,6 +72,40 @@ def main(argv=None):
                 f"[skip {tag}] artifact {e} not in {args.results_dir} — was this "
                 f"directory produced by the {args.dataset} driver?"
             )
+    if args.figures:
+        from structured_latent_odes_tpu_torch.eval import figures
+
+        for tag in ("post", "prior"):
+            try:
+                if args.dataset == "cvs":
+                    figures.class_averaged_bands(
+                        args.results_dir, tag, ("iext", "rtpr"), ("Pa", "Pv", "fHR"),
+                        f"agg_bands_{tag}.png",
+                    )
+                    figures.latent_dynamics_panels(
+                        args.results_dir, tag, ("iext", "rtpr"),
+                        f"latent_dynamics_{tag}.png",
+                    )
+                elif args.dataset == "challenge":
+                    figures.class_averaged_bands(
+                        args.results_dir, tag, ("shedding", "symptoms"),
+                        ("HR", "TEMP", "EDA", "ACC"), f"agg_bands_{tag}.png",
+                    )
+                    figures.per_subject_trajectories(
+                        args.results_dir, tag, ("shedding", "symptoms"),
+                        ("HR", "TEMP", "EDA", "ACC"), f"subjects_{tag}.png",
+                    )
+                    figures.latent_dynamics_panels(
+                        args.results_dir, tag, ("shedding", "symptoms"),
+                        f"latent_dynamics_{tag}.png",
+                    )
+                else:
+                    figures.synbio_dose_response(
+                        args.results_dir, tag, ("OD", "mRFP1", "EYFP", "ECFP"),
+                        f"dose_response_{tag}.png",
+                    )
+            except (FileNotFoundError, KeyError) as e:
+                print(f"[skip figures {tag}] {e}")
     if args.gt and args.dataset == "cvs":
         for tag in ("post", "prior"):
             try:

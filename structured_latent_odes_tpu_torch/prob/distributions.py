@@ -17,9 +17,14 @@ JAX threads keys by splitting them; here a seed for each (step, loss) or
 training draw depends only on (seed, step, site, sample_id). Seeds are host
 integers; an ensemble (``train/ensemble.py``) hands its members' seeds to the
 draws as one int64 tensor (:func:`seed_tensor`), and the hash then runs on the
-device, member s drawing exactly what it would draw alone. The JAX key-based
-samplers ``sample_laplace``, ``sample_bernoulli`` and
-``sample_onehot_categorical`` are on no path of the port yet (ROADMAP).
+device, member s drawing exactly what it would draw alone.
+
+The samplers the JAX package keys by a plain key (``sample_laplace``,
+``sample_bernoulli``, ``sample_onehot_categorical``) draw here from the same
+counter hash, per sample: :func:`uniform_words_ps` gives each (seed, site,
+sample_id, counter) a 24-bit word, integer arithmetic only, so the words are
+equal on every device. No caller in either package uses these three; they
+are public API.
 """
 
 from __future__ import annotations
@@ -114,6 +119,26 @@ def seed_tensor(seeds, device=None) -> Tensor:
     return torch.tensor([s - (1 << 64) if s >= 1 << 63 else s for s in seeds], dtype=torch.int64, device=device)
 
 
+def uniform_words_ps(seed, site: str, sample_ids: Tensor, n: int) -> Tensor:
+    """``(..., B, n)`` int64 words in [0, 2**24) on ``sample_ids``' device:
+    word j of row b depends only on (seed, site, sample_ids[b], j). ``seed``
+    is an int or an int64 tensor of seeds, as for :func:`standard_normal_ps`."""
+    sid = sample_ids.to(torch.int64)[..., None] & _MASK32
+    word = _site_word(seed, site)
+    if isinstance(word, Tensor) and word.ndim:
+        word = word.to(sid.device)[:, None, None]
+    key = _mix32(sid ^ word)
+    counter = torch.arange(n, device=sample_ids.device, dtype=torch.int64)
+    return _mix32(key ^ counter) >> 8
+
+
+def uniform_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int]) -> Tensor:
+    """float64 uniforms in (0, 1) of shape ``(..., B, *event_shape)``, per
+    sample as :func:`uniform_words_ps`."""
+    words = uniform_words_ps(seed, site, sample_ids, math.prod(event_shape))
+    return ((words.to(torch.float64) + 0.5) / 16777216.0).reshape(*words.shape[:-1], *event_shape)
+
+
 def standard_normal_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int],
                        dtype=torch.float32) -> Tensor:
     """Standard-normal draws of shape ``(..., B, *event_shape)`` on
@@ -125,18 +150,12 @@ def standard_normal_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequenc
     ``(S, B)``); 0-d, the form it has under ``torch.func.vmap``, they are
     those of that one seed."""
     n = math.prod(event_shape)
-    sid = sample_ids.to(torch.int64)[..., None] & _MASK32
-    word = _site_word(seed, site)
-    if isinstance(word, Tensor) and word.ndim:
-        word = word.to(sid.device)[:, None, None]
-    key = _mix32(sid ^ word)
     # counters 2j and 2j+1 feed the two uniforms of element j's Box-Muller
     # pair; one tensor for both keeps the number of small launches down
-    counter = torch.arange(2 * n, device=sample_ids.device, dtype=torch.int64)
-    u = ((_mix32(key ^ counter) >> 8).to(torch.float64) + 0.5) / 16777216.0  # (0, 1)
+    u = uniform_ps(seed, site, sample_ids, (2 * n,))
     u1, u2 = u[..., 0::2], u[..., 1::2]
     eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-    return eps.to(dtype).reshape(*key.shape[:-1], *event_shape)
+    return eps.to(dtype).reshape(*u.shape[:-1], *event_shape)
 
 
 def sample_normal_ps(seed, site: str, sample_ids: Tensor, loc: Tensor, scale: Tensor,
@@ -147,3 +166,29 @@ def sample_normal_ps(seed, site: str, sample_ids: Tensor, loc: Tensor, scale: Te
     if eps is None:
         eps = standard_normal_ps(seed, site, sample_ids.to(loc.device), loc.shape[1:], loc.dtype)
     return loc + scale * eps
+
+
+def sample_laplace(seed, site: str, sample_ids: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
+    """Per-sample Laplace draws ``loc - scale * sign(u) * log1p(-2|u|)``,
+    u uniform in (-1/2, 1/2); ``loc``/``scale`` are ``(B, ...)``."""
+    u = uniform_ps(seed, site, sample_ids.to(loc.device), loc.shape[1:]) - 0.5
+    return loc - scale * (torch.sign(u) * torch.log1p(-2.0 * torch.abs(u))).to(loc.dtype)
+
+
+def sample_bernoulli(seed, site: str, sample_ids: Tensor, probs: Tensor) -> Tensor:
+    """Per-sample Bernoulli draws (0 or 1, in ``probs``' dtype); ``probs`` is
+    ``(B, ...)``."""
+    u = uniform_ps(seed, site, sample_ids.to(probs.device), probs.shape[1:])
+    return (u < probs.to(torch.float64)).to(probs.dtype)
+
+
+def sample_onehot_categorical(seed, site: str, sample_ids: Tensor, probs: Tensor) -> Tensor:
+    """Per-sample one-hot categorical draws over ``probs``' trailing axis
+    (clipped to [1e-7, 1] and normalized, as the JAX sampler's logits are),
+    by inverting the CDF at one uniform per row; ``probs`` is ``(B, ..., K)``."""
+    K = probs.shape[-1]
+    p = torch.clamp(probs.to(torch.float64), _EPS, 1.0)
+    cdf = torch.cumsum(p / p.sum(-1, keepdim=True), dim=-1)
+    u = uniform_ps(seed, site, sample_ids.to(probs.device), (*probs.shape[1:-1], 1))
+    idx = torch.clamp(torch.sum(cdf < u, dim=-1), max=K - 1)
+    return torch.nn.functional.one_hot(idx, K).to(probs.dtype)

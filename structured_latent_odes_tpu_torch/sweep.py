@@ -28,10 +28,10 @@ it), and the notebook headline metric (eval/metrics.py) is computed; a
 ``<results-root>``, and the averaged deployments in ``deploy_mean/`` and
 ``deploy_veto_mean/``.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``--ensemble-parallel`` and ``--ensemble-data-parallel`` above 1 (A17),
-``--reference-data-dir`` (A8-rest), and the ODE backend
-``semilinear_timepar`` (A17).
+``--reference-data-dir`` reads CVS from the reference's torch pickles. Not
+ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
+``--ensemble-parallel`` and ``--ensemble-data-parallel`` above 1 and the ODE
+backend ``semilinear_timepar`` (A17).
 """
 
 from __future__ import annotations
@@ -548,7 +548,7 @@ def parse_args(argv=None):
     p.add_argument("--ode-atol", type=float, default=None, help="the adaptive backends' absolute tolerance")
     p.add_argument("--data-path", default=None)
     p.add_argument("--reference-data-dir", default=None,
-                   help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")
+                   help="cvs: load the upstream torch pickles instead of cvs.npz")
     p.add_argument("--chunk-epochs", type=int, default=0,
                    help="epochs per chunk (default 0: one chunk; auto_chunk_epochs gives the JAX sweep's automatic "
                         "size); any chunking gives the same numbers")
@@ -580,9 +580,6 @@ def load_base_config(dataset: str):
 
 def check_ported(args, config) -> None:
     """Raise for the sweep options that are not ported yet, before any work."""
-    if args.reference_data_dir:
-        raise NotImplementedError("reading the reference's torch pickles (--reference-data-dir) is not ported "
-                                  "yet (ROADMAP A8-rest)")
     if (args.ensemble_parallel and args.ensemble_parallel > 1) or args.ensemble_data_parallel > 1:
         raise NotImplementedError(
             f"--ensemble-parallel {args.ensemble_parallel} / --ensemble-data-parallel "
@@ -612,6 +609,8 @@ def run(args) -> SweepRun:
         config.num_epochs = args.num_epochs
     if args.heldout:
         config.heldout = args.heldout
+    if args.reference_data_dir:
+        config.reference_data_dir = args.reference_data_dir
     config.aux_mult_final = args.aux_mult_final
     config.aux_anneal_epochs = args.aux_anneal_epochs
     config.aux_mult_start = args.aux_mult_start

@@ -6,7 +6,14 @@ item), the tree structure as JAX prints it, and metadata.
 
 A checkpoint written by either package restores in the other. Trees here are
 in the JAX layout (nested dicts and lists of numpy arrays or tensors);
-``interop.py`` converts them to and from the port's parameters.
+``interop.py`` converts them to and from the port's parameters. A Python int
+leaf (an Adam step count, a seed, a step) is stored as an int64 array and
+restored as an int where ``like`` holds an int.
+
+:func:`host_rng_tree` and :func:`apply_host_rng_tree` snapshot numpy's
+MT19937 state as arrays, so that a resumed run shuffles as the uninterrupted
+one would. The JAX package's orbax variant (``save_orbax``,
+``restore_orbax``) has no counterpart: this format is the only one.
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ def _structure(tree: Any) -> str:
 def _to_numpy(x: Any) -> np.ndarray:
     if hasattr(x, "detach"):  # a torch tensor
         x = x.detach().cpu().numpy()
+    if isinstance(x, int):
+        return np.asarray(x, dtype=np.int64)
     return np.asarray(x)
 
 
@@ -66,7 +75,8 @@ def restore(path: str, like: Any) -> Any:
 
     Checked structurally as the JAX package checks it: the stored key paths
     are compared with ``like``'s and the first differing path is named in the
-    error; then shapes leaf by leaf. Returns numpy leaves.
+    error; then shapes leaf by leaf. Returns numpy leaves, and Python ints
+    where ``like`` holds ints.
     """
     with np.load(path) as z:
         leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
@@ -99,9 +109,32 @@ def restore(path: str, like: Any) -> Any:
     if len(leaves) != len(ref):
         raise ValueError(f"checkpoint has {len(leaves)} leaves, expected {len(ref)}")
     for i, (a, (p, b)) in enumerate(zip(leaves, ref)):
-        if tuple(a.shape) != tuple(b.shape):
-            raise ValueError(f"leaf {i} ({p}) shape {a.shape} != expected {tuple(b.shape)}")
-    return tree_unflatten(like, leaves)
+        if tuple(a.shape) != tuple(np.shape(b)):
+            raise ValueError(f"leaf {i} ({p}) shape {a.shape} != expected {tuple(np.shape(b))}")
+    return tree_unflatten(like, [int(a) if isinstance(b, int) else a for a, (_, b) in zip(leaves, ref)])
+
+
+def host_rng_tree(rng: np.random.RandomState) -> dict:
+    """A numpy RandomState's state as plain arrays (checkpointable)."""
+    kind, keys, pos, has_gauss, cached = rng.get_state()
+    if kind != "MT19937":
+        raise ValueError(f"cannot snapshot a {kind} generator")
+    return {
+        "mt_keys": np.asarray(keys, dtype=np.uint32),
+        "pos": np.asarray(pos, dtype=np.int64),
+        "has_gauss": np.asarray(has_gauss, dtype=np.int64),
+        "cached_gaussian": np.asarray(cached, dtype=np.float64),
+    }
+
+
+def apply_host_rng_tree(rng: np.random.RandomState, tree: dict) -> None:
+    rng.set_state((
+        "MT19937",
+        np.asarray(tree["mt_keys"], dtype=np.uint32),
+        int(tree["pos"]),
+        int(tree["has_gauss"]),
+        float(tree["cached_gaussian"]),
+    ))
 
 
 def load_metadata(path: str) -> dict:

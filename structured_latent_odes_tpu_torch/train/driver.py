@@ -1,17 +1,17 @@
 """The epoch loop shared by the dataset drivers (the JAX package's
 ``train/driver.py``): per-minibatch dual SVI steps, per-epoch evaluation of
 the val and train splits under posterior and prior reconstruction (the
-reference's ``input_pred_stats``), a dataset's best-model policy, and the
-final test evaluation.
-
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-periodic checkpoints and resume (A10-rest), a profiler trace of an epoch
-(A17), and the plotting ``on_epoch`` (A11-rest).
+reference's ``input_pred_stats``), a dataset's best-model policy, periodic
+checkpoints and batch-exact resume, a profiler trace of one epoch, the
+recon-collecting evaluation of the epochs that plot, and the final test
+evaluation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
@@ -20,10 +20,12 @@ import numpy as np
 import torch
 
 from structured_latent_odes_tpu_torch.data.loader import iter_minibatches, stacked_minibatches
+from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
 from structured_latent_odes_tpu_torch.prob import fold_seed
+from structured_latent_odes_tpu_torch.train import checkpoint as ckpt
 from structured_latent_odes_tpu_torch.train import metrics as M
-from structured_latent_odes_tpu_torch.train.svi import eval_seeds
+from structured_latent_odes_tpu_torch.train.svi import SVIState, eval_seeds
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 log = logging.getLogger("slode")
@@ -147,6 +149,12 @@ def epoch_lr_scale(config, epoch: int):
     return (lr * (1 - frac) + float(final) * frac) / lr
 
 
+def plots_due(config, epoch: int) -> bool:
+    """Whether ``epoch``'s plots are drawn: plotting on (``config.plot``)
+    and ``epoch`` a multiple of ``config.plot_epoch``."""
+    return bool(config.get("plot", True) and config.get("plot_epoch") and epoch % config.plot_epoch == 0)
+
+
 def _stats_from_fused(spec: ModelSpec, fused) -> EvalStats:
     """EvalStats (without recon payloads) from an ``eval_epoch`` result."""
     n = max(float(fused["n"]), 1.0)
@@ -163,7 +171,7 @@ def _stats_from_fused(spec: ModelSpec, fused) -> EvalStats:
 def run_training_epochs(
     *,
     spec: ModelSpec,
-    state,
+    state: SVIState,
     train_epoch: Callable,
     eval_epoch: Callable,
     splits: Dict[str, Dict[str, np.ndarray]],
@@ -172,8 +180,10 @@ def run_training_epochs(
     eval_seed: int,
     select_best: Callable,  # (epoch, val_stats, train_stats, best, params, losses) -> best'
     on_epoch: Optional[Callable] = None,
+    eval_fns=None,
     eval_train_stats: bool = True,
     eval_every: int = 1,
+    checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     resume: bool = False,
     put_batch: Optional[Callable] = None,
@@ -189,36 +199,72 @@ def run_training_epochs(
     criterion included, come from ``eval_epoch`` (``svi.make_eval_epoch``)
     over each split's stacked batches, built once and kept on the device.
     The eval seeds of an epoch depend only on (``eval_seed``, epoch).
+
+    On an epoch where ``on_epoch`` plots (:func:`plots_due`), the
+    recon-collecting ``eval_split`` (with ``eval_fns``) runs over val with
+    that epoch's seeds and its statistics go to ``on_epoch``; the selection
+    criterion still comes from ``eval_epoch`` alone.
+
+    Resume: with ``checkpoint_path`` and ``checkpoint_every``, the state
+    (``SVIState.to_tree``: params, Adam slots and counts, seed, step), the
+    best params and the host shuffle RNG are saved at every epoch that
+    ``checkpoint_every`` divides, with the epoch, the best epoch and its
+    criterion as metadata. With ``resume`` and the file present, they are
+    restored and the loop continues at the saved epoch + 1; without the
+    file it starts afresh. Every draw depends only on (seed, step, site,
+    sample_id) and the eval seeds only on (eval seed, epoch), so a resumed
+    run makes the uninterrupted run's shuffles, draws and updates, and
+    leaves ``rng`` where that run would.
+
+    With ``profile_dir``, epoch ``min(start + 1, config.num_epochs)`` (the
+    second epoch run, or the only one) is traced (``utils/profiling.trace``).
     """
-    if checkpoint_every or resume:
-        raise NotImplementedError("periodic checkpoints and resume are not ported yet (ROADMAP A10-rest)")
-    if profile_dir:
-        raise NotImplementedError("the profiler trace of an epoch is not ported yet (ROADMAP A17)")
-    if on_epoch is not None and config.get("plot_epoch") and config.get("plot", True):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A11-rest): pass --no-plot")
     device = tree_leaves(state.params)[0].device
     put = put_batch or (lambda b: device_batch(b, device))
     best = {"params": state.params, "epoch": 0, "criterion": np.inf}
     batch_size = config.mini_batch_size
     t_start = time.time()
+    start_epoch = 0
     eval_stacks: Dict[str, Dict] = {}  # eval order is never shuffled: built once per split
+
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        like = {"state": state.to_tree(), "best_params": params_to_jax(state.params),
+                "host_rng": ckpt.host_rng_tree(rng)}
+        restored = ckpt.restore(checkpoint_path, like)
+        meta = ckpt.load_metadata(checkpoint_path)
+        state = SVIState.from_tree(restored["state"], device)
+        ckpt.apply_host_rng_tree(rng, restored["host_rng"])
+        best = {"params": params_from_jax(restored["best_params"], device), "epoch": meta["best_epoch"],
+                "criterion": meta["criterion"]}
+        start_epoch = meta["epoch"] + 1
+        print(f"resumed from {checkpoint_path} at epoch {start_epoch}")
 
     def split_stats(params, seed, name: str, is_post: bool) -> EvalStats:
         if name not in eval_stacks:
             eval_stacks[name] = put(stacked_minibatches(splits[name], batch_size, shuffle=False))
         return _stats_from_fused(spec, eval_epoch(params, seed, eval_stacks[name], is_post))
 
-    for epoch in range(config.num_epochs + 1):
+    trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir else None
+    for epoch in range(start_epoch, config.num_epochs + 1):
         aux_mult = epoch_aux_mult(config, epoch)
-        batches = stacked_minibatches(splits["train"], batch_size, shuffle=True, rng=rng)
-        n_batches = batches["mask"].shape[0]
-        if aux_mult is not None:
-            batches["aux_mult"] = np.full((n_batches,), aux_mult, np.float32)
-        lr_sc = epoch_lr_scale(config, epoch)
-        if lr_sc is not None:
-            batches["lr_scale"] = np.full((n_batches,), lr_sc, np.float32)
-        state, mets = train_epoch(state, put(batches))
-        epoch_losses = torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1).cpu().tolist()
+        if epoch == trace_epoch:
+            from structured_latent_odes_tpu_torch.utils.profiling import trace
+
+            profile_ctx = trace(profile_dir)
+        else:
+            profile_ctx = contextlib.nullcontext()
+        with profile_ctx as traced:
+            batches = stacked_minibatches(splits["train"], batch_size, shuffle=True, rng=rng)
+            n_batches = batches["mask"].shape[0]
+            if aux_mult is not None:
+                batches["aux_mult"] = np.full((n_batches,), aux_mult, np.float32)
+            lr_sc = epoch_lr_scale(config, epoch)
+            if lr_sc is not None:
+                batches["lr_scale"] = np.full((n_batches,), lr_sc, np.float32)
+            state, mets = train_epoch(state, put(batches))
+            epoch_losses = torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1).cpu().tolist()
+        if epoch == trace_epoch:
+            print(f"profiler trace of epoch {epoch}: {traced.path}")
 
         if eval_every > 1 and epoch % eval_every and epoch != config.num_epochs:
             epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
@@ -238,6 +284,12 @@ def run_training_epochs(
             train_prior = split_stats(state.params, k4, "train", False)
         else:
             train_post = train_prior = val_post
+        plot_post, plot_prior = val_post, val_prior
+        if on_epoch is not None and plots_due(config, epoch):
+            # the recon payloads the plots draw, with the seeds of the
+            # statistics above; selection never reads them
+            plot_post = eval_split(spec, state.params, k1, splits["val"], eval_fns, batch_size, is_post=True)
+            plot_prior = eval_split(spec, state.params, k2, splits["val"], eval_fns, batch_size, is_post=False)
 
         prev_best = best
         # state.params is replaced, never updated in place, by each step, so
@@ -251,6 +303,14 @@ def run_training_epochs(
             epoch_losses,
         )
         improved = "*" if best is not prev_best else ""
+
+        if checkpoint_path and checkpoint_every and epoch % checkpoint_every == 0:
+            ckpt.save(
+                checkpoint_path,
+                {"state": state.to_tree(), "best_params": params_to_jax(best["params"]),
+                 "host_rng": ckpt.host_rng_tree(rng)},
+                metadata={"epoch": epoch, "best_epoch": int(best["epoch"]), "criterion": float(best["criterion"])},
+            )
 
         epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
         metric_str = " ".join(
@@ -271,7 +331,7 @@ def run_training_epochs(
         log.debug(line)
 
         if on_epoch is not None:
-            on_epoch(epoch, state, val_post, val_prior, train_post, train_prior)
+            on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
 
     return state, best
 

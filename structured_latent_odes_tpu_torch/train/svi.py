@@ -36,6 +36,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_main, param_masks, recon
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
 from structured_latent_odes_tpu_torch.nn.ode_model import solve_is_per_member
@@ -56,12 +57,40 @@ class AdamSlots:
     count: Any
 
 
+_MASK64 = (1 << 64) - 1
+
+
 @dataclasses.dataclass
 class SVIState:
     params: Any
     opt: Any  # AdamSlots (shared) | (AdamSlots, AdamSlots) (split: main, aux)
     seed: int
     step: int
+
+    def to_tree(self) -> Dict[str, Any]:
+        """The state as a checkpoint tree (``train/checkpoint.py``) on the
+        host: the params and the Adam moments in the JAX layout
+        (``interop.params_to_jax``), so the params part reads like a
+        ``best_model.npz``; the step counts, the seed (its 64 bits as a
+        signed int) and the step as ints. A split optimizer's slots are the
+        list [main, aux]."""
+
+        def slots(s: AdamSlots):
+            return {"mu": params_to_jax(s.mu), "nu": params_to_jax(s.nu), "count": s.count}
+
+        opt = slots(self.opt) if isinstance(self.opt, AdamSlots) else [slots(s) for s in self.opt]
+        seed = self.seed - (1 << 64) if self.seed >= 1 << 63 else self.seed
+        return {"params": params_to_jax(self.params), "opt": opt, "seed": seed, "step": self.step}
+
+    @classmethod
+    def from_tree(cls, tree: Dict[str, Any], device) -> "SVIState":
+        """The inverse of :meth:`to_tree`: every tensor float32 on ``device``."""
+
+        def slots(t):
+            return AdamSlots(params_from_jax(t["mu"], device), params_from_jax(t["nu"], device), t["count"])
+
+        opt = slots(tree["opt"]) if isinstance(tree["opt"], dict) else tuple(slots(t) for t in tree["opt"])
+        return cls(params_from_jax(tree["params"], device), opt, int(tree["seed"]) & _MASK64, int(tree["step"]))
 
 
 class DualOptimizer(NamedTuple):

@@ -16,11 +16,11 @@ from the port's counter hash, so a run is not the JAX run of the same seed,
 draw for draw. Each of the sample dump's draws has its own seed, derived from
 the run's seed, the tag (post or prior) and the draw's index.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
-(A10-rest) and ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17). ``--prior-refit-epochs`` refits the conditional priors after training,
-as the JAX driver does.
+``--checkpoint-every``, ``--resume``, ``--profile-dir`` and the plots work as
+in ``training_cvs.py``. Not ported yet, raising ``NotImplementedError`` with
+its ROADMAP item: ``--data-parallel``/``--time-parallel`` (A17).
+``--prior-refit-epochs`` refits the conditional priors after training, as the
+JAX driver does.
 """
 
 from __future__ import annotations
@@ -41,14 +41,17 @@ from structured_latent_odes_tpu_torch.models import challenge_spec, init_params
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
 from structured_latent_odes_tpu_torch.train.backend import make_training_backend
-from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval, run_training_epochs
+from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure, refit_priors
+from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_plotting, configure, refit_priors
+from structured_latent_odes_tpu_torch.utils import plotting
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 log = logging.getLogger("slode")
+
+CHANNELS = ("HR", "TEMP", "EDA", "ACC")
 
 
 def build_splits(config):
@@ -81,7 +84,7 @@ def dump_sample_bands(out_dir, reconstruct, params, seed: int, split, num_sample
 
 
 def train(config, device="cuda"):
-    check_ported(config)
+    check_plotting(config)
     device = resolve_device(device)
     full_fp32(deterministic=True)
     print(config.to_json())
@@ -114,6 +117,19 @@ def train(config, device="cuda"):
             return {"params": params_now, "epoch": epoch, "criterion": crit}
         return best
 
+    def on_epoch(epoch, state, val_post, val_prior, train_post, train_prior):
+        if plots_due(config, epoch):
+            plotting.plot_label_grid(
+                out_dir,
+                f"val_{epoch}_post",
+                val_post.observations,
+                val_post.recon,
+                times,
+                {"symptoms": val_post.labels["symptoms"], "shedding": val_post.labels["shedding"]},
+                CHANNELS,
+            )
+            plotting.visualize_latent(out_dir, val_post.recon["z"], val_prior.recon["z"], epoch, config.seed)
+
     state, best = run_training_epochs(
         spec=spec,
         state=state,
@@ -124,9 +140,12 @@ def train(config, device="cuda"):
         rng=rng,
         eval_seed=fold_seed(seed, "eval"),
         select_best=select_best,
+        on_epoch=on_epoch,
+        eval_fns=eval_fns,
         eval_train_stats=config.get("eval_train_stats", True),
         put_batch=put_batch,
         eval_every=config.get("eval_every", 1),
+        checkpoint_path=os.path.join(out_dir, "train_state.npz"),
         checkpoint_every=config.get("checkpoint_every", 0),
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),
@@ -147,6 +166,17 @@ def train(config, device="cuda"):
     artifacts.dump_recon(out_dir, "prior", test_prior.recon)
     dump_sample_bands(out_dir, eval_fns[2], best["params"], fold_seed(seed, "samples"), splits["val"],
                       config.num_samples, device)
+    if config.get("plot", True):
+        for tag, stats in (("post", test_post), ("prior", test_prior)):
+            plotting.plot_label_grid(
+                out_dir,
+                f"test_{best['epoch']}_{tag}",
+                stats.observations,
+                stats.recon,
+                times,
+                {"symptoms": stats.labels["symptoms"], "shedding": stats.labels["shedding"]},
+                CHANNELS,
+            )
     checkpoint.save(
         os.path.join(out_dir, "best_model.npz"),
         params_to_jax(best["params"]),

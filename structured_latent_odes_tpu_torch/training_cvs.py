@@ -11,15 +11,24 @@ package's eval CLI scores and both packages' ``serve.py`` serve. Logs go to
 ``results_<Model>/model.log``. On the card it runs in full float32: TF32 is
 off for matrix products and cuDNN convolutions.
 
+``--checkpoint-every N`` saves the whole training state to
+``results_<Model>/train_state.npz`` every N epochs, and ``--resume``
+continues from it batch-exactly: the resumed run ends where the
+uninterrupted one would, bit for bit. ``--profile-dir DIR`` writes a
+``torch.profiler`` trace of the second epoch into DIR. Unless ``--no-plot``
+is given, the validation grids and latent t-SNE of every ``plot_epoch``-th
+epoch and the test-split grids are drawn into the results directory; that
+needs matplotlib and scikit-learn, and the run fails before it starts when
+either is missing. ``--reference-data-dir`` reads the reference's torch
+pickles instead of ``cvs.npz``.
+
 Parameters come from the port's own ``init_params(spec, seed)``, and every
 draw from the port's counter hash: JAX's threefry bits are not reproduced, so
 a run is not the JAX run of the same seed, draw for draw.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
-(A10-rest), ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17) and ``--reference-data-dir`` (A8-rest). ``--prior-refit-epochs`` refits
-the conditional priors after training, as the JAX driver does.
+Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
+``--data-parallel``/``--time-parallel`` (A17). ``--prior-refit-epochs``
+refits the conditional priors after training, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -40,33 +49,34 @@ from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
 from structured_latent_odes_tpu_torch.train.backend import make_training_backend
-from structured_latent_odes_tpu_torch.train.driver import final_test_eval, run_training_epochs
+from structured_latent_odes_tpu_torch.train.driver import final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
+from structured_latent_odes_tpu_torch.utils import plotting
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 log = logging.getLogger("slode")
 
+CHANNELS = ("Pa", "Pv", "fHR")
+
 
 def build_splits(config, device="cuda"):
     """Normalized splits in the model layout ``(N, K, T)``, and the norm
-    params. ``device`` is where a missing dataset is generated."""
-    if config.get("reference_data_dir"):
-        raise NotImplementedError(
-            "reading the reference's torch pickles (reference_data_dir) is not "
-            "ported yet (ROADMAP A8-rest)"
-        )
-    splits, norm_params = cvs_data.load_splits(config, device=device)
+    params: from the reference's pickles in ``config.reference_data_dir``
+    when it is set, else from ``cvs.npz``. ``device`` is where a missing
+    ``cvs.npz`` is generated."""
+    splits, norm_params = cvs_data.load_splits(config, reference_dir=config.get("reference_data_dir"), device=device)
     transforms = create_transforms(config.norm, norm_params)
     out = {name: to_model_layout(normalize_split(split, transforms)) for name, split in splits.items()}
     return out, norm_params
 
 
-def check_ported(config) -> None:
-    """Raise for the options every driver has that are not ported yet."""
+def check_plotting(config) -> None:
+    """With plotting on, raise before any work when matplotlib, or
+    scikit-learn for the plot epochs' latent t-SNE, cannot be imported."""
     if config.get("plot", True):
-        raise NotImplementedError("plotting is not ported yet (ROADMAP A11-rest): pass --no-plot")
+        plotting.require(latent=bool(config.get("plot_epoch")))
 
 
 def refit_priors(config, spec, ts, best, seed: int, train_split, rng):
@@ -87,7 +97,7 @@ def refit_priors(config, spec, ts, best, seed: int, train_split, rng):
 
 
 def train(config, device="cuda"):
-    check_ported(config)
+    check_plotting(config)
     device = resolve_device(device)
     full_fp32(deterministic=True)
     print(config.to_json())
@@ -117,6 +127,19 @@ def train(config, device="cuda"):
             return {"params": params_now, "epoch": epoch, "criterion": val_elbo}
         return best
 
+    def on_epoch(epoch, state, val_post, val_prior, train_post, train_prior):
+        if plots_due(config, epoch):
+            plotting.plot_label_grid(
+                out_dir,
+                f"val_{epoch}_post",
+                val_post.observations,
+                val_post.recon,
+                times,
+                {"iext": val_post.labels["iext"], "rtpr": val_post.labels["rtpr"]},
+                CHANNELS,
+            )
+            plotting.visualize_latent(out_dir, val_post.recon["z"], val_prior.recon["z"], epoch, config.seed)
+
     state, best = run_training_epochs(
         spec=spec,
         state=state,
@@ -127,9 +150,12 @@ def train(config, device="cuda"):
         rng=rng,
         eval_seed=fold_seed(seed, "eval"),
         select_best=select_best,
+        on_epoch=on_epoch,
+        eval_fns=eval_fns,
         eval_train_stats=config.get("eval_train_stats", True),
         put_batch=put_batch,
         eval_every=config.get("eval_every", 1),
+        checkpoint_path=os.path.join(out_dir, "train_state.npz"),
         checkpoint_every=config.get("checkpoint_every", 0),
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),
@@ -148,6 +174,17 @@ def train(config, device="cuda"):
     )
     artifacts.dump_recon(out_dir, "post", test_post.recon)
     artifacts.dump_recon(out_dir, "prior", test_prior.recon)
+    if config.get("plot", True):
+        for tag, stats in (("post", test_post), ("prior", test_prior)):
+            plotting.plot_label_grid(
+                out_dir,
+                f"test_{best['epoch']}_{tag}",
+                stats.observations,
+                stats.recon,
+                times,
+                {"iext": stats.labels["iext"], "rtpr": stats.labels["rtpr"]},
+                CHANNELS,
+            )
     checkpoint.save(
         os.path.join(out_dir, "best_model.npz"),
         params_to_jax(best["params"]),
@@ -213,15 +250,16 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--ode-atol", type=float, default=None)
     p.add_argument("--data-path", default=None)
     p.add_argument("--results-root", default=".")
-    p.add_argument("--no-plot", action="store_true", help="required until plotting is ported (ROADMAP A11-rest)")
+    p.add_argument("--no-plot", action="store_true",
+                   help="draw no plots (then the run needs neither matplotlib nor scikit-learn)")
     p.add_argument("--eval-every", type=int, default=1,
                    help="evaluate val/train stats every N epochs (faster)")
     p.add_argument("--checkpoint-every", type=int, default=0,
-                   help="persist full training state every N epochs (not ported yet: ROADMAP A10-rest)")
+                   help="persist full training state every N epochs")
     p.add_argument("--profile-dir", default=None,
-                   help="capture a profiler trace of one epoch (not ported yet: ROADMAP A17)")
+                   help="write a torch.profiler trace of one epoch into this directory")
     p.add_argument("--resume", action="store_true",
-                   help="resume from results_<Model>/train_state.npz (not ported yet: ROADMAP A10-rest)")
+                   help="resume from results_<Model>/train_state.npz")
     p.add_argument("--no-eval-train", action="store_true",
                    help="skip per-epoch train-split statistics (faster)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; no CPU fallback)")
@@ -234,7 +272,7 @@ def parse_args(argv=None):
     p.add_argument("--quantile-diff", type=float, default=None)
     p.add_argument("--solver", default=None)
     p.add_argument("--reference-data-dir", default=None,
-                   help="load the upstream torch pickles (not ported yet: ROADMAP A8-rest)")
+                   help="load the upstream torch pickles instead of generating")
     return p.parse_args(argv)
 
 

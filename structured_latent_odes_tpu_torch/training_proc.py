@@ -16,11 +16,11 @@ Parameters come from the port's ``init_params(spec, seed)`` and every draw
 from the port's counter hash, so a run is not the JAX run of the same seed,
 draw for draw.
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-plotting (A11-rest; pass ``--no-plot``), ``--checkpoint-every`` and ``--resume``
-(A10-rest) and ``--profile-dir`` and ``--data-parallel``/``--time-parallel``
-(A17). ``--prior-refit-epochs`` refits the conditional priors after training,
-as the JAX driver does.
+``--checkpoint-every``, ``--resume``, ``--profile-dir`` and the plots work as
+in ``training_cvs.py``. Not ported yet, raising ``NotImplementedError`` with
+its ROADMAP item: ``--data-parallel``/``--time-parallel`` (A17).
+``--prior-refit-epochs`` refits the conditional priors after training, as the
+JAX driver does.
 """
 
 from __future__ import annotations
@@ -39,19 +39,22 @@ from structured_latent_odes_tpu_torch.models import init_params, proc_spec
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
 from structured_latent_odes_tpu_torch.train.backend import make_training_backend
-from structured_latent_odes_tpu_torch.train.driver import final_test_eval, run_training_epochs
+from structured_latent_odes_tpu_torch.train.driver import final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
 from structured_latent_odes_tpu_torch.training_challenge import dump_sample_bands
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_ported, configure, refit_priors
+from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_plotting, configure, refit_priors
+from structured_latent_odes_tpu_torch.utils import plotting
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 log = logging.getLogger("slode")
 
+CHANNELS = ("OD", "mRFP1", "EYFP", "ECFP")
+
 
 def train(config, device="cuda"):
-    check_ported(config)
+    check_plotting(config)
     device = resolve_device(device)
     full_fp32(deterministic=True)
     print(config.to_json())
@@ -80,6 +83,20 @@ def train(config, device="cuda"):
             return {"params": params_now, "epoch": epoch + 1, "criterion": val_elbo}
         return best
 
+    def on_epoch(epoch, state, val_post, val_prior, train_post, train_prior):
+        if plots_due(config, epoch):
+            plotting.plot_by_device(
+                out_dir,
+                f"val_{epoch}_post",
+                val_post.observations,
+                val_post.recon,
+                times,
+                np.concatenate([val_post.labels["aR"], val_post.labels["aS"]], axis=1),
+                np.concatenate([val_post.labels["C12"], val_post.labels["C6"]], axis=1),
+                CHANNELS,
+            )
+            plotting.visualize_latent(out_dir, val_post.recon["z"], val_prior.recon["z"], epoch, config.seed)
+
     state, best = run_training_epochs(
         spec=spec,
         state=state,
@@ -90,9 +107,12 @@ def train(config, device="cuda"):
         rng=rng,
         eval_seed=fold_seed(seed, "eval"),
         select_best=select_best,
+        on_epoch=on_epoch,
+        eval_fns=eval_fns,
         eval_train_stats=config.get("eval_train_stats", True),
         put_batch=put_batch,
         eval_every=config.get("eval_every", 1),
+        checkpoint_path=os.path.join(out_dir, "train_state.npz"),
         checkpoint_every=config.get("checkpoint_every", 0),
         resume=config.get("resume", False),
         profile_dir=config.get("profile_dir"),

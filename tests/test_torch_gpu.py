@@ -17,7 +17,14 @@ weights reach |x| of tens, where float32 roundoff accumulated over 85 steps
 differs by about 1e-6 relative between two summation orders. K3's weight
 gradients are sums over the batch, steps and stages in another order: each
 leaf within 1e-5 of its largest value.
+
+Beyond the kernels: a CVS run on semilinear_fused resumed from its
+checkpoint is bit for bit the uninterrupted run, and the profiler trace of
+an epoch names K2's and K3's kernels among its device events.
 """
+
+import json
+import os
 
 import numpy as np
 import pytest
@@ -482,3 +489,53 @@ def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
     assert torch.equal(out, ref)
     for g, r in zip(grads, ref_grads):
         assert torch.equal(g, r)
+
+
+def _cvs_run(cuda, data_dir, root, *extra):
+    from structured_latent_odes_tpu_torch import training_cvs
+
+    return training_cvs.main(["--data-path", data_dir, "--results-root", str(root), "--no-plot", "--ode-backend",
+                              "semilinear_fused", "--mini-batch-size", "16", "--device", str(cuda), *extra])
+
+
+@pytest.fixture
+def tiny_cvs(cuda, tmp_path):
+    from structured_latent_odes_tpu_torch.data.cvs import make_dataset
+
+    d = str(tmp_path / "cvs")
+    make_dataset(d, data_size=60, seed=0, device=cuda)
+    return d
+
+
+def _arrays(rd):
+    """Every leaf of train_state.npz and best_model.npz and every .npy."""
+    out = {}
+    for npz in ("train_state.npz", "best_model.npz"):
+        with np.load(os.path.join(rd, npz)) as z, open(os.path.join(rd, npz + ".json")) as f:
+            out.update({f"{npz}:{p}": z[f"leaf_{i}"] for i, p in enumerate(json.load(f)["paths"])})
+    out.update({n: np.load(os.path.join(rd, n)) for n in os.listdir(rd) if n.endswith(".npy")})
+    return out
+
+
+def test_cvs_resume_is_bit_equal_on_card(cuda, tiny_cvs, tmp_path):
+    """Epochs 0-1 of CVS on semilinear_fused (full width, 60 trajectories)
+    uninterrupted, against epoch 0 and --resume to epoch 1: every array bit
+    for bit equal, and the resumed run launches K2 and K3."""
+    full = _cvs_run(cuda, tiny_cvs, tmp_path / "full", "--num-epochs", "1", "--checkpoint-every", "1")
+    _cvs_run(cuda, tiny_cvs, tmp_path / "part", "--num-epochs", "0", "--checkpoint-every", "1")
+    k2, k3 = fused_step.fused_semilinear_fwd.launches, fused_step.fused_semilinear_bwd.launches
+    resumed = _cvs_run(cuda, tiny_cvs, tmp_path / "part", "--num-epochs", "1", "--checkpoint-every", "1", "--resume")
+    assert fused_step.fused_semilinear_fwd.launches > k2 and fused_step.fused_semilinear_bwd.launches > k3
+    a, b = _arrays(full["out_dir"]), _arrays(resumed["out_dir"])
+    assert sorted(a) == sorted(b) and len(a) > 100
+    for name in a:
+        assert a[name].dtype == b[name].dtype and np.array_equal(a[name], b[name]), name
+
+
+def test_profiler_trace_names_the_fused_kernels(cuda, tiny_cvs, tmp_path):
+    _cvs_run(cuda, tiny_cvs, tmp_path / "run", "--num-epochs", "1", "--profile-dir", str(tmp_path / "prof"))
+    (name,) = os.listdir(tmp_path / "prof")
+    with open(tmp_path / "prof" / name) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    for pattern in ("fused_semilinear_fwd_kernel", "fused_semilinear_bwd_kernel"):
+        assert any(pattern in k for k in kernels), (pattern, sorted(kernels)[:20])

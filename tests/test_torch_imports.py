@@ -1,9 +1,11 @@
 """Import guard: no module of the PyTorch port, and nothing ``chip_smoke.py``
-imports, loads ``jax``, ``optax``, ``pandas``, ``matplotlib`` or any module
-of the JAX package. Run in a subprocess with those blocked, so an import of
-any fails loudly; every module of the port is walked, the training slice's,
-the proc and challenge workloads', the sweep's and the generic, adjoint and
-adaptive solvers' included."""
+imports, loads ``jax``, ``optax``, ``pandas``, ``matplotlib``, ``sklearn``
+or any module of the JAX package. Run in a subprocess with those blocked,
+so an import of any fails loudly; every module of the port is walked, the
+training slice's, the proc and challenge workloads', the sweep's, the
+generic, adjoint and adaptive solvers', the native loader's, the
+profiler's, and the plotting and figure modules' included (these two import
+matplotlib only when they draw)."""
 
 import os
 import subprocess
@@ -21,7 +23,8 @@ _CHILD = textwrap.dedent(
     sys.modules["jax"] = None  # any import of jax now raises
     sys.modules["optax"] = None
     sys.modules["pandas"] = None  # the card's machine has no pandas
-    sys.modules["matplotlib"] = None  # nor matplotlib (the port's eval is numpy only)
+    sys.modules["matplotlib"] = None  # nor matplotlib: plotting imports it when it draws
+    sys.modules["sklearn"] = None  # nor scikit-learn
     import structured_latent_odes_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
     for name in names:
@@ -43,9 +46,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 49  # every module of the port was imported
+    assert len(walked) >= 53  # every module of the port was imported
     training = {"prob.elbo", "train.svi", "train.driver", "train.backend", "train.artifacts",
                 "train.metrics", "utils.rng", "utils.device", "training_cvs", "data.proc",
                 "data.challenge", "training_proc", "training_challenge", "train.ensemble", "sweep",
-                "eval", "eval.metrics", "eval.__main__", "ode.solvers", "ode.adjoint"}
+                "eval", "eval.metrics", "eval.__main__", "ode.solvers", "ode.adjoint",
+                "native", "utils.profiling", "utils.plotting", "eval.figures"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked

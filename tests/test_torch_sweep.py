@@ -35,6 +35,7 @@ from structured_latent_odes_tpu_torch.eval import metrics
 from structured_latent_odes_tpu_torch.utils.device import full_fp32
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
+from _torch_reference_pickles import write_reference_pickles
 
 K, T, N, DRAWS = 3, 10, 12, 4
 
@@ -196,9 +197,17 @@ def test_eval_cli_matches_jax(artifact_dirs, dataset, capsys):
     assert len(lines) == 2 and lines[0] == lines[1]
 
 
-def test_eval_cli_figures_name_their_roadmap_item(artifact_dirs):
-    with pytest.raises(NotImplementedError, match="A11-rest"):
-        eval_cli.main(["cvs", artifact_dirs["cvs"], "--figures"])
+def test_eval_cli_figures_name_their_roadmap_item(artifact_dirs, tmp_path):
+    """--figures is ported (ROADMAP A11-rest): it draws the CVS figures
+    (tests/test_torch_figures.py holds them pixel for pixel to JAX's)."""
+    import shutil
+
+    d = shutil.copytree(artifact_dirs["cvs"], str(tmp_path / "cvs"))
+    for tag in ("post", "prior"):  # the contract's (N, T, D) state trajectories
+        np.save(os.path.join(d, f"solution_xt_{tag}.npy"), np.random.RandomState(0).randn(N, T, 5).astype(np.float32))
+    eval_cli.main(["cvs", d, "--figures"])
+    assert {f"{name}_{tag}.png" for name in ("agg_bands", "latent_dynamics") for tag in ("post", "prior")} <= set(
+        os.listdir(d))
 
 
 def _members(root, dataset, split_seeds):
@@ -346,10 +355,20 @@ def test_sweep_cli_challenge_without_data_seed_averages_nothing(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--ensemble-parallel", "2"], "A17"),
     (["--ensemble-data-parallel", "2"], "A17"),
-    (["--reference-data-dir", "ref"], "A8-rest"),
+    (["--reference-data-dir", "ref"], None),  # ported (A8-rest): a sweep from the reference's pickles
     (["--ode-backend", "semilinear_timepar"], "A17"),
 ], ids=["ensemble-parallel", "ensemble-data-parallel", "reference-data", "semilinear_timepar"])
-def test_unported_sweep_options_raise(tmp_path, argv, item):
+def test_unported_sweep_options_raise(cvs_data, tmp_path, argv, item):
+    """Each sweep option not ported yet raises, naming its ROADMAP item; one
+    ported since (item None) runs: "ref" is a directory of pickles written
+    from ``cvs_data``."""
+    if item is None:
+        ref = write_reference_pickles(os.path.join(cvs_data, "cvs.npz"), str(tmp_path / "ref"))
+        root = str(tmp_path / "sweep")
+        out = sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--num-epochs", "0", "--mini-batch-size", "16",
+                          "--results-root", root, "--reference-data-dir", ref])
+        _check_sweep(root, out, [3, 4])
+        return
     with pytest.raises(NotImplementedError, match=item):
         sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--results-root", str(tmp_path)] + argv)
 

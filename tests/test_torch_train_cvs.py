@@ -3,7 +3,7 @@
 JAX package's ``.npy`` artifact contract, which the JAX package's eval scores
 unchanged, and a ``best_model.npz`` that both packages' ``serve.load_model``
 restore. The options that are not ported yet raise, naming their ROADMAP
-item.
+item; those ported since run.
 """
 
 import os
@@ -18,6 +18,7 @@ from structured_latent_odes_tpu_torch import training_cvs
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
+from _torch_reference_pickles import write_reference_pickles
 
 # the artifact files of tests/test_e2e_cvs.py, plus the rest of the contract
 ARTIFACTS = (
@@ -98,21 +99,33 @@ def test_checkpoint_restores_in_both_packages(trained, data_dir):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--num-epochs", "1", "--device", "cpu"], "A11"),  # plotting on
-    (ARGS + ["--checkpoint-every", "1"], "A10-rest"),
-    (ARGS + ["--resume"], "A10-rest"),
-    (ARGS + ["--profile-dir", "prof"], "A17"),
+    (["--num-epochs", "1", "--device", "cpu"], None),  # plotting on: ported, runs and draws
+    (ARGS + ["--checkpoint-every", "1"], None),  # ported: runs (tests/test_torch_resume.py holds resume)
+    (ARGS + ["--resume"], None),  # ported: no train_state.npz, so a fresh run
+    (ARGS + ["--profile-dir", "prof"], None),  # ported: runs (tests/test_torch_profiling.py)
     (ARGS + ["--data-parallel", "2"], "A17"),
     (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
-    (ARGS + ["--reference-data-dir", "ref"], "A8-rest"),
+    (ARGS + ["--reference-data-dir", "ref"], None),  # ported: reads pickles (tests/test_torch_cvs_pickles.py)
 ], ids=["plot", "checkpoint-every", "resume", "profile-dir", "data-parallel", "prior-refit", "reference-data"])
 def test_unported_options_raise(data_dir, tmp_path, argv, item):
     """Each option not ported yet raises, naming its ROADMAP item; an option
-    ported since (item None) runs to the end instead."""
+    ported since (item None) runs to the end instead, and writes what it is
+    for. Relative paths in ``argv`` name directories under ``tmp_path``; the
+    reference pickles are written there from ``data_dir``'s ``cvs.npz``."""
+    argv = [str(tmp_path / a) if a in ("prof", "ref") else a for a in argv]
+    if "--reference-data-dir" in argv:
+        write_reference_pickles(os.path.join(data_dir, "cvs.npz"), str(tmp_path / "ref"))
     argv = ["--data-path", data_dir, "--results-root", str(tmp_path)] + argv
     if item is None:
         out = training_cvs.main(argv)
         assert all(torch.isfinite(p).all() for p in jax.tree.leaves(out["best"]["params"]))
+        rd = out["out_dir"]
+        if "--checkpoint-every" in argv:
+            assert os.path.exists(os.path.join(rd, "train_state.npz"))
+        if "--profile-dir" in argv:
+            assert len(os.listdir(tmp_path / "prof")) == 1
+        if "--no-plot" not in argv:
+            assert {"val_0_post.png", "z_TSNE_0.png", f"test_{out['best']['epoch']}_post.png"} <= set(os.listdir(rd))
         return
     with pytest.raises(NotImplementedError, match=item):
         training_cvs.main(argv)

@@ -8,7 +8,7 @@ restore. The selection policies hold: proc keeps the lowest val ELBO and
 records ``epoch + 1`` (under ``--heldout`` the last epoch), challenge keeps
 the lowest mean train loss; challenge's minibatch is clamped to 32 for its 28
 train subjects. The options that are not ported yet raise, naming their
-ROADMAP item.
+ROADMAP item; those ported since run.
 """
 
 import os
@@ -150,10 +150,10 @@ def test_proc_heldout_overwrites_every_epoch(tmp_path):
 
 
 UNPORTED = [
-    (["--num-epochs", "1", "--device", "cpu"], "A11"),  # plotting on
-    (ARGS + ["--checkpoint-every", "1"], "A10-rest"),
-    (ARGS + ["--resume"], "A10-rest"),
-    (ARGS + ["--profile-dir", "prof"], "A17"),
+    (["--num-epochs", "1", "--num-samples", "2", "--device", "cpu"], None),  # plotting on: ported, draws
+    (ARGS + ["--checkpoint-every", "1"], None),  # ported: runs (tests/test_torch_resume.py holds resume)
+    (ARGS + ["--resume"], None),  # ported: no train_state.npz, so a fresh run
+    (ARGS + ["--profile-dir", "prof"], None),  # ported: runs (tests/test_torch_profiling.py)
     (ARGS + ["--data-parallel", "2"], "A17"),
     (ARGS + ["--time-parallel", "2"], "A17"),
     (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
@@ -168,11 +168,20 @@ UNPORTED_IDS = ["plot", "checkpoint-every", "resume", "profile-dir", "data-paral
 @pytest.mark.parametrize("dataset", ["proc", "challenge"])
 def test_unported_options_raise(dataset, tmp_path, argv, item):
     """Each option not ported yet raises, naming its ROADMAP item; an option
-    ported since (item None) runs to the end instead."""
-    argv = ["--results-root", str(tmp_path)] + argv
+    ported since (item None) runs to the end instead, and writes what it is
+    for ("prof" names a directory under ``tmp_path``)."""
+    argv = ["--results-root", str(tmp_path)] + [str(tmp_path / a) if a == "prof" else a for a in argv]
     if item is None:
         out = DRIVERS[dataset].main(argv)
         assert all(torch.isfinite(p).all() for p in tree_leaves(out["best"]["params"]))
+        files = set(os.listdir(out["out_dir"]))
+        if "--checkpoint-every" in argv:
+            assert "train_state.npz" in files
+        if "--profile-dir" in argv:
+            assert len(os.listdir(tmp_path / "prof")) == 1
+        if "--no-plot" not in argv:
+            val = "val_0_post.png" if dataset == "challenge" else "val_0_post_dev_0_0_1_0_0_0_1.png"
+            assert {val, "z_TSNE_0.png"} <= files, sorted(files)
         return
     with pytest.raises(NotImplementedError, match=item):
         DRIVERS[dataset].main(argv)
