@@ -119,14 +119,40 @@ Phases, each fatal on any fault:
    matplotlib or scikit-learn a CVS run with plots on must raise naming the
    package and --no-plot before its first launch; with both, one epoch's
    plots are drawn. The phase prints its wall time.
+10. ranks (ROADMAP A17), at CVS full width (B = 128, T = 86, latent 15,
+   (H, D) = (25, 5)): two ranks spawned once (parallel/launch.py RankPool)
+   share cuda:0 over gloo, since NCCL refuses two ranks on one GPU, and run
+   every case; the parent computes the one-device references. (a) The
+   data-parallel dual step through an NCCL group of one rank, bit for bit
+   the one-device step, launching K2 and K3. (b) The data-parallel dual
+   step on both ranks, 64 rows each, on semilinear_fused (K2, K3) and
+   semilinear (K1, K1-bwd): loss rtol 1e-5, params rtol 1e-4 and atol 1e-5
+   of the one-device step, the summed main and aux gradients that the
+   step's updates took within 1e-5 of each leaf's largest (at least 1) of
+   the one-device step's, the ranks' params bit for bit equal. (c) The
+   horizon over both ranks (semilinear_timepar): the solve's values, the
+   main loss's gradients and a dual step against semilinear on one device,
+   launching K1 and K1-bwd, and the recurrence of 4096 steps
+   (solve_affine_recurrence_timepar) against K1. (d) A CVS sweep of four
+   members over --ensemble-parallel 2 on semilinear_fused, one epoch beyond
+   epoch 0, against the unsharded sweep in member groups of two at the
+   ranks' intra-op thread count (the JAX package's member-sharded bound, params rtol 1e-5 and atol 1e-7,
+   Adam's moments within 1e-5 of each leaf's largest), and its params
+   against the unsharded stack of all four (the stacked-member bound, rtol
+   2e-4 and atol 1e-6). (e) training_cvs with
+   --data-parallel 2 on one card raises before any launch, naming the card
+   count. Launch counts are zeroed and read in each rank per case, and
+   printed; the times are labelled as two ranks sharing one card over gloo:
+   they describe this rehearsal, not the speed of several cards. The phase
+   prints a {"ranks": ...} line of its times and worst errors.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
 dual steps, as the trainers ask, and its fastest ones in serving
 (utils/device.py::full_fp32).
 
-Prints a {"kernels": [...]} line, then the nvidia-smi line, then the last
-line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+Prints a {"ranks": ...} line, a {"kernels": [...]} line, then the
+nvidia-smi line, then the last line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 before printing any result.
 """
 
@@ -162,6 +188,10 @@ from structured_latent_odes_tpu_torch.nn.ode_model import (
 )
 from structured_latent_odes_tpu_torch.ode import solvers
 from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
+from structured_latent_odes_tpu_torch.parallel import launch, timepar
+from structured_latent_odes_tpu_torch.parallel import mesh as mesh_module
+from structured_latent_odes_tpu_torch.parallel import train as dp_train
+from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batch
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
@@ -2009,6 +2039,366 @@ def phase_plot_check(device, workdir: str, data_dir: str, rehearse: bool, paths:
     print(f"plotting: matplotlib and scikit-learn here; one epoch drew {pngs}", flush=True)
 
 
+# Phase 10: data, time and member parallelism over ranks (ROADMAP A17). The
+# card's machine has one H100 and NCCL refuses two ranks on one GPU, so two
+# spawned ranks share cuda:0 over gloo (named explicitly), and NCCL runs as a
+# group of one rank. The ranks start once and run every case; the parent
+# computes the one-device references. Bounds: the data-parallel step against
+# one device, loss rtol 1e-5, params rtol 1e-4 and atol 1e-5
+# (tests/test_parallel.py of the JAX package), and the summed gradients its
+# updates took within 1e-5 of each leaf's largest, at least 1 (the port's
+# gradient bound against JAX; Adam's update hardly moves when every
+# gradient is scaled alike, so the params alone would not show a mean taken
+# for a sum); the time-parallel solve's
+# values atol 1e-5 (tests/test_timepar.py, where |x| stays below 1) plus
+# 1e-5 relative, K2's rule above (at random weights |x| reaches 75, and the
+# blocked scan's pA * carry + pB rounds apart from the sequential recurrence
+# by float32 roundoff of |x|: 3.8e-5 at |x| = 75 on the CPU), the recurrence
+# of LONG_T steps (|x| below 1) atol 1e-5; its gradients and the step's
+# params rtol 1e-3 and atol 1e-4 (tests/test_timepar.py); a member-sharded
+# sweep against the unsharded one run in member groups of a rank's size
+# (each rank's stacked step holds the same members) at the ranks' intra-op
+# thread count (init_params' orthogonal init is a QR on the host, and it
+# rounds otherwise at another count: 3.0 times the bound below between 4
+# and 8 threads on the card's host): criterion rtol 1e-6,
+# best epochs equal, params rtol 1e-5 and atol 1e-7 (the JAX package's
+# member-sharded bound, tests/test_ensemble.py) and Adam's moments, sums of
+# gradients in the hundreds, within 1e-5 of each leaf's largest; and against
+# the unsharded stack of all members within phase 7's member bound, rtol
+# 2e-4 and atol 1e-6, since batched products round differently at another
+# member count. The NCCL group of one is held bit for bit.
+RANKS_LABEL = "two ranks sharing one card over gloo"
+DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-5, 1e-4, 1e-5
+TP_VALUE_ATOL, TP_VALUE_RTOL, TP_RTOL, TP_ATOL = 1e-5, 1e-5, 1e-3, 1e-4
+DP_GRAD_TOL = 1e-5
+ENS_RTOL, ENS_ATOL, ENS_CRIT_RTOL = 1e-5, 1e-7, 1e-6
+STACKED_RTOL, STACKED_ATOL = 2e-4, 1e-6
+RANK_STEPS = 5  # timed dual steps per case, after the counted one
+RANK_THREADS = 4  # intra-op threads per rank: two ranks on the machine's 8 cores
+
+
+def _np_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _dual_step_ms(step, state, batch, n: int, device) -> float:
+    """Median host time of ``n`` dual steps, each ending in a synchronise."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, _m = step(state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _rank_world() -> int:
+    return torch.distributed.get_world_size()
+
+
+def _rank_dp_step(c: dict):
+    """On each rank of the data-parallel grid over ranks ``c['ranks']``
+    (groups of ``c['group_backend']``): one dual step on this rank's rows,
+    launches counted, with the summed main and aux gradients its updates
+    took (what the data group's sum, mesh.all_reduce_tree, returned), then
+    ``c['steps']`` timed. A rank outside the grid returns None."""
+    grid = make_mesh(len(c["ranks"]), 1, ranks=c["ranks"], backend=c["group_backend"])
+    if grid is None:
+        return None
+    device = torch.device(c["device"])
+    full_fp32(deterministic=True)
+    spec = cvs_spec(_config(c["data_dir"], c["backend"]))
+    params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
+    ts = torch.as_tensor(c["times"], device=device)
+    init_state, step, _ = dp_train.make_dp_train_step(spec, ts, c["lr"], params, grid)
+    batch = device_batch(shard_batch(grid, c["batch"]), device)
+    state = init_state(params, c["seed"])
+    seen, summed = [], mesh_module.all_reduce_tree
+    mesh_module.all_reduce_tree = lambda tree, group: seen.append(summed(tree, group)) or seen[-1]
+    zero_counts()
+    try:
+        new, mets = step(state, batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        mesh_module.all_reduce_tree = summed
+    counts = read_counts()
+    return {"params": _np_tree(new.params), "loss_main": float(mets["loss_main"]),
+            "loss_aux": float(mets["loss_aux"]), "counts": counts, "rows": int(batch["mask"].shape[0]),
+            "grads": [_np_tree(seen[0]), _np_tree(seen[1][0])],
+            "ms": _dual_step_ms(step, new, batch, c["steps"], device)}
+
+
+def _rank_tp_case(c: dict):
+    """On a time grid of both ranks: the decoder ODE's solve on
+    semilinear_timepar (values), the main loss's gradients, one counted dual
+    step and timed ones, all at the training batch; then the recurrence of
+    ``c['long_T']`` steps through solve_affine_recurrence_timepar, its
+    launches counted."""
+    grid = make_mesh(1, 2)
+    device = torch.device(c["device"])
+    full_fp32(deterministic=True)
+    cfg = _config(c["data_dir"], "semilinear")
+    cfg.time_parallel = 2  # models/zoo.py: the semilinear_timepar backend
+    spec = cvs_spec(cfg)
+    params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
+    ts = torch.as_tensor(c["times"], device=device)
+    batch = device_batch(c["batch"], device)
+    out = {}
+    with timepar.time_sharding(grid):
+        zero_counts()
+        with torch.no_grad():
+            out["solve"] = solve_ode(spec.decoder.ode, params["decoder"]["ode"], torch.as_tensor(c["z"], device=device),
+                                     ts).cpu().numpy()
+        main_loss, _ = svi.make_losses(spec, ts)
+        _, _, grads = svi.value_and_grad(main_loss, params, 7, batch)
+        out["grads"] = _np_tree(grads)
+        init_state, step, _ = dp_train.make_dp_train_step(spec, ts, c["lr"], params, grid)
+        new, mets = step(init_state(params, c["seed"]), batch)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        out["counts"] = read_counts()
+        out.update(params=_np_tree(new.params), loss_main=float(mets["loss_main"]),
+                   loss_aux=float(mets["loss_aux"]), ms=_dual_step_ms(step, new, batch, c["steps"], device))
+    A, B, x0 = (torch.as_tensor(a, device=device) for a in c["long"])
+    zero_counts()
+    t0 = time.perf_counter()
+    xs = timepar.solve_affine_recurrence_timepar(A, B, x0, mesh=grid)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out.update(long_ms=(time.perf_counter() - t0) * 1e3, long_counts=read_counts(), long=xs.cpu().numpy())
+    return out
+
+
+def _rank_sweep(argv):
+    """sweep.run in the ranks' group: rank 0's summary and stacked result,
+    and each rank's launches."""
+    zero_counts()
+    run = sweep.run(sweep.parse_args(argv))
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    counts = read_counts()
+    return {"counts": counts, "summary": None if run is None else run.summary,
+            "result": None if run is None else run.result}
+
+
+def _one_device_step(spec, params, batch, ts, lr: float, seed: int):
+    """One dual step on one device: the state, metrics, the step, and the
+    main and aux gradients its updates took (the ``reduce`` hook's input,
+    recorded by a second step on the same inputs)."""
+    init_state, step, _ = svi.make_train_step(spec, ts, lr, params)
+    state, mets = step(init_state(params, seed), batch)
+    seen = []
+    init_rec, step_rec, _ = svi.make_train_step(spec, ts, lr, params, reduce=lambda tree: seen.append(tree) or tree)
+    step_rec(init_rec(params, seed), batch)
+    return state, mets, step, [seen[0], seen[1][0]]
+
+
+def grad_ratio(got, ref) -> float:
+    """The worst leaf's max |got - ref| over DP_GRAD_TOL times its largest
+    |ref| (at least 1): <= 1 within tolerance."""
+    return max(float((torch.as_tensor(g) - r.cpu()).abs().max()) / (DP_GRAD_TOL * max(float(r.abs().max()), 1.0))
+               for g, r in zip(tree_leaves(got), tree_leaves(ref)))
+
+
+def _hold_step(name: str, out: dict, ref_state, ref_mets, loss_rtol: float, rtol: float, atol: float,
+               ref_grads=None) -> dict:
+    """The worst loss error over its rtol, the worst param error over
+    ``atol + rtol*|ref|`` and, given ``ref_grads``, the worst gradient
+    error (:func:`grad_ratio`); fails past 1."""
+    loss = max(abs(out[k] - float(ref_mets[k])) / (loss_rtol * abs(float(ref_mets[k])))
+               for k in ("loss_main", "loss_aux"))
+    par = max(ratio(torch.as_tensor(o), r.cpu(), atol, rtol)
+              for o, r in zip(tree_leaves(out["params"]), tree_leaves(ref_state.params)))
+    grads = 0.0 if ref_grads is None else max(grad_ratio(g, r) for g, r in zip(out["grads"], ref_grads))
+    print(f"{name}: losses {out['loss_main']:.6f}, {out['loss_aux']:.6f}; loss error / tolerance {loss:.3e}, "
+          f"params error / tolerance {par:.3e}" +
+          ("" if ref_grads is None else f", summed main and aux gradients {grads:.3e}"), flush=True)
+    check(loss <= 1.0 and par <= 1.0 and grads <= 1.0, f"{name}: disagrees with the one-device step")
+    return {"loss": loss, "params": par, "grads": grads}
+
+
+def _check_rank_counts(paths: dict, name: str, counts: dict, expected, rehearse: bool) -> None:
+    paths[name] = counts
+    print(f"launches {name}: {counts}", flush=True)
+    for key, n in counts.items():
+        want = key in expected and not rehearse
+        check(n > 0 if want else n == 0, f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
+
+
+def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
+    """Phase 10 (module comment above): (a) the data-parallel dual step
+    through an NCCL group of one rank, bit for bit the one-device step; (b)
+    two gloo ranks on the card, 64 rows each, on semilinear_fused (K2, K3)
+    and semilinear (K1, K1-bwd); (c) the horizon over two ranks
+    (semilinear_timepar: K1, K1-bwd) at the training batch, and the
+    recurrence at LONG_T steps against K1; (d) a CVS sweep of four members
+    over --ensemble-parallel 2 on semilinear_fused against the unsharded
+    sweep; (e) the CLI with --data-parallel 2 on one card raises before any
+    launch, naming the card count. Launches are counted per rank and case."""
+    t_phase = time.perf_counter()
+    full_fp32(deterministic=True)
+    cfg = _config(data_dir, "semilinear")
+    splits = training_cvs.build_splits(cfg, device=device)[0]
+    B = 8 if rehearse else TRAIN_B
+    batch = {k: v[0] for k, v in stacked_minibatches(splits["train"], B, shuffle=False).items()}
+    times = np.arange(86.0, dtype=np.float32)
+    ts = torch.as_tensor(times, device=device)
+    lr, seed = cfg.learning_rate, fold_seed(12, "train")
+    params = init_params(cvs_spec(cfg), 0, device=device)
+    dbatch = device_batch(batch, device)
+    pool_device = "cpu" if rehearse else "cuda:0"
+    steps = 2 if rehearse else RANK_STEPS
+    base = dict(params=_np_tree(params), batch=batch, times=times, seed=seed, lr=lr, device=pool_device,
+                data_dir=data_dir, steps=steps)
+    long_t = 256 if rehearse else LONG_T
+    gen = torch.Generator().manual_seed(10)
+    long = ((torch.rand((B, long_t - 1, 5), generator=gen) * 0.05 + 0.95),
+            (torch.rand((B, long_t - 1, 5), generator=gen) - 0.5) * 0.02, torch.rand((B, 5), generator=gen))
+    z = torch.randn((B, 15), generator=gen)
+    refs = {b: _one_device_step(cvs_spec(_config(data_dir, b)), params, dbatch, ts, lr, seed)
+            for b in ("semilinear", "semilinear_fused")}
+    ref_ms = {b: _dual_step_ms(r[2], r[0], dbatch, steps, device) for b, r in refs.items()}
+    res = {"label": RANKS_LABEL, "one_device_step_ms": ref_ms}
+    t0 = time.perf_counter()
+    rank_threads = torch.get_num_threads() if rehearse else RANK_THREADS
+    with launch.RankPool(2, device=pool_device, backend="gloo", timeout_s=300, threads=rank_threads,
+                         quiet=True) as pool:
+        pool.run(_rank_world)
+        res["ranks_start_s"] = time.perf_counter() - t0
+        print(f"== two ranks up in {res['ranks_start_s']:.1f} s ({RANKS_LABEL}; {smi})", flush=True)
+
+        # (a) NCCL, a group of one rank on cuda:0 (gloo in a rehearsal)
+        a = pool.run(_rank_dp_step, dict(base, ranks=[0], group_backend="gloo" if rehearse else "nccl",
+                                         backend="semilinear_fused"))[0]
+        state, mets, _, grads = refs["semilinear_fused"]
+        same = all(np.array_equal(o, r.cpu().numpy()) for o, r in zip(tree_leaves([a["params"], a["grads"]]),
+                                                                       tree_leaves([state.params, grads])))
+        same = same and a["loss_main"] == float(mets["loss_main"]) and a["loss_aux"] == float(mets["loss_aux"])
+        print(f"(a) data-parallel dual step through an NCCL group of one rank, B={B}: bit for bit the one-device "
+              f"step (losses, gradients, params): {same}; {a['ms']:.3f} ms a step, one device "
+              f"{ref_ms['semilinear_fused']:.3f} ms ({smi})", flush=True)
+        check(same, "(a) the NCCL group of one differs from the one-device step")
+        _check_rank_counts(paths, "ranks nccl world 1 semilinear_fused", a["counts"], TRAINING["semilinear_fused"],
+                           rehearse)
+        res["nccl_world1"] = {"bit_equal": same, "ms": a["ms"]}
+
+        # (b) two gloo ranks on the card, half the batch each
+        for backend in ("semilinear_fused", "semilinear"):
+            outs = pool.run(_rank_dp_step, dict(base, ranks=[0, 1], group_backend="gloo", backend=backend))
+            state, mets, _, grads = refs[backend]
+            worst = [_hold_step(f"(b) data-parallel 2 {backend} rank {r} ({o['rows']} rows)", o, state, mets,
+                                DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, grads) for r, o in enumerate(outs)]
+            same = all(np.array_equal(x, y) for x, y in zip(tree_leaves(outs[0]["params"]),
+                                                             tree_leaves(outs[1]["params"])))
+            check(same, f"(b) {backend}: the two ranks' params differ after the step")
+            for r, o in enumerate(outs):
+                _check_rank_counts(paths, f"ranks dp2 gloo {backend} rank{r}", o["counts"], TRAINING[backend],
+                                   rehearse)
+            print(f"(b) data-parallel 2 {backend} B={B}: ranks' params bit for bit equal; {outs[0]['ms']:.3f} ms "
+                  f"a step, one device {ref_ms[backend]:.3f} ms ({RANKS_LABEL}; {smi})", flush=True)
+            res[f"dp2_{backend}"] = {"ms": [o["ms"] for o in outs], "worst": worst}
+
+        # (c) the horizon over two ranks
+        outs = pool.run(_rank_tp_case, dict(base, z=z.numpy(), long=[t.numpy() for t in long]))
+        spec1 = cvs_spec(cfg)
+        with torch.no_grad():
+            ref_solve = solve_ode(spec1.decoder.ode, params["decoder"]["ode"], z.to(device), ts).cpu()
+        main_loss, _ = svi.make_losses(spec1, ts)
+        _, _, ref_grads = svi.value_and_grad(main_loss, params, 7, dbatch)
+        ref_long = recurrence.affine_scan(*(t.to(device) for t in long)).cpu()
+        state, mets, _, _ = refs["semilinear"]
+        for r, o in enumerate(outs):
+            v = ratio(torch.as_tensor(o["solve"]), ref_solve, TP_VALUE_ATOL, TP_VALUE_RTOL)
+            g = max(ratio(torch.as_tensor(x), y.cpu(), TP_ATOL, TP_RTOL)
+                    for x, y in zip(tree_leaves(o["grads"]), tree_leaves(ref_grads)))
+            lg = ratio(torch.as_tensor(o["long"]), ref_long, TP_VALUE_ATOL)
+            print(f"(c) time-parallel 2 rank {r}: solve values error / tolerance {v:.3e}, main-loss gradients "
+                  f"{g:.3e}, recurrence of {long_t} steps against K1 {lg:.3e}", flush=True)
+            check(v <= 1.0 and g <= 1.0 and lg <= 1.0, f"(c) rank {r}: the time-parallel solve disagrees")
+            _hold_step(f"(c) time-parallel 2 dual step rank {r}", o, state, mets, DP_LOSS_RTOL, TP_RTOL, TP_ATOL)
+            _check_rank_counts(paths, f"ranks tp2 gloo semilinear_timepar rank{r}", o["counts"],
+                               TRAINING["semilinear"], rehearse)
+            _check_rank_counts(paths, f"ranks tp2 recurrence T={long_t} rank{r}", o["long_counts"], ("K1",),
+                               rehearse)
+        print(f"(c) time-parallel 2 B={B}: {outs[0]['ms']:.3f} ms a dual step (one device on semilinear "
+              f"{ref_ms['semilinear']:.3f} ms); recurrence of {long_t} steps {outs[0]['long_ms']:.3f} ms, first "
+              f"call ({RANKS_LABEL}; {smi})", flush=True)
+        res["tp2"] = {"ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs]}
+
+        # (d) a sweep of four members over two member ranks
+        seeds = "12,13" if rehearse else "12..15"
+        argv = ["cvs", "--seeds", seeds, "--num-epochs", "1", "--ode-backend", "semilinear_fused", "--data-path",
+                data_dir, "--device", pool_device]
+        t0 = time.perf_counter()
+        ref = sweep.run(sweep.parse_args(argv + ["--results-root", os.path.join(workdir, "ranks-sweep-1")]))
+        t_one = time.perf_counter() - t0
+        threads = torch.get_num_threads()
+        torch.set_num_threads(rank_threads)  # init_params' orthogonal init, a QR on the host, rounds with it
+        try:
+            grouped = sweep.run(sweep.parse_args(argv + ["--results-root", os.path.join(workdir, "ranks-sweep-g"),
+                                                         "--member-group", str(len(sweep.parse_seeds(seeds)) // 2)]))
+        finally:
+            torch.set_num_threads(threads)
+        t0 = time.perf_counter()
+        outs = pool.run(_rank_sweep, argv + ["--results-root", os.path.join(workdir, "ranks-sweep-2"),
+                                             "--ensemble-parallel", "2"])
+        t_two = time.perf_counter() - t0
+        got = outs[0]["result"]
+
+        def held(r):
+            return tree_leaves([r.best_params, r.state.params, r.state.opt.mu, r.state.opt.nu])
+
+        n_params = len(tree_leaves([got.best_params, got.state.params]))  # the moments follow
+        pairs = [(x, y.cpu()) for x, y in zip(held(got), held(grouped.result))]
+        par = max(ratio(x, y, ENS_ATOL, ENS_RTOL) for x, y in pairs[:n_params])
+        moments = max(float((x - y).abs().max()) / (ENS_RTOL * max(float(y.abs().max()), 1.0))
+                      for x, y in pairs[n_params:])
+        bit_equal = all(torch.equal(x, y) for x, y in pairs)
+        stacked = max(ratio(x, y.cpu(), STACKED_ATOL, STACKED_RTOL)
+                      for x, y in zip(held(got)[:n_params], held(ref.result)[:n_params]))
+        crit = max(float(np.max(np.abs(got.best_crit - r.best_crit) / (ENS_CRIT_RTOL * np.abs(r.best_crit))))
+                   for r in (grouped.result, ref.result))
+        epochs = [got.best_epoch.tolist(), grouped.result.best_epoch.tolist(), ref.result.best_epoch.tolist()]
+        print(f"(d) sweep of {len(sweep.parse_seeds(seeds))} members over --ensemble-parallel 2, against the "
+              f"unsharded sweep in member groups of a rank's size: params error / tolerance {par:.3e}, Adam moments "
+              f"{moments:.3e}, all bit for bit {bit_equal}; params against the unsharded stack of all members "
+              f"(stacked-member bound) {stacked:.3e}; criterion {crit:.3e}; best epochs {epochs[0]} (grouped "
+              f"{epochs[1]}, unsharded {epochs[2]}); {t_two:.2f} s wall on the ranks, {t_one:.2f} s unsharded "
+              f"({RANKS_LABEL}; {smi})", flush=True)
+        check(par <= 1.0 and moments <= 1.0 and stacked <= 1.0 and crit <= 1.0 and epochs[0] == epochs[1] == epochs[2],
+              "(d) the member-sharded sweep differs from the unsharded one")
+        check([m["seed"] for m in outs[0]["summary"]["members"]] == sweep.parse_seeds(seeds), "(d) sweep.json seeds")
+        for r, o in enumerate(outs):  # rank 0 alone finalizes: the test evals' single-member K2
+            _check_rank_counts(paths, f"ranks sweep ens2 semilinear_fused rank{r}", o["counts"],
+                               SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"], rehearse)
+        res["sweep_ens2"] = {"wall_s": t_two, "unsharded_wall_s": t_one, "params_over_tol": par,
+                             "moments_over_tol": moments, "bit_equal": bit_equal, "params_over_stacked_tol": stacked}
+
+    # (e) the CLI past the cards: raises before any launch, naming them
+    zero_counts()
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    try:
+        training_cvs.main(["--num-epochs", "1", "--no-plot", "--data-parallel", str(n_cards + 1), "--data-path",
+                           data_dir, "--results-root", os.path.join(workdir, "ranks-cli"),
+                           "--device", "cuda" if device.type == "cuda" else "cpu"] +
+                          (["--mini-batch-size", str(8 * (n_cards + 1))] if rehearse else []))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    counts = read_counts()
+    print(f"(e) training_cvs --data-parallel {n_cards + 1} on {n_cards} card(s): {raised!r}; launches {counts}",
+          flush=True)
+    if not rehearse:
+        check(raised is not None and f"> {n_cards} available devices" in raised and not any(counts.values()),
+              "(e) the CLI past the cards must raise before any launch, naming the card count")
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"== phase 10 took {res['wall_s']:.1f} s ({smi})", flush=True)
+    return res
+
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--rehearse", action="store_true", help="CPU dry run with the plain versions")
@@ -2072,6 +2462,8 @@ def main(argv=None):
         phase("9: plotting")
         phase_plot_check(device, workdir, data_dir, args.rehearse, paths)
         print(f"== phase 9 took {time.perf_counter() - t9:.1f} s ({smi})", flush=True)
+        phase("10: data, time and member parallelism over ranks")
+        ranks = phase_ranks(device, workdir, data_dir, args.rehearse, smi, paths)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2134,6 +2526,7 @@ def main(argv=None):
         print(json.dumps({"kernels": kernels}))
         print("rehearsal ok (no result: no card)")
         return
+    print(json.dumps({"ranks": ranks}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

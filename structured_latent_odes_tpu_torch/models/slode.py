@@ -36,7 +36,8 @@ from structured_latent_odes_tpu_torch.prob import (
     Trace,
     bernoulli_logpmf,
     laplace_logpdf,
-    masked_l1_per_channel,
+    l1_of_parts,
+    masked_l1_parts,
     normal_logpdf,
     onehot_categorical_logpmf,
     quantile_laplace_logprob,
@@ -179,32 +180,38 @@ def _aux_obs_terms(spec: ModelSpec, params, tr: Trace, z: Tensor, batch: Batch) 
 
 
 def _observation_terms(spec: ModelSpec, tr: Trace, obs: Tensor, decoded,
-                       sample_mask: Optional[Tensor]) -> Tensor:
-    """Likelihood sites, and the reference's side-channel L1 metric."""
+                       sample_mask: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """Likelihood sites, and the parts of the reference's side-channel L1
+    metric (``prob.elbo.l1_of_parts`` of them is the metric): sums over the
+    batch, which ranks holding slices of one batch add before the ratio."""
     if spec.likelihood == "quantile":
         _, mu_75, mu_50, mu_25, std = decoded
         taus = (0.5, 0.5 + spec.quantile_diff, 0.5 - spec.quantile_diff)
         for mu, tau in ((mu_50, taus[0]), (mu_75, taus[1]), (mu_25, taus[2])):
             tr.obs(quantile_laplace_logprob(obs, mu, std, tau), event_dims=2)
-        return masked_l1_per_channel(obs, mu_50, sample_mask)
+        return masked_l1_parts(obs, mu_50, sample_mask)
     _, mean, std = decoded
     tr.obs(normal_logpdf(obs, mean, std), event_dims=2)
-    return _masked_mean_abs(obs - mean, sample_mask)
+    return masked_abs_parts(obs - mean, sample_mask)
 
 
-def _masked_mean_abs(err: Tensor, sample_mask: Optional[Tensor]) -> Tensor:
+def masked_abs_parts(err: Tensor, sample_mask: Optional[Tensor]) -> Tuple[Tensor, Tensor]:
+    """The mean absolute error over the samples of ``sample_mask`` (all
+    where None) as its numerator and denominator, each ``(1,)``:
+    ``l1_of_parts`` of them is the mean."""
     if sample_mask is None:
-        return torch.mean(torch.abs(err))
-    w = sample_mask[:, None, None]
-    return torch.sum(torch.abs(err) * w) / torch.clamp(
-        torch.sum(w) * err.shape[1] * err.shape[2], min=1.0
-    )
+        num, den = torch.sum(torch.abs(err)), err.new_tensor(float(err.numel()))
+    else:
+        w = sample_mask[:, None, None]
+        num, den = torch.sum(torch.abs(err) * w), torch.sum(w) * err.shape[1] * err.shape[2]
+    return num.reshape(1), den.reshape(1)
 
 
 def elbo_main(spec: ModelSpec, params, seed: int, batch: Batch, ts,
               noise: Noise = None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """-ELBO of the generative model/guide pair (one Trace_ELBO particle),
-    summed over the unmasked samples, and the in-model L1 metric.
+    summed over the unmasked samples, and the in-model L1 metric as its
+    parts (``l1_parts``; ``prob.l1_of_parts`` of them is the metric).
 
     Guide: q(z|x) from the conv encoder, drawn per labeled block; model: the
     conditional priors p(z_u|u), N(0, I) epsilon and the ODE-decoded
@@ -241,8 +248,8 @@ def elbo_main(spec: ModelSpec, params, seed: int, batch: Batch, ts,
     if spec.aux_in_model:
         _aux_obs_terms(spec, params, tr, z, batch)
     decoded = decoder_apply(spec.decoder, params["decoder"], z, ts)
-    l1 = _observation_terms(spec, tr, obs, decoded, mask)
-    return tr.loss(mask), {"l1": l1}
+    parts = _observation_terms(spec, tr, obs, decoded, mask)
+    return tr.loss(mask), {"l1_parts": parts}
 
 
 def elbo_aux(spec: ModelSpec, params, seed: int, batch: Batch, noise: Noise = None) -> Tensor:
@@ -307,7 +314,7 @@ def recon(spec: ModelSpec, params, seed: int, batch: Batch, ts, is_post: bool,
         sol, mean, std = decoded
         mu_50, mu_75, mu_25 = mean, mean + 2.0 * std, mean - 2.0 * std
     return {
-        "l1": _masked_mean_abs(mu_50 - obs, mask),
+        "l1": l1_of_parts(*masked_abs_parts(mu_50 - obs, mask)),
         "solution_xt": sol,
         "mu_75": mu_75,
         "mu_50": mu_50,

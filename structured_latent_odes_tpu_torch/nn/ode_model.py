@@ -9,7 +9,7 @@
 Port layout: ``dyn_hidden.W`` is ``(H, L+1)`` and its column 0 is the time
 weight (row 0 of the JAX package's ``(L+1, H)`` kernel).
 
-``solve_ode`` runs every backend of the JAX package but one, forward and
+``solve_ode`` runs every backend of the JAX package, forward and
 backward:
 
 - 'semilinear' and 'semilinear_pallas' run kernels K1 and K1-bwd (PyTorch
@@ -31,8 +31,13 @@ backward:
 
 Outside the kernels (the latent projection, ``initialize_state``, the stage
 heads of the scan backends, the RK coefficients) gradients come from torch
-autograd, as the JAX package leaves them to XLA. 'semilinear_timepar'
-raises: it waits for ROADMAP A17.
+autograd, as the JAX package leaves them to XLA.
+
+'semilinear_timepar' splits the solve's horizon over the ranks of a grid's
+time axis (``parallel/timepar.py``: the heads and the RK coefficients on each
+rank's chunk, its local prefix on K1, K1-bwd in the backward), reading the
+grid from the ambient context that ``--time-parallel`` installs; without one
+it raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,8 +64,6 @@ _SCAN_BACKENDS = {
     "semilinear_auto": "kernel",  # where auto_picks_fused is false
 }
 
-_NOT_PORTED = {"semilinear_timepar": "ROADMAP A17"}
-
 # the backends whose step schedules follow the data (dopri5 with step control)
 ADAPTIVE_BACKENDS = ("adaptive", "adaptive_per_sample")
 
@@ -71,8 +74,9 @@ def solve_is_per_member(spec: OdeModelSpec) -> bool:
     whose loops read each member's own condition on the host (and a float32
     dopri5 solve at rtol 1e-6 turns the roundoff by which batched and single
     products differ into up to 1e-4 of its scale, where its step control
-    meets the relu's kinks)."""
-    return spec.backend in ADAPTIVE_BACKENDS
+    meets the relu's kinks), and 'semilinear_timepar', whose collectives take
+    one member's tensors."""
+    return spec.backend in ADAPTIVE_BACKENDS or spec.backend == "semilinear_timepar"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +87,8 @@ class OdeModelSpec:
     solver: str = "midpoint"
     # 'semilinear' (K1, default), 'semilinear_pallas' (K1), 'semilinear_seq'
     # (plain loop), 'semilinear_fused' (K2: whole solve in one kernel),
-    # 'semilinear_auto' (K1 or K2 by shape, solver and device), 'generic',
+    # 'semilinear_auto' (K1 or K2 by shape, solver and device),
+    # 'semilinear_timepar' (K1 over a grid's time ranks), 'generic',
     # 'adjoint', 'adaptive', 'adaptive_per_sample' (module docstring)
     backend: str = "semilinear"
     # the adaptive backends' tolerances
@@ -161,12 +166,13 @@ def auto_picks_fused(spec: OdeModelSpec, z: Tensor) -> bool:
 
 def solve_ode(spec: OdeModelSpec, params, z: Tensor, ts) -> Tensor:
     """Integrate from x0(z) over ts. Returns (B, T, D)."""
-    if spec.backend in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ode backend {spec.backend!r} is not ported yet: it waits for "
-            f"{_NOT_PORTED[spec.backend]}"
-        )
     x0 = initialize_state(params, z)
+    if spec.backend == "semilinear_timepar":
+        from structured_latent_odes_tpu_torch.parallel.timepar import get_time_sharding, solve_semilinear_timepar
+
+        ctx = get_time_sharding()
+        return solve_semilinear_timepar(dynamics_prod_degr, params, z, x0, ts, method=spec.solver, mesh=ctx.mesh,
+                                        time_axis=ctx.time_axis)
     if spec.backend == "semilinear_fused" or (spec.backend == "semilinear_auto" and auto_picks_fused(spec, z)):
         return fused_semilinear_solve(params, z, x0, ts, method=spec.solver)
     if spec.backend in _SCAN_BACKENDS:

@@ -13,7 +13,7 @@ the per-sample terms of a fixed DAG of sites; ``scale=`` is
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -73,13 +73,26 @@ def quantile_laplace_logprob(target: Tensor, mu: Tensor, std: Tensor, tau) -> Te
     return w * laplace_logpdf(target, mu, std)
 
 
-def masked_l1_per_channel(target: Tensor, mu: Tensor, sample_mask: Optional[Tensor] = None) -> Tensor:
-    """The reference's side-channel L1: per channel, the mean absolute error
-    over the elements where ``target >= mu``, summed over channels. Shapes
-    ``(B, K, T)``."""
+def masked_l1_parts(target: Tensor, mu: Tensor, sample_mask: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+    """The side-channel L1's numerator and denominator per channel: the sum
+    of the absolute errors over the elements where ``target >= mu``, and the
+    count of those elements. Shapes ``(B, K, T)`` -> ``(K,)``, ``(K,)``. Sums
+    over the batch, so ranks holding slices of one batch add theirs."""
     mask = (target >= mu).to(target.dtype)
     if sample_mask is not None:
         mask = mask * sample_mask[:, None, None]
     abs_err = torch.abs(target - mu) * mask
-    per_channel = torch.sum(abs_err, dim=(0, 2)) / torch.clamp(torch.sum(mask, dim=(0, 2)), min=1.0)
-    return torch.sum(per_channel)
+    return torch.sum(abs_err, dim=(0, 2)), torch.sum(mask, dim=(0, 2))
+
+
+def l1_of_parts(num: Tensor, den: Tensor) -> Tensor:
+    """The L1 metric from its parts (``(..., K)`` each): per channel the
+    ratio, summed over channels."""
+    return torch.sum(num / torch.clamp(den, min=1.0), dim=-1)
+
+
+def masked_l1_per_channel(target: Tensor, mu: Tensor, sample_mask: Optional[Tensor] = None) -> Tensor:
+    """The reference's side-channel L1: per channel, the mean absolute error
+    over the elements where ``target >= mu``, summed over channels. Shapes
+    ``(B, K, T)``."""
+    return l1_of_parts(*masked_l1_parts(target, mu, sample_mask))

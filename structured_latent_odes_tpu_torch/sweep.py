@@ -28,10 +28,16 @@ it), and the notebook headline metric (eval/metrics.py) is computed; a
 ``<results-root>``, and the averaged deployments in ``deploy_mean/`` and
 ``deploy_veto_mean/``.
 
-``--reference-data-dir`` reads CVS from the reference's torch pickles. Not
-ported yet, each raising ``NotImplementedError`` with its ROADMAP item:
-``--ensemble-parallel`` and ``--ensemble-data-parallel`` above 1 and the ODE
-backend ``semilinear_timepar`` (A17).
+``--reference-data-dir`` reads CVS from the reference's torch pickles.
+``--ensemble-parallel N`` splits the members over N ranks (members never
+communicate) and ``--ensemble-data-parallel M`` each member's minibatches
+over M ranks, whose gradients are summed (``train/ensemble.py::
+member_mesh``): the sweep then runs on ``N x M`` ranks, one process each,
+spawned here or torchrun's (on the card one card per rank, over NCCL; with
+``--device cpu`` processes over gloo), and rank 0 gathers every member's
+result and alone finalizes, selects and deploys. As in the JAX package the
+``semilinear_timepar`` backend needs a time grid, which a sweep does not
+install.
 """
 
 from __future__ import annotations
@@ -41,10 +47,11 @@ import json
 import os
 import shutil
 import time
-from typing import Dict, List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from structured_latent_odes_tpu_torch import training_challenge, training_cvs
 from structured_latent_odes_tpu_torch.data import proc as proc_data
@@ -53,24 +60,30 @@ from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.eval import metrics as EM
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
-from structured_latent_odes_tpu_torch.nn import ode_model
+from structured_latent_odes_tpu_torch.parallel import launch
+from structured_latent_odes_tpu_torch.parallel.mesh import data_reduce
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
+from structured_latent_odes_tpu_torch.train.backend import available_devices
 from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval
 from structured_latent_odes_tpu_torch.train.ensemble import (
     EnsembleResult,
     aux_mult_schedule,
     build_epoch_perms,
+    concat_results,
+    gather_results,
     lr_scale_schedule,
     make_ensemble_runner,
+    member_mesh,
     member_slice,
     run_chunked,
+    shard_runner_inputs,
     stack_states,
 )
-from structured_latent_odes_tpu_torch.train.svi import AdamSlots, SVIState, make_eval_fns
+from structured_latent_odes_tpu_torch.train.svi import make_eval_fns
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
-from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -186,52 +199,21 @@ def _trees_equal(trees) -> bool:
     return all(all(np.array_equal(np.asarray(t0[k]), np.asarray(t[k])) for k in t0) for t in trees[1:])
 
 
-def _cat_opt(opts, cat):
-    if isinstance(opts[0], AdamSlots):
-        return AdamSlots(tree_map(cat, *[o.mu for o in opts]), tree_map(cat, *[o.nu for o in opts]), opts[0].count)
-    return tuple(_cat_opt([o[i] for o in opts], cat) for i in range(len(opts[0])))
-
-
-def _concat_results(results: List[EnsembleResult]) -> EnsembleResult:
-    """Member groups' results as one: every member-stacked leaf concatenated."""
-    def cat(*xs):
-        return torch.cat(xs) if isinstance(xs[0], torch.Tensor) else np.concatenate(xs)
-
-    state = SVIState(
-        tree_map(cat, *[r.state.params for r in results]),
-        _cat_opt([r.state.opt for r in results], cat),
-        [s for r in results for s in r.state.seed],
-        results[0].state.step,
-    )
-    ema = None if results[0].ema_params is None else tree_map(cat, *[r.ema_params for r in results])
-    return EnsembleResult(
-        state,
-        tree_map(cat, *[r.best_params for r in results]),
-        np.concatenate([r.best_crit for r in results]),
-        np.concatenate([r.best_epoch for r in results]),
-        {k: np.concatenate([r.history[k] for r in results]) for k in results[0].history},
-        ema,
-    )
-
-
 def train_ensemble(
     members: List[Dict], *, num_particles=1, optimizer="shared",
     chunk_epochs: int = 0, ensemble_parallel: int = 0,
     ensemble_data_parallel: int = 1, member_group: int = 0, device="cuda",
-) -> EnsembleResult:
-    """Stack member preps and run all members to completion on one device.
+) -> Optional[EnsembleResult]:
+    """Stack member preps and run all members to completion.
 
     ``chunk_epochs``: epochs per chunk, 0 = one chunk; the carry threads
     across chunks, so any chunking gives the same numbers. ``member_group``
     > 0 runs the members in groups of that size, one after the other.
-    Sharding members over several devices (``ensemble_parallel``,
-    ``ensemble_data_parallel`` above 1) is not ported yet (ROADMAP A17).
+    ``ensemble_parallel`` or ``ensemble_data_parallel`` above 1: every rank
+    of the process group calls this with all members, runs its part of the
+    ``(ens, data)`` grid (``train/ensemble.py::shard_runner_inputs``), and
+    rank 0 gets every member's result (the other ranks None).
     """
-    if (ensemble_parallel and ensemble_parallel > 1) or ensemble_data_parallel > 1:
-        raise NotImplementedError(
-            f"--ensemble-parallel {ensemble_parallel} / --ensemble-data-parallel {ensemble_data_parallel}: "
-            "sharding an ensemble over several devices is not ported yet (ROADMAP A17)"
-        )
     if member_group and len(members) > member_group:
         G = member_group
         n_groups = -(-len(members) // G)
@@ -240,13 +222,17 @@ def train_ensemble(
             grp = members[gi:gi + G]
             print(f"  member group {gi // G + 1}/{n_groups} ({len(grp)} members)", flush=True)
             results.append(train_ensemble(grp, num_particles=num_particles, optimizer=optimizer,
-                                          chunk_epochs=chunk_epochs, device=device))
-        return _concat_results(results)
+                                          chunk_epochs=chunk_epochs, ensemble_parallel=ensemble_parallel,
+                                          ensemble_data_parallel=ensemble_data_parallel, device=device))
+        return None if results[0] is None else concat_results(results)
 
     m0 = members[0]
     spec, times, policy = m0["spec"], m0["times"], m0["policy"]
     cfg = m0["config"]
     ts = torch.as_tensor(times, device=device)
+    mesh = None
+    if (ensemble_parallel and ensemble_parallel > 1) or ensemble_data_parallel > 1:
+        mesh = member_mesh(ensemble_parallel or None, n_data=ensemble_data_parallel)
     # seed sweeps vary only the training seed, so every member usually trains
     # on the same dataset: give it to the runner once (shared_data) instead of
     # stacking S copies. Splits can differ per member (challenge or proc folds
@@ -260,6 +246,7 @@ def train_ensemble(
         refit_epochs=int(cfg.get("prior_refit_epochs") or 0), use_lr_sched=m0["lr_sched"] is not None,
         shared_data=shared_data, tail_ema_decay=float(cfg.get("tail_ema") or 0.0),
         tail_ema_start=int(cfg.get("tail_ema_start") or 0),
+        reduce=data_reduce(mesh) if mesh is not None and mesh.size("data") > 1 else None,
     )
     states = stack_states([runner.init_state(m["params"], m["train_seed"]) for m in members])
     eval_seed_list = [m["eval_seed"] for m in members]
@@ -276,16 +263,26 @@ def train_ensemble(
         if not np.array_equal(m["mask"], m0["mask"]):
             raise ValueError("member batch layouts differ")
     perms = np.stack([m["perms"] for m in members])
+    mask = m0["mask"]
     aux_mult = np.stack([m["aux_mult"] for m in members])
     refit_perms = np.stack([m["refit_perms"] for m in members]) if m0["refit_perms"] is not None else None
     lr_sched = np.stack([m["lr_sched"] for m in members]) if m0["lr_sched"] is not None else None
+    if mesh is not None:
+        (states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult, refit_perms,
+         lr_sched) = shard_runner_inputs(
+            mesh, states=states, eval_seeds=eval_seed_list, train_splits=train_splits, val_stacks=val_stacks,
+            perms=perms, mask=mask, aux_mult=aux_mult, refit_perms=refit_perms, lr_sched=lr_sched,
+            shared_data=shared_data)
+        print(f"  ensemble sharded over {mesh.world} ranks ({dict(zip(mesh.axis_names, mesh.shape))})", flush=True)
     E = perms.shape[1]
     if chunk_epochs and chunk_epochs < E:
         print(f"  chunked dispatch: {chunk_epochs} epochs/chunk", flush=True)
-        return run_chunked(runner, states, eval_seed_list, train_splits, val_stacks, perms, m0["mask"], aux_mult,
-                           chunk_epochs=chunk_epochs, lr_sched=lr_sched, refit_perms=refit_perms, verbose=True)
-    return runner.run(states, eval_seed_list, train_splits, val_stacks, perms, m0["mask"], aux_mult,
-                      refit_perms=refit_perms, lr_sched=lr_sched)
+        result = run_chunked(runner, states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult,
+                             chunk_epochs=chunk_epochs, lr_sched=lr_sched, refit_perms=refit_perms, verbose=True)
+    else:
+        result = runner.run(states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult,
+                            refit_perms=refit_perms, lr_sched=lr_sched)
+    return result if mesh is None else gather_results(mesh, result, ts.device)
 
 
 # ---------------------------------------------------------------------------
@@ -553,9 +550,11 @@ def parse_args(argv=None):
                    help="epochs per chunk (default 0: one chunk; auto_chunk_epochs gives the JAX sweep's automatic "
                         "size); any chunking gives the same numbers")
     p.add_argument("--ensemble-parallel", type=int, default=0,
-                   help="shard the member axis over this many devices (not ported yet: ROADMAP A17)")
+                   help="split the members over this many ranks (members never communicate; they must divide "
+                        "evenly; default 0: one rank, or with --ensemble-data-parallel above 1 every card over it)")
     p.add_argument("--ensemble-data-parallel", type=int, default=1,
-                   help="also shard each member's minibatch over devices (not ported yet: ROADMAP A17)")
+                   help="also split each member's minibatch over this many ranks (ranks = ensemble_parallel x "
+                        "this)")
     p.add_argument("--member-group", type=int, default=0,
                    help="members per stacked run (default 0: all members in one; member_group_size gives the JAX "
                         "sweep's automatic size, proc in groups of <=5)")
@@ -578,18 +577,23 @@ def load_base_config(dataset: str):
     return {"cvs": load_cvs_config, "proc": load_proc_config, "challenge": load_challenge_config}[dataset]()
 
 
-def check_ported(args, config) -> None:
-    """Raise for the sweep options that are not ported yet, before any work."""
-    if (args.ensemble_parallel and args.ensemble_parallel > 1) or args.ensemble_data_parallel > 1:
-        raise NotImplementedError(
-            f"--ensemble-parallel {args.ensemble_parallel} / --ensemble-data-parallel "
-            f"{args.ensemble_data_parallel}: sharding an ensemble over several devices is not ported yet "
-            "(ROADMAP A17)"
-        )
-    backend = config.get("ode_backend")
-    if backend in ode_model._NOT_PORTED:
-        raise NotImplementedError(f"ode backend {backend!r} is not ported yet: it waits for "
-                                  f"{ode_model._NOT_PORTED[backend]}")
+def member_extent(args, n_members: int, device) -> Tuple[int, int]:
+    """(member ranks, data ranks) of the sweep, checked before any work with
+    the JAX package's messages. As there, the sweep stays on one rank unless
+    ``--ensemble-parallel`` or ``--ensemble-data-parallel`` is above 1; then
+    ``--ensemble-parallel 0`` takes every device over the data ranks
+    (``train/backend.py::available_devices``), the grid must fit the
+    devices, and the members must divide over the member ranks."""
+    n, n_data = int(args.ensemble_parallel), max(int(args.ensemble_data_parallel), 1)
+    if n <= 1 and n_data == 1:
+        return 1, 1
+    n = n or max(available_devices(device, n_data) // n_data, 1)
+    avail = available_devices(device, n * n_data)
+    if n * n_data > avail:
+        raise ValueError(f"ensemble mesh {n}x{n_data} > {avail} available devices")
+    if n_members % n:
+        raise ValueError(f"member axis {n_members} not divisible by mesh size {n}")
+    return n, n_data
 
 
 class SweepRun(NamedTuple):
@@ -600,7 +604,10 @@ class SweepRun(NamedTuple):
 
 def run(args) -> SweepRun:
     """The sweep of parsed ``args``: prepare, train, finalize, select, deploy,
-    write ``sweep.json``."""
+    write ``sweep.json``. With ``--ensemble-parallel`` or
+    ``--ensemble-data-parallel`` above 1 it runs on the ranks
+    (:func:`member_extent`; spawned, or torchrun's) and returns rank 0's
+    run (None on the other ranks)."""
     config = load_base_config(args.dataset)
     for k, v in vars(args).items():
         if v is not None and k in config:
@@ -621,22 +628,28 @@ def run(args) -> SweepRun:
     config.lr_decay_start = args.lr_decay_start
     config.tail_ema = args.tail_ema
     config.tail_ema_start = args.tail_ema_start if args.tail_ema_start is not None else (args.lr_decay_start or 0)
-    check_ported(args, config)
+    seeds = parse_seeds(args.seeds)
+    n_ens, n_data = member_extent(args, len(seeds), args.device)
+    if n_ens * n_data > 1 and not dist.is_initialized():
+        return launch.run_ranks(run, n_ens * n_data, device=args.device, args=(args,))
     device = resolve_device(args.device)
     full_fp32(deterministic=True)
 
-    seeds = parse_seeds(args.seeds)
     os.makedirs(args.results_root, exist_ok=True)
     print(f"sweep: {args.dataset} x {len(seeds)} seeds {seeds}")
     print(config.to_json())
 
     t0 = time.time()
-    members = [prepare_member(args.dataset, config, s, device) for s in seeds]
+    # a missing cvs.npz is generated once, by rank 0, before the others read it
+    members = launch.rank0_first(lambda: [prepare_member(args.dataset, config, s, device) for s in seeds])
     t_prep = time.time() - t0
     result = train_ensemble(
         members, num_particles=config.get("num_particles", 1), optimizer=config.get("optimizer", "shared"),
-        chunk_epochs=args.chunk_epochs, member_group=args.member_group, device=device,
+        chunk_epochs=args.chunk_epochs, ensemble_parallel=n_ens if n_ens * n_data > 1 else 0,
+        ensemble_data_parallel=n_data, member_group=args.member_group, device=device,
     )
+    if result is None:  # a rank other than 0: rank 0 finalizes every member
+        return None
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t_train = time.time() - t0 - t_prep
@@ -711,7 +724,8 @@ def run(args) -> SweepRun:
 
 
 def main(argv=None):
-    return run(parse_args(argv)).summary
+    out = run(parse_args(argv))
+    return None if out is None else out.summary
 
 
 if __name__ == "__main__":

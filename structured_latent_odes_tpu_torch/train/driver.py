@@ -22,6 +22,7 @@ import torch
 from structured_latent_odes_tpu_torch.data.loader import iter_minibatches, stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
+from structured_latent_odes_tpu_torch.parallel.launch import is_writer
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint as ckpt
 from structured_latent_odes_tpu_torch.train import metrics as M
@@ -218,7 +219,15 @@ def run_training_epochs(
 
     With ``profile_dir``, epoch ``min(start + 1, config.num_epochs)`` (the
     second epoch run, or the only one) is traced (``utils/profiling.trace``).
+
+    On the ranks of a data- or time-parallel run (``train/backend.py``)
+    every rank computes every step and statistic (``put_batch`` keeps its
+    slice of each batch, and ``train_epoch`` and ``eval_epoch`` return the
+    whole batches' numbers), every rank reads the checkpoint on resume, and
+    rank 0 alone writes: the checkpoints, the epoch lines, the trace and
+    what ``on_epoch`` draws.
     """
+    writer = is_writer()
     device = tree_leaves(state.params)[0].device
     put = put_batch or (lambda b: device_batch(b, device))
     best = {"params": state.params, "epoch": 0, "criterion": np.inf}
@@ -244,7 +253,7 @@ def run_training_epochs(
             eval_stacks[name] = put(stacked_minibatches(splits[name], batch_size, shuffle=False))
         return _stats_from_fused(spec, eval_epoch(params, seed, eval_stacks[name], is_post))
 
-    trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir else None
+    trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir and writer else None
     for epoch in range(start_epoch, config.num_epochs + 1):
         aux_mult = epoch_aux_mult(config, epoch)
         if epoch == trace_epoch:
@@ -271,8 +280,9 @@ def run_training_epochs(
             line = "[Epoch %d/%d] loss= %.4f  [%.1fs]" % (
                 epoch, config.num_epochs, epoch_mean_loss, time.time() - t_start
             )
-            print(line)
-            log.debug(line)
+            if writer:
+                print(line)
+                log.debug(line)
             continue
 
         k1, k2, k3, k4 = (fold_seed(eval_seed, epoch, name) for name in
@@ -304,7 +314,7 @@ def run_training_epochs(
         )
         improved = "*" if best is not prev_best else ""
 
-        if checkpoint_path and checkpoint_every and epoch % checkpoint_every == 0:
+        if writer and checkpoint_path and checkpoint_every and epoch % checkpoint_every == 0:
             ckpt.save(
                 checkpoint_path,
                 {"state": state.to_tree(), "best_params": params_to_jax(best["params"]),
@@ -327,11 +337,11 @@ def run_training_epochs(
             improved,
             time.time() - t_start,
         )
-        print(line)
-        log.debug(line)
-
-        if on_epoch is not None:
-            on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
+        if writer:
+            print(line)
+            log.debug(line)
+            if on_epoch is not None:
+                on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
 
     return state, best
 

@@ -37,10 +37,17 @@ Selection policies (each dataset's reference behaviour):
 Differences from the JAX package: the prior refit's seed is
 ``fold_seed(eval_seed, 'refit')`` in both the sequential drivers and here, so
 a member's refit reproduces the sequential refit (the JAX package keys the
-two differently). Member sharding over devices (``member_mesh``,
-``shard_member_inputs``, ``shard_runner_inputs``) is not ported yet (ROADMAP
-A17). The JAX ``BoundedMemo`` exists to avoid re-tracing under ``jit`` and
-has no counterpart.
+two differently). The JAX ``BoundedMemo`` exists to avoid re-tracing under
+``jit`` and has no counterpart.
+
+Members over several ranks (:func:`member_mesh`, :func:`shard_member_inputs`,
+:func:`shard_runner_inputs`, :func:`gather_results`): the JAX package places
+the runner's inputs on an ``('ens',)`` or ``('ens', 'data')`` device mesh and
+lets GSPMD partition the member axis. Here each rank of an ``(ens, data)``
+grid of processes runs the stacked runner on its S/n members, which never
+communicate; with a data axis above 1 each member's minibatches are split
+over the data ranks, whose stacked gradients and metric sums the runner's
+``reduce`` hook sums. Rank 0 gathers the members' results.
 """
 
 from __future__ import annotations
@@ -49,9 +56,11 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from structured_latent_odes_tpu_torch.models import elbo_aux, elbo_main
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
+from structured_latent_odes_tpu_torch.parallel.mesh import make_grid
 from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
 from structured_latent_odes_tpu_torch.train.driver import epoch_aux_mult, epoch_lr_scale
 from structured_latent_odes_tpu_torch.train.svi import (
@@ -200,7 +209,7 @@ def _epoch_batches(train_split, perms_e: Tensor, shared_data: bool):
     return out
 
 
-def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float):
+def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None):
     """The prior refit of S stacked members: R epochs of main-ELBO updates
     restricted to the 'priors' group, from the selected best params with
     fresh Adam slots. The posterior, decoder and aux heads are untouched, so
@@ -210,7 +219,9 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float):
     Returns ``refit(best_params, seeds, train_split, refit_perms, mask,
     shared_data=True)``: stacked params, the members' refit seeds (ints;
     refit step k draws at ``fold_seed(seed, k)``), the train split ((N, ...)
-    shared or (S, N, ...)), perms (S, R, nb, B) and the mask (nb, B)."""
+    shared or (S, N, ...)), perms (S, R, nb, B) and the mask (nb, B).
+    ``reduce`` sums the gradients over the ranks holding slices of each
+    batch (:func:`member_mesh`'s data axis)."""
 
     def loss(params, seed, batch, noise=None):
         return elbo_main(spec, params, seed, batch, ts, noise=noise)[0]
@@ -224,6 +235,8 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float):
         alone."""
         prior_only = {g: tree_map(lambda _: g == "priors", params[g]) for g in params}
         grads = over_members(spec, grad, (0, 0, dims, None if noise is None else 0))(params, seeds, batch, noise)
+        if reduce is not None:
+            grads = reduce(grads)
         return shared_adam_update(grads, slots, params, prior_only, lr)
 
     def refit(best_params, seeds, train_split, refit_perms, mask, shared_data: bool = True):
@@ -277,6 +290,7 @@ def make_ensemble_runner(
     shared_data: bool = False,
     tail_ema_decay: float = 0.0,
     tail_ema_start: int = 0,
+    reduce=None,
 ) -> EnsembleRunner:
     """Build the multi-member runner on the device of ``ts``.
 
@@ -304,6 +318,11 @@ def make_ensemble_runner(
     params). ``refit_epochs > 0`` appends the prior refit
     (:func:`make_prior_refit_fn`) from each member's best params, member s at
     ``fold_seed(eval_seeds[s], 'refit')``, as the sequential drivers seed it.
+
+    ``reduce`` (the data axis of :func:`member_mesh`) sums over the ranks
+    that hold slices of every member's batches: the dual step's gradients
+    and metric sums, the refit's gradients and the val ELBO's per-batch sums
+    before their ratio.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}; one of {POLICIES}")
@@ -312,27 +331,34 @@ def make_ensemble_runner(
     device = ts.device
     use_ema = tail_ema_decay > 0.0
     optim = make_dual_optimizer(spec, params_example, lr, optimizer, prior_lr_mult=prior_lr_mult)
-    step = make_stacked_dual_step(spec, ts, optim, num_particles)
+    step = make_stacked_dual_step(spec, ts, optim, num_particles, reduce)
     needs_val = policy in ("cvs", "proc")
-    prior_refit_fn = make_prior_refit_fn(spec, ts, lr) if refit_epochs else None
+    prior_refit_fn = make_prior_refit_fn(spec, ts, lr, reduce) if refit_epochs else None
     decay = float(np.float32(tail_ema_decay))
     keep = float(np.float32(1.0) - np.float32(tail_ema_decay))
 
     @torch.no_grad()
     def evaluate(params, seeds, batch):
-        """One val batch's (loss / n) per loss, as make_eval_epoch sums them."""
-        n = torch.clamp(torch.sum(batch["mask"]), min=1.0)
+        """One val batch's ELBO sums per loss, as make_eval_epoch takes them."""
         lm, _ = elbo_main(spec, params, seeds[0], batch, ts)
-        return lm / n, elbo_aux(spec, params, seeds[1], batch) / n
+        return lm, elbo_aux(spec, params, seeds[1], batch)
 
     def val_elbo_sums(params, seeds: Tensor, val_stack):
-        """The val split's summed per-batch ELBOs per member, in batch order
-        in float32 (the driver's eval_epoch), under eval seeds (S, 2)."""
+        """The val split's summed per-batch ELBOs (loss / n) per member, in
+        batch order in float32 (the driver's eval_epoch), under eval seeds
+        (S, 2)."""
         dims = {k: None if shared_data else 0 for k in val_stack}
-        lm_sum = la_sum = None
+        rows = []
         for i in range(val_stack["mask"].shape[0 if shared_data else 1]):
             batch = {k: v[i] if shared_data else v[:, i] for k, v in val_stack.items()}
             lm, la = over_members(spec, evaluate, (0, 0, dims))(params, seeds, batch)
+            rows.append([lm, la, torch.sum(batch["mask"], dim=-1)])
+        if reduce is not None:
+            rows = reduce(rows)
+        lm_sum = la_sum = None
+        for lm, la, n in rows:
+            n = torch.clamp(n, min=1.0)
+            lm, la = lm / n, la / n
             lm_sum, la_sum = (lm, la) if lm_sum is None else (lm_sum + lm, la_sum + la)
         return lm_sum, la_sum
 
@@ -488,3 +514,131 @@ def run_chunked(
             print(f"  chunk epochs [{s},{e}) done", flush=True)
     history = {k: np.concatenate([h[k] for h in hists], axis=1) for k in hists[0]}
     return runner.finish(carry, history, train_splits, refit_perms, mask)
+
+
+def _cat_opt(opts, cat):
+    if isinstance(opts[0], AdamSlots):
+        return AdamSlots(tree_map(cat, *[o.mu for o in opts]), tree_map(cat, *[o.nu for o in opts]), opts[0].count)
+    return tuple(_cat_opt([o[i] for o in opts], cat) for i in range(len(opts[0])))
+
+
+def concat_results(results) -> EnsembleResult:
+    """Results of disjoint sets of members (member groups, member shards)
+    as one, in order: every member-stacked leaf concatenated."""
+    def cat(*xs):
+        return torch.cat(xs) if isinstance(xs[0], torch.Tensor) else np.concatenate(xs)
+
+    state = SVIState(
+        tree_map(cat, *[r.state.params for r in results]),
+        _cat_opt([r.state.opt for r in results], cat),
+        [s for r in results for s in r.state.seed],
+        results[0].state.step,
+    )
+    ema = None if results[0].ema_params is None else tree_map(cat, *[r.ema_params for r in results])
+    return EnsembleResult(
+        state,
+        tree_map(cat, *[r.best_params for r in results]),
+        np.concatenate([r.best_crit for r in results]),
+        np.concatenate([r.best_epoch for r in results]),
+        {k: np.concatenate([r.history[k] for r in results]) for k in results[0].history},
+        ema,
+    )
+
+
+def member_mesh(n_devices: Optional[int] = None, n_data: int = 1):
+    """The ``(ens, data)`` grid of the process group: ``n_devices`` member
+    shards (default: every rank over ``n_data``) by ``n_data`` batch shards,
+    which must be the group's ranks (every rank takes part in gathering the
+    results). Every rank of the group must call it."""
+    world = dist.get_world_size()
+    n = int(n_devices) if n_devices else world // max(n_data, 1)
+    if n * n_data > world:
+        raise ValueError(f"ensemble mesh {n}x{n_data} > {world} available devices")
+    if n * n_data < world:
+        raise ValueError(f"ensemble mesh {n}x{n_data} leaves ranks of the group of {world} idle")
+    return make_grid((n, n_data), ("ens", "data"))
+
+
+def _member_rows(x, n: int, i: int, what: str):
+    """Rank ``i``'s slice of ``n`` along axis 0, which must divide."""
+    S = len(x)
+    if S % n:
+        raise ValueError(f"{what} {S} not divisible by mesh size {n}")
+    return x[i * S // n:(i + 1) * S // n]
+
+
+def shard_member_inputs(mesh, member_trees, replicated_trees=()):
+    """This rank's members of each tree in ``member_trees`` (a leading
+    member axis on every leaf, numpy or tensor), and ``replicated_trees``
+    whole; ``None`` entries pass through. Returns the two groups."""
+    n, i = mesh.size("ens"), mesh.index("ens")
+
+    def take(tree):
+        return None if tree is None else tree_map(lambda x: _member_rows(x, n, i, "member axis"), tree)
+
+    return tuple(take(t) for t in member_trees), tuple(replicated_trees)
+
+
+def shard_runner_inputs(mesh, *, states, eval_seeds, train_splits, val_stacks, perms, mask, aux_mult,
+                        refit_perms=None, lr_sched=None, shared_data=False):
+    """This rank's part of the runner's inputs (the JAX package's placement
+    on an ``('ens', 'data')`` mesh): its members of every member-stacked
+    input (the stacked state, the eval seeds, per-member splits and val
+    stacks, the perms and schedules), and its slice of every minibatch axis
+    where the grid has a data axis above 1: the perms' and refit perms' last
+    axis, the mask's, and the val stacks' batch axis. A shared train split
+    stays whole (each rank gathers its rows through its perms). Returns the
+    inputs in ``runner.run`` order."""
+    n, i = mesh.size("ens"), mesh.index("ens")
+    nd, d = mesh.size("data"), mesh.index("data")
+
+    def members(tree):
+        return None if tree is None else tree_map(lambda x: _member_rows(x, n, i, "member axis"), tree)
+
+    def batch_axis(x, axis: int):
+        width = x.shape[axis]
+        if width % nd:
+            raise ValueError(f"axis {axis} (data) of shape {tuple(x.shape)} not divisible by mesh extent {nd}")
+        index = (slice(None),) * axis + (slice(d * width // nd, (d + 1) * width // nd),)
+        return x[index]
+
+    if isinstance(states.opt, AdamSlots):
+        opt = AdamSlots(members(states.opt.mu), members(states.opt.nu), states.opt.count)
+    else:
+        opt = tuple(AdamSlots(members(o.mu), members(o.nu), o.count) for o in states.opt)
+    state = SVIState(members(states.params), opt, _member_rows(states.seed, n, i, "member axis"), states.step)
+    eval_seeds = _member_rows(list(eval_seeds), n, i, "member axis")
+    splits = train_splits if shared_data else members(train_splits)
+    vals = None
+    if val_stacks is not None:
+        vals = val_stacks if shared_data else members(val_stacks)
+        vals = tree_map(lambda x: batch_axis(x, 1 if shared_data else 2), vals)
+    return (
+        state, eval_seeds, splits, vals,
+        batch_axis(members(perms), 3), batch_axis(mask, 1), members(aux_mult),
+        None if refit_perms is None else batch_axis(members(refit_perms), 3), members(lr_sched),
+    )
+
+
+def gather_results(mesh, result: EnsembleResult, device) -> Optional[EnsembleResult]:
+    """Every member's result on rank 0 (on ``device``), in member order;
+    None on the other ranks. The ranks of one member shard hold the same
+    result: the first data rank's is taken."""
+    def to(tree, dev):
+        return None if tree is None else tree_map(lambda x: x.to(dev) if isinstance(x, Tensor) else x, tree)
+
+    def moved(r: EnsembleResult, dev) -> EnsembleResult:
+        st = r.state
+        if isinstance(st.opt, AdamSlots):
+            opt = AdamSlots(to(st.opt.mu, dev), to(st.opt.nu, dev), st.opt.count)
+        else:
+            opt = tuple(AdamSlots(to(o.mu, dev), to(o.nu, dev), o.count) for o in st.opt)
+        return EnsembleResult(SVIState(to(st.params, dev), opt, st.seed, st.step), to(r.best_params, dev),
+                              r.best_crit, r.best_epoch, r.history, to(r.ema_params, dev))
+
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(moved(result, "cpu"), parts, dst=0)
+    if dist.get_rank() != 0:
+        return None
+    nd = mesh.size("data")
+    return concat_results([moved(parts[r], device) for r in mesh.ranks[::nd]])

@@ -38,9 +38,10 @@ import torch
 
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_main, param_masks, recon
+from structured_latent_odes_tpu_torch.models.slode import masked_abs_parts
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
 from structured_latent_odes_tpu_torch.nn.ode_model import solve_is_per_member
-from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
+from structured_latent_odes_tpu_torch.prob import fold_seed, l1_of_parts, seed_tensor
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -206,15 +207,18 @@ def make_losses(spec: ModelSpec, ts: Tensor, num_particles: int = 1):
     ``num_particles`` reparameterized particles (Trace_ELBO(num_particles)).
     ``seed`` is an int, or a tensor of the particles' seeds
     (:func:`particle_seeds`); ``noise`` is None or one ``noise=`` dict per
-    particle."""
+    particle. The main loss's aux holds the L1 metric's parts per particle
+    (``l1_parts``: numerators and denominators ``(P, K)``), sums over the
+    batch (:func:`particle_l1` makes the metric of them)."""
 
     def main_loss(params, seed, batch, noise=None):
-        losses, l1s = [], []
+        losses, nums, dens = [], [], []
         for p, sp in enumerate(particle_seeds(seed, num_particles)):
             loss, mets = elbo_main(spec, params, sp, batch, ts, noise=None if noise is None else noise[p])
             losses.append(loss)
-            l1s.append(mets["l1"])
-        return torch.stack(losses).mean(), {"l1": torch.stack(l1s).mean()}
+            nums.append(mets["l1_parts"][0])
+            dens.append(mets["l1_parts"][1])
+        return torch.stack(losses).mean(), {"l1_parts": [torch.stack(nums), torch.stack(dens)]}
 
     def aux_loss(params, seed, batch, noise=None):
         return torch.stack([
@@ -225,12 +229,31 @@ def make_losses(spec: ModelSpec, ts: Tensor, num_particles: int = 1):
     return main_loss, aux_loss
 
 
-def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1):
+def particle_l1(parts) -> Tensor:
+    """The L1 metric from the ``l1_parts`` of :func:`make_losses`: per
+    particle the metric of its parts, then the mean over particles."""
+    return torch.mean(l1_of_parts(*parts), dim=-1).detach()
+
+
+def _same(tree):
+    return tree
+
+
+def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1,
+                   reduce: Optional[Callable] = None):
     """The sequential dual-loss SVI update: ``step(state, batch, noise=None)
     -> (state, metrics)``. ``noise`` is None or ``{"main": [...], "aux":
     [...]}`` with one ``noise=`` dict per particle (tests feed JAX's draws).
-    The batch may override ``aux_mult`` and ``lr_scale``."""
+    The batch may override ``aux_mult`` and ``lr_scale``.
+
+    ``reduce`` (data parallelism, ``parallel/train.py``; None on one device)
+    sums a tree of tensors over the ranks that hold slices of one batch.
+    Both losses are sums over the batch, so each loss's gradients are summed
+    before its update, and every rank applies the same update; the metrics
+    are the batch's: the summed losses over the summed count, the L1 of the
+    summed parts."""
     main_loss, aux_loss = make_losses(spec, ts, num_particles)
+    reduce = reduce or _same
 
     def step(state: SVIState, batch, noise: Optional[Dict] = None) -> Tuple[SVIState, Dict[str, Tensor]]:
         seed = fold_seed(state.seed, state.step)
@@ -238,26 +261,29 @@ def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_partic
         loss_m, mets, grads = value_and_grad(
             main_loss, state.params, fold_seed(seed, "main"), batch, None if noise is None else noise["main"]
         )
-        params, opt = optim.update_main(grads, state.opt, state.params, sc)
+        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc)
         loss_a, _, grads_a = value_and_grad(
             aux_loss, params, fold_seed(seed, "aux"), batch, None if noise is None else noise["aux"]
         )
+        # the metrics' sums ride with the aux gradients
+        grads_a, (sums, parts) = reduce([grads_a, [[loss_m, loss_a, torch.sum(batch["mask"])], mets["l1_parts"]]])
         params, opt = optim.update_aux(grads_a, opt, params, sc)
-        n = torch.clamp(torch.sum(batch["mask"]), min=1.0)
-        metrics = {"loss_main": loss_m / n, "loss_aux": loss_a / n, "l1": mets["l1"].detach()}
+        n = torch.clamp(sums[2], min=1.0)
+        metrics = {"loss_main": sums[0] / n, "loss_aux": sums[1] / n, "l1": particle_l1(parts)}
         return SVIState(params, opt, state.seed, state.step + 1), metrics
 
     return step
 
 
 def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_particles: int = 1,
-                    optimizer: str = "shared", prior_lr_mult: float = 1.0):
+                    optimizer: str = "shared", prior_lr_mult: float = 1.0, reduce: Optional[Callable] = None):
     """Returns (init_state, train_step, train_epoch).
 
     ``train_step(state, batch)`` is one dual step on a batch of tensors;
     ``train_epoch(state, batches)`` runs it over stacked minibatches (leading
     ``(n_batches, B, ...)`` axes, on the device) and returns the per-step
     metrics stacked. ``ts`` is the time grid as a tensor on the device.
+    ``reduce``: as for :func:`make_dual_step`.
     """
     optim = make_dual_optimizer(spec, params_example, lr, optimizer, prior_lr_mult=prior_lr_mult)
 
@@ -265,7 +291,7 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
         params = tree_map(lambda p: p.detach().clone(), params)
         return SVIState(params, optim.init(params), int(seed), 0)
 
-    train_step = make_dual_step(spec, ts, optim, num_particles)
+    train_step = make_dual_step(spec, ts, optim, num_particles, reduce)
 
     def train_epoch(state: SVIState, batches) -> Tuple[SVIState, Dict[str, Tensor]]:
         mets = []
@@ -316,7 +342,8 @@ def over_members(spec: ModelSpec, fn, in_dims):
     return looped
 
 
-def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1):
+def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1,
+                           reduce: Optional[Callable] = None):
     """The dual step of S stacked members (the JAX ensemble's vmapped
     ``make_dual_step``): ``step(state, batch, batch_dims, seeds) -> (state,
     metrics)``. ``state`` holds stacked parameters and optimizer slots (a
@@ -334,19 +361,27 @@ def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, nu
     :func:`make_dual_step` on member s's slices to float32 roundoff (batched
     and single matrix products may round differently). On the adaptive ODE
     backends the members go one at a time, and each equals its sequential
-    dual step."""
+    dual step.
+
+    ``reduce`` sums the members' stacked gradients and metric sums over the
+    ranks that hold slices of each member's batch, as in
+    :func:`make_dual_step` (the ensemble's data axis)."""
     main_loss, aux_loss = make_losses(spec, ts, num_particles)
     grad_main = torch.func.grad_and_value(main_loss, has_aux=True)
     grad_aux = torch.func.grad_and_value(aux_loss)
 
+    reduce = reduce or _same
+
     def step(state: SVIState, batch, batch_dims, seeds: Tensor):
         sc = batch.get("lr_scale", 1.0)
         grads, (loss_m, mets) = over_members(spec, grad_main, (0, 0, batch_dims))(state.params, seeds[:, 0], batch)
-        params, opt = optim.update_main(grads, state.opt, state.params, sc)
+        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc)
         grads_a, loss_a = over_members(spec, grad_aux, (0, 0, batch_dims))(params, seeds[:, 1], batch)
+        grads_a, (sums, parts) = reduce([grads_a, [[loss_m, loss_a, torch.sum(batch["mask"], dim=-1)],
+                                                   mets["l1_parts"]]])
         params, opt = optim.update_aux(grads_a, opt, params, sc)
-        n = torch.clamp(torch.sum(batch["mask"], dim=-1), min=1.0)
-        metrics = {"loss_main": loss_m / n, "loss_aux": loss_a / n, "l1": mets["l1"]}
+        n = torch.clamp(sums[2], min=1.0)
+        metrics = {"loss_main": sums[0] / n, "loss_aux": sums[1] / n, "l1": particle_l1(parts)}
         return SVIState(params, opt, state.seed, state.step + 1), metrics
 
     return step
@@ -378,25 +413,28 @@ def make_eval_fns(spec: ModelSpec, ts: Tensor):
     return evaluate_losses, classify, reconstruct
 
 
-def make_eval_epoch(spec: ModelSpec, ts: Tensor):
+def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = None):
     """Whole-split evaluation over stacked minibatches on the device: what
     the ``eval_split`` host loop computes (per-loss ELBO as a sum of
     per-batch loss/n, recon L1 sum, n, one summed statistic per label) with
     the same seeds, so the two agree to float32 summation order.
 
     Returns ``eval_epoch(params, seed, batches, is_post) -> stats``, a dict of
-    0-d tensors (``labels`` a dict of them)."""
+    0-d tensors (``labels`` a dict of them). With ``reduce`` (as for
+    :func:`make_dual_step`) each rank holds a slice of every batch: the
+    batches' sums (losses, count, the L1's parts, the label statistics) are
+    summed over the ranks in one collective, and each batch's ratios are
+    taken from the sums."""
     evaluate_losses, classify, reconstruct = make_eval_fns(spec, ts)
+    reduce = reduce or _same
 
     @torch.no_grad()
     def eval_epoch(params, seed, batches, is_post: bool):
         s_loss, s_recon, s_cls = eval_seeds(seed)
-        sums = None
+        rows = []
         for i in range(batches["mask"].shape[0]):
             batch = {k: v[i] for k, v in batches.items()}
             m = batch["mask"]
-            n = torch.sum(m)
-            nn = torch.clamp(n, min=1.0)
             lm, la = evaluate_losses(params, s_loss, batch)
             r = reconstruct(params, s_recon, batch, is_post)
             p = classify(params, s_cls, batch)
@@ -409,7 +447,11 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor):
                     labels[label.name] = torch.sum((pred.argmax(-1) == target.argmax(-1)) * m)
                 else:  # continuous: summed per-sample mean squared error
                     labels[label.name] = torch.sum(torch.mean((pred - target) ** 2, dim=-1) * m)
-            one = {"elbo_main": lm / nn, "elbo_aux": la / nn, "l1": r["l1"], "n": n, "labels": labels}
+            rows.append([lm, la, torch.sum(m), masked_abs_parts(r["mu_50"] - batch["observations"], m), labels])
+        sums = None
+        for lm, la, n, parts, labels in reduce(rows):
+            nn = torch.clamp(n, min=1.0)
+            one = {"elbo_main": lm / nn, "elbo_aux": la / nn, "l1": l1_of_parts(*parts), "n": n, "labels": labels}
             sums = one if sums is None else tree_map(torch.add, sums, one)
         return sums
 

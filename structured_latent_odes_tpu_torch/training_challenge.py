@@ -17,10 +17,9 @@ draw for draw. Each of the sample dump's draws has its own seed, derived from
 the run's seed, the tag (post or prior) and the draw's index.
 
 ``--checkpoint-every``, ``--resume``, ``--profile-dir`` and the plots work as
-in ``training_cvs.py``. Not ported yet, raising ``NotImplementedError`` with
-its ROADMAP item: ``--data-parallel``/``--time-parallel`` (A17).
-``--prior-refit-epochs`` refits the conditional priors after training, as the
-JAX driver does.
+in ``training_cvs.py``, and so do ``--data-parallel`` and ``--time-parallel``
+(several ranks; rank 0 alone writes the results). ``--prior-refit-epochs``
+refits the conditional priors after training, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -40,10 +39,17 @@ from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import challenge_spec, init_params
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
-from structured_latent_odes_tpu_torch.train.backend import make_training_backend
+from structured_latent_odes_tpu_torch.parallel.launch import is_writer
+from structured_latent_odes_tpu_torch.train.backend import make_training_backend, run_on_ranks
 from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_plotting, configure, refit_priors
+from structured_latent_odes_tpu_torch.training_cvs import (
+    add_common_args,
+    check_plotting,
+    configure,
+    open_model_log,
+    refit_priors,
+)
 from structured_latent_odes_tpu_torch.utils import plotting
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
@@ -75,17 +81,23 @@ def multiple_samples(reconstruct, params, seed: int, batch, num_samples: int, is
     return {k: torch.stack(v, dim=3).cpu().numpy() for k, v in mus.items()}
 
 
-def dump_sample_bands(out_dir, reconstruct, params, seed: int, split, num_samples: int, device) -> None:
-    """The sample dump over the whole split, posterior and prior."""
+def dump_sample_bands(out_dir, reconstruct, params, seed: int, split, num_samples: int, device,
+                      write: bool = True) -> None:
+    """The sample dump over the whole split, posterior and prior. A rank
+    that does not write (``write=False``) draws all the same: a
+    time-parallel solve needs every rank of its time group."""
     batch = device_batch(full_batch(split), device)
     for tag, is_post in (("post", True), ("prior", False)):
         bands = multiple_samples(reconstruct, params, fold_seed(seed, tag), batch, num_samples, is_post)
-        artifacts.dump_sample_bands(out_dir, tag, bands["mu_25"], bands["mu_50"], bands["mu_75"])
+        if write:
+            artifacts.dump_sample_bands(out_dir, tag, bands["mu_25"], bands["mu_50"], bands["mu_75"])
 
 
 def train(config, device="cuda"):
     check_plotting(config)
+    open_model_log(config)
     device = resolve_device(device)
+    writer = is_writer()
     full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
@@ -105,7 +117,7 @@ def train(config, device="cuda"):
     params = init_params(spec, fold_seed(seed, "init"), device=device)
     print(f"Model: {config.model} - with {sum(p.numel() for p in tree_leaves(params))} parameters.")
 
-    init_state, train_epoch, put_batch = make_training_backend(spec, ts, config, params)
+    init_state, train_epoch, put_batch, reduce = make_training_backend(spec, ts, config, params)
     eval_fns = make_eval_fns(spec, ts)
     state = init_state(params, fold_seed(seed, "train"))
     out_dir = artifacts.results_dir(config.model, config.get("results_root", "."))
@@ -134,7 +146,7 @@ def train(config, device="cuda"):
         spec=spec,
         state=state,
         train_epoch=train_epoch,
-        eval_epoch=make_eval_epoch(spec, ts),
+        eval_epoch=make_eval_epoch(spec, ts, reduce=reduce),
         splits=splits,
         config=config,
         rng=rng,
@@ -156,32 +168,34 @@ def train(config, device="cuda"):
     eval_bs = max(config.mini_batch_size, splits["val"]["observations"].shape[0])
     test_post, test_prior = final_test_eval(spec, best["params"], fold_seed(seed, "test"), splits["val"],
                                             eval_fns, eval_bs)
-    artifacts.dump_common(
-        out_dir,
-        test_post.observations,
-        times,
-        {"symptoms": test_post.labels["symptoms"].squeeze(-1), "shedding": test_post.labels["shedding"].squeeze(-1)},
-    )
-    artifacts.dump_recon(out_dir, "post", test_post.recon)
-    artifacts.dump_recon(out_dir, "prior", test_prior.recon)
     dump_sample_bands(out_dir, eval_fns[2], best["params"], fold_seed(seed, "samples"), splits["val"],
-                      config.num_samples, device)
-    if config.get("plot", True):
-        for tag, stats in (("post", test_post), ("prior", test_prior)):
-            plotting.plot_label_grid(
-                out_dir,
-                f"test_{best['epoch']}_{tag}",
-                stats.observations,
-                stats.recon,
-                times,
-                {"symptoms": stats.labels["symptoms"], "shedding": stats.labels["shedding"]},
-                CHANNELS,
-            )
-    checkpoint.save(
-        os.path.join(out_dir, "best_model.npz"),
-        params_to_jax(best["params"]),
-        metadata={"epoch": best["epoch"], "criterion": float(best["criterion"])},
-    )
+                      config.num_samples, device, write=writer)
+    if writer:
+        artifacts.dump_common(
+            out_dir,
+            test_post.observations,
+            times,
+            {"symptoms": test_post.labels["symptoms"].squeeze(-1),
+             "shedding": test_post.labels["shedding"].squeeze(-1)},
+        )
+        artifacts.dump_recon(out_dir, "post", test_post.recon)
+        artifacts.dump_recon(out_dir, "prior", test_prior.recon)
+        if config.get("plot", True):
+            for tag, stats in (("post", test_post), ("prior", test_prior)):
+                plotting.plot_label_grid(
+                    out_dir,
+                    f"test_{best['epoch']}_{tag}",
+                    stats.observations,
+                    stats.recon,
+                    times,
+                    {"symptoms": stats.labels["symptoms"], "shedding": stats.labels["shedding"]},
+                    CHANNELS,
+                )
+        checkpoint.save(
+            os.path.join(out_dir, "best_model.npz"),
+            params_to_jax(best["params"]),
+            metadata={"epoch": best["epoch"], "criterion": float(best["criterion"])},
+        )
 
     final = "FINAL TEST: shedding_acc=(%.4f,%.4f)  symptoms_acc=(%.4f,%.4f) l1=(%.6f,%.6f)" % (
         test_post.label_metrics["shedding"],
@@ -191,8 +205,9 @@ def train(config, device="cuda"):
         test_post.l1,
         test_prior.l1,
     )
-    print(final)
-    log.debug(final)
+    if writer:
+        print(final)
+        log.debug(final)
     return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
@@ -212,7 +227,7 @@ def main(argv=None):
     config = load_challenge_config()
     configure(config, args)
     config.data_seed = args.data_seed
-    return train(config, device=args.device)
+    return run_on_ranks(train, config, args.device)
 
 
 if __name__ == "__main__":

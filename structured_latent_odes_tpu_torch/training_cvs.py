@@ -26,8 +26,13 @@ Parameters come from the port's own ``init_params(spec, seed)``, and every
 draw from the port's counter hash: JAX's threefry bits are not reproduced, so
 a run is not the JAX run of the same seed, draw for draw.
 
-Not ported yet, raising ``NotImplementedError`` with its ROADMAP item:
-``--data-parallel``/``--time-parallel`` (A17). ``--prior-refit-epochs``
+``--data-parallel N`` splits each minibatch over N ranks and sums their
+gradients; ``--time-parallel M`` splits each solve's horizon over M ranks
+(the ``semilinear_timepar`` backend). The run then takes ``N x M`` ranks,
+one process each (``train/backend.py::run_on_ranks``): spawned here, or
+torchrun's when it started the processes. On the card each rank takes one
+card and the ranks talk over NCCL; with ``--device cpu`` they are processes
+over gloo. Rank 0 alone writes the results. ``--prior-refit-epochs``
 refits the conditional priors after training, as the JAX driver does.
 """
 
@@ -48,7 +53,8 @@ from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
-from structured_latent_odes_tpu_torch.train.backend import make_training_backend
+from structured_latent_odes_tpu_torch.parallel.launch import is_writer, rank0_first
+from structured_latent_odes_tpu_torch.train.backend import make_training_backend, run_on_ranks
 from structured_latent_odes_tpu_torch.train.driver import final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
 from structured_latent_odes_tpu_torch.utils import plotting
@@ -96,16 +102,26 @@ def refit_priors(config, spec, ts, best, seed: int, train_split, rng):
     return dict(best, params=params)
 
 
+def open_model_log(config) -> None:
+    """On the writing rank, file logging to ``results_<Model>/model.log``
+    when the driver's flags asked for it (:func:`configure`)."""
+    if config.get("model_log") and is_writer():
+        setup_logging(artifacts.results_dir(config.model, config.results_root))
+
+
 def train(config, device="cuda"):
     check_plotting(config)
+    open_model_log(config)
     device = resolve_device(device)
+    writer = is_writer()
     full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
     seed = set_seed(config.seed)
     rng = np.random.RandomState(config.seed)
 
-    splits, _ = build_splits(config, device=device)
+    # a missing cvs.npz is generated once, by rank 0, before the others read it
+    splits, _ = rank0_first(lambda: build_splits(config, device=device))
     for name in ("train", "val", "test"):
         print(name.upper(), "obs=", splits[name]["observations"].shape)
 
@@ -116,7 +132,7 @@ def train(config, device="cuda"):
     n_params = sum(p.numel() for p in tree_leaves(params))
     print(f"Model: {config.model} - with {n_params} parameters.")
 
-    init_state, train_epoch, put_batch = make_training_backend(spec, ts, config, params)
+    init_state, train_epoch, put_batch, reduce = make_training_backend(spec, ts, config, params)
     eval_fns = make_eval_fns(spec, ts)
     state = init_state(params, fold_seed(seed, "train"))
     out_dir = artifacts.results_dir(config.model, config.get("results_root", "."))
@@ -144,7 +160,7 @@ def train(config, device="cuda"):
         spec=spec,
         state=state,
         train_epoch=train_epoch,
-        eval_epoch=make_eval_epoch(spec, ts),
+        eval_epoch=make_eval_epoch(spec, ts, reduce=reduce),
         splits=splits,
         config=config,
         rng=rng,
@@ -166,30 +182,31 @@ def train(config, device="cuda"):
     test_post, test_prior = final_test_eval(
         spec, best["params"], fold_seed(seed, "test"), splits["test"], eval_fns, config.mini_batch_size
     )
-    artifacts.dump_common(
-        out_dir,
-        test_post.observations,
-        times,
-        {"iext": test_post.labels["iext"].squeeze(-1), "rtpr": test_post.labels["rtpr"].squeeze(-1)},
-    )
-    artifacts.dump_recon(out_dir, "post", test_post.recon)
-    artifacts.dump_recon(out_dir, "prior", test_prior.recon)
-    if config.get("plot", True):
-        for tag, stats in (("post", test_post), ("prior", test_prior)):
-            plotting.plot_label_grid(
-                out_dir,
-                f"test_{best['epoch']}_{tag}",
-                stats.observations,
-                stats.recon,
-                times,
-                {"iext": stats.labels["iext"], "rtpr": stats.labels["rtpr"]},
-                CHANNELS,
-            )
-    checkpoint.save(
-        os.path.join(out_dir, "best_model.npz"),
-        params_to_jax(best["params"]),
-        metadata={"epoch": best["epoch"], "criterion": float(best["criterion"])},
-    )
+    if writer:
+        artifacts.dump_common(
+            out_dir,
+            test_post.observations,
+            times,
+            {"iext": test_post.labels["iext"].squeeze(-1), "rtpr": test_post.labels["rtpr"].squeeze(-1)},
+        )
+        artifacts.dump_recon(out_dir, "post", test_post.recon)
+        artifacts.dump_recon(out_dir, "prior", test_prior.recon)
+        if config.get("plot", True):
+            for tag, stats in (("post", test_post), ("prior", test_prior)):
+                plotting.plot_label_grid(
+                    out_dir,
+                    f"test_{best['epoch']}_{tag}",
+                    stats.observations,
+                    stats.recon,
+                    times,
+                    {"iext": stats.labels["iext"], "rtpr": stats.labels["rtpr"]},
+                    CHANNELS,
+                )
+        checkpoint.save(
+            os.path.join(out_dir, "best_model.npz"),
+            params_to_jax(best["params"]),
+            metadata={"epoch": best["epoch"], "criterion": float(best["criterion"])},
+        )
 
     final = "FINAL TEST: iext_acc=(%.4f,%.4f)  rtpr_acc=(%.4f,%.4f) l1=(%.6f,%.6f)" % (
         test_post.label_metrics["iext"],
@@ -199,13 +216,14 @@ def train(config, device="cuda"):
         test_post.l1,
         test_prior.l1,
     )
-    print(final)
-    log.debug(final)
     elbo_line = "ELBO: best_epoch: {} post: {} prior: {}".format(
         best["epoch"], test_post.elbo, test_prior.elbo
     )
-    print(elbo_line)
-    log.debug(elbo_line)
+    if writer:
+        print(final)
+        log.debug(final)
+        print(elbo_line)
+        log.debug(elbo_line)
     return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
@@ -240,9 +258,9 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--optimizer", choices=["shared", "split"], default=None,
                    help="shared per-param Adam (Pyro parity) or two split Adams")
     p.add_argument("--data-parallel", type=int, default=None,
-                   help="shard the batch over N devices (not ported yet: ROADMAP A17)")
+                   help="split each minibatch over N ranks (one card each on cuda, processes over gloo on cpu)")
     p.add_argument("--time-parallel", type=int, default=None,
-                   help="shard the ODE horizon over K devices (not ported yet: ROADMAP A17)")
+                   help="split each ODE solve's horizon over K ranks (the semilinear_timepar backend)")
     p.add_argument("--num-particles", type=int, default=None,
                    help="ELBO particles averaged per step (Trace_ELBO(num_particles))")
     p.add_argument("--ode-backend", default=None)
@@ -279,7 +297,8 @@ def parse_args(argv=None):
 def configure(config, args):
     """Apply the parsed flags to ``config`` as the JAX drivers' ``main`` does
     (every flag named like a config key overrides it, then the run options),
-    and open ``model.log`` in the results directory."""
+    and ask for ``model.log`` in the results directory, which the run's
+    writing rank opens (:func:`open_model_log`)."""
     for k, v in vars(args).items():
         if v is not None and k in config:
             config[k] = v
@@ -297,7 +316,7 @@ def configure(config, args):
     config.checkpoint_every = args.checkpoint_every
     config.resume = args.resume
     config.profile_dir = args.profile_dir
-    setup_logging(artifacts.results_dir(config.model, config.results_root))
+    config.model_log = True
 
 
 def main(argv=None):
@@ -306,7 +325,7 @@ def main(argv=None):
     if args.reference_data_dir:
         config.reference_data_dir = args.reference_data_dir
     configure(config, args)
-    return train(config, device=args.device)
+    return run_on_ranks(train, config, args.device)
 
 
 def setup_logging(out_dir: str) -> None:

@@ -17,10 +17,9 @@ from the port's counter hash, so a run is not the JAX run of the same seed,
 draw for draw.
 
 ``--checkpoint-every``, ``--resume``, ``--profile-dir`` and the plots work as
-in ``training_cvs.py``. Not ported yet, raising ``NotImplementedError`` with
-its ROADMAP item: ``--data-parallel``/``--time-parallel`` (A17).
-``--prior-refit-epochs`` refits the conditional priors after training, as the
-JAX driver does.
+in ``training_cvs.py``, and so do ``--data-parallel`` and ``--time-parallel``
+(several ranks; rank 0 alone writes the results). ``--prior-refit-epochs``
+refits the conditional priors after training, as the JAX driver does.
 """
 
 from __future__ import annotations
@@ -38,11 +37,18 @@ from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import init_params, proc_spec
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import artifacts, checkpoint
-from structured_latent_odes_tpu_torch.train.backend import make_training_backend
+from structured_latent_odes_tpu_torch.parallel.launch import is_writer
+from structured_latent_odes_tpu_torch.train.backend import make_training_backend, run_on_ranks
 from structured_latent_odes_tpu_torch.train.driver import final_test_eval, plots_due, run_training_epochs
 from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, make_eval_fns
 from structured_latent_odes_tpu_torch.training_challenge import dump_sample_bands
-from structured_latent_odes_tpu_torch.training_cvs import add_common_args, check_plotting, configure, refit_priors
+from structured_latent_odes_tpu_torch.training_cvs import (
+    add_common_args,
+    check_plotting,
+    configure,
+    open_model_log,
+    refit_priors,
+)
 from structured_latent_odes_tpu_torch.utils import plotting
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.rng import set_seed
@@ -55,7 +61,9 @@ CHANNELS = ("OD", "mRFP1", "EYFP", "ECFP")
 
 def train(config, device="cuda"):
     check_plotting(config)
+    open_model_log(config)
     device = resolve_device(device)
+    writer = is_writer()
     full_fp32(deterministic=True)
     print(config.to_json())
     log.debug(config.to_json())
@@ -71,7 +79,7 @@ def train(config, device="cuda"):
     params = init_params(spec, fold_seed(seed, "init"), device=device)
     print(f"Model: {config.model} - with {sum(p.numel() for p in tree_leaves(params))} parameters.")
 
-    init_state, train_epoch, put_batch = make_training_backend(spec, ts, config, params)
+    init_state, train_epoch, put_batch, reduce = make_training_backend(spec, ts, config, params)
     eval_fns = make_eval_fns(spec, ts)
     state = init_state(params, fold_seed(seed, "train"))
     out_dir = artifacts.results_dir(config.model, config.get("results_root", "."))
@@ -101,7 +109,7 @@ def train(config, device="cuda"):
         spec=spec,
         state=state,
         train_epoch=train_epoch,
-        eval_epoch=make_eval_epoch(spec, ts),
+        eval_epoch=make_eval_epoch(spec, ts, reduce=reduce),
         splits=splits,
         config=config,
         rng=rng,
@@ -122,24 +130,25 @@ def train(config, device="cuda"):
     test_post, test_prior = final_test_eval(spec, best["params"], fold_seed(seed, "test"), splits["val"],
                                             eval_fns, config.mini_batch_size)
     labels = test_post.labels
-    artifacts.dump_common(
-        out_dir,
-        test_post.observations,
-        times,
-        {
-            "treatments": np.concatenate([labels["C12"], labels["C6"]], axis=1),
-            "devices": np.concatenate([labels["aR"], labels["aS"]], axis=1),
-        },
-    )
-    artifacts.dump_recon(out_dir, "post", test_post.recon)
-    artifacts.dump_recon(out_dir, "prior", test_prior.recon)
     dump_sample_bands(out_dir, eval_fns[2], best["params"], fold_seed(seed, "samples"), splits["val"],
-                      config.num_samples, device)
-    checkpoint.save(
-        os.path.join(out_dir, "best_model.npz"),
-        params_to_jax(best["params"]),
-        metadata={"epoch": int(best["epoch"]), "criterion": float(best["criterion"])},
-    )
+                      config.num_samples, device, write=writer)
+    if writer:
+        artifacts.dump_common(
+            out_dir,
+            test_post.observations,
+            times,
+            {
+                "treatments": np.concatenate([labels["C12"], labels["C6"]], axis=1),
+                "devices": np.concatenate([labels["aR"], labels["aS"]], axis=1),
+            },
+        )
+        artifacts.dump_recon(out_dir, "post", test_post.recon)
+        artifacts.dump_recon(out_dir, "prior", test_prior.recon)
+        checkpoint.save(
+            os.path.join(out_dir, "best_model.npz"),
+            params_to_jax(best["params"]),
+            metadata={"epoch": int(best["epoch"]), "criterion": float(best["criterion"])},
+        )
 
     final = (
         "FINAL TEST: aR_acc=(%.4f,%.4f)  aS_acc=(%.4f,%.4f) C12_mse=(%.4f,%.4f) "
@@ -157,8 +166,9 @@ def train(config, device="cuda"):
             test_prior.l1,
         )
     )
-    print(final)
-    log.debug(final)
+    if writer:
+        print(final)
+        log.debug(final)
     return {"best": best, "state": state, "test_post": test_post, "test_prior": test_prior, "out_dir": out_dir}
 
 
@@ -179,7 +189,7 @@ def main(argv=None):
     config = load_proc_config()
     configure(config, args)
     config.data_seed = args.data_seed
-    return train(config, device=args.device)
+    return run_on_ranks(train, config, args.device)
 
 
 if __name__ == "__main__":

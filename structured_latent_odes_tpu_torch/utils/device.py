@@ -2,18 +2,25 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 
 def resolve_device(device) -> torch.device:
     """``device`` as a torch.device; a CUDA device without a card fails
-    loudly instead of falling back to the CPU."""
+    loudly instead of falling back to the CPU. In a rank of a process group
+    (``parallel/launch.py``), CUDA without an index is the card of the
+    rank's local index: one card per rank."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device} requested but no CUDA card is available; "
             "pass device='cpu' (CLI: --device cpu) to run on the CPU"
         )
+    if device.type == "cuda" and device.index is None and dist.is_available() and dist.is_initialized():
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
     return device
 
 

@@ -116,7 +116,7 @@ def _sequential(config, splits, seed, policy):
     spec = cvs_spec(config, n_time=T)
     ts = torch.arange(float(T))
     params = init_params(spec, fold_seed(seed, "init"), device="cpu")
-    init_state, train_epoch, put = make_training_backend(spec, ts, config, params)
+    init_state, train_epoch, put, _ = make_training_backend(spec, ts, config, params)
     return run_training_epochs(
         spec=spec, state=init_state(params, fold_seed(seed, "train")), train_epoch=train_epoch,
         eval_epoch=svi.make_eval_epoch(spec, ts), splits=splits, config=config, rng=np.random.RandomState(seed),

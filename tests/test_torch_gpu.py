@@ -539,3 +539,119 @@ def test_profiler_trace_names_the_fused_kernels(cuda, tiny_cvs, tmp_path):
         kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
     for pattern in ("fused_semilinear_fwd_kernel", "fused_semilinear_bwd_kernel"):
         assert any(pattern in k for k in kernels), (pattern, sorted(kernels)[:20])
+
+
+# Phase 10 of chip_smoke.py as tests: two spawned ranks sharing the card
+# over gloo (NCCL refuses two ranks on one GPU) and an NCCL group of one
+# rank, running chip_smoke's rank functions at the CVS widths on a random
+# batch of 32. The parent computes the one-device references; the bounds are
+# chip_smoke's (the JAX package's tests/test_parallel.py and
+# tests/test_timepar.py).
+RANK_B = 32
+
+
+@pytest.fixture(scope="module")
+def rank_pool():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from structured_latent_odes_tpu_torch.parallel import launch
+
+    with launch.RankPool(2, device="cuda:0", backend="gloo", timeout_s=300, threads=2, quiet=True) as pool:
+        yield pool
+
+
+def _leaves_np(tree):
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    return [x if isinstance(x, np.ndarray) else x.detach().cpu().numpy() for x in tree_leaves(tree)]
+
+
+def _rank_case(cuda, backend):
+    """chip_smoke's phase-10 case dict at RANK_B rows, and the one-device
+    dual step on the same params, batch and seed, in full float32 with
+    deterministic cuDNN, as the ranks and the trainers run."""
+    import chip_smoke
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+
+    full_fp32(deterministic=True)
+
+    r = np.random.RandomState(0)
+    batch = {"observations": r.rand(RANK_B, 3, 86).astype(np.float32),
+             "iext": (r.rand(RANK_B, 1) > 0.5).astype(np.float32), "rtpr": (r.rand(RANK_B, 1) > 0.5).astype(np.float32),
+             "mask": np.ones(RANK_B, np.float32), "sample_id": np.arange(RANK_B, dtype=np.int32)}
+    times = np.arange(86.0, dtype=np.float32)
+    cfg = chip_smoke._config("unused", backend)
+    params = init_params(cvs_spec(cfg), 0, device=cuda)
+    case = dict(params=chip_smoke._np_tree(params), batch=batch, times=times, seed=5, lr=cfg.learning_rate,
+                device="cuda:0", data_dir="unused", steps=1)
+    ref = chip_smoke._one_device_step(cvs_spec(cfg), params, device_batch(batch, cuda), torch.as_tensor(times,
+                                      device=cuda), cfg.learning_rate, 5)
+    return case, ref, params
+
+
+def test_dp_step_through_an_nccl_group_of_one_is_the_one_device_step(cuda, rank_pool):
+    import chip_smoke
+
+    case, (state, mets, _, grads), _ = _rank_case(cuda, "semilinear_fused")
+    out = rank_pool.run(chip_smoke._rank_dp_step, dict(case, ranks=[0], group_backend="nccl",
+                                                        backend="semilinear_fused"))[0]
+    assert out["loss_main"] == float(mets["loss_main"]) and out["loss_aux"] == float(mets["loss_aux"])
+    for a, b in zip(_leaves_np([out["params"], out["grads"]]), _leaves_np([state.params, grads])):
+        assert np.array_equal(a, b)
+    assert out["counts"]["K2"] > 0 and out["counts"]["K3"] > 0
+
+
+@pytest.mark.parametrize("backend,kernels", [("semilinear_fused", ("K2", "K3")), ("semilinear", ("K1", "K1-bwd"))])
+def test_dp_step_on_two_ranks_sharing_the_card(cuda, rank_pool, backend, kernels):
+    import chip_smoke
+
+    case, (state, mets, _, grads), _ = _rank_case(cuda, backend)
+    outs = rank_pool.run(chip_smoke._rank_dp_step, dict(case, ranks=[0, 1], group_backend="gloo", backend=backend))
+    for out in outs:
+        assert out["rows"] == RANK_B // 2
+        assert chip_smoke.grad_ratio(out["grads"], grads) <= 1.0
+        for k in ("loss_main", "loss_aux"):
+            np.testing.assert_allclose(out[k], float(mets[k]), rtol=chip_smoke.DP_LOSS_RTOL)
+        for a, b in zip(_leaves_np(out["params"]), _leaves_np(state.params)):
+            np.testing.assert_allclose(a, b, rtol=chip_smoke.DP_PARAM_RTOL, atol=chip_smoke.DP_PARAM_ATOL)
+        assert all(out["counts"][k] > 0 for k in kernels)
+        assert not any(n for k, n in out["counts"].items() if k not in kernels)
+    for a, b in zip(_leaves_np(outs[0]["params"]), _leaves_np(outs[1]["params"])):
+        assert np.array_equal(a, b)
+
+
+def test_time_parallel_step_and_recurrence_on_two_ranks(cuda, rank_pool):
+    """The horizon over the two ranks (semilinear_timepar: K1 and K1-bwd on
+    each rank's chunk): the solve's values, the main loss's gradients and a
+    dual step against one device on semilinear, and the recurrence of 4096
+    steps against K1."""
+    import chip_smoke
+    from structured_latent_odes_tpu_torch.nn.ode_model import solve_ode
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    case, (state, mets, _, _), params = _rank_case(cuda, "semilinear")
+    gen = torch.Generator().manual_seed(10)
+    long = (torch.rand((RANK_B, 4095, 5), generator=gen) * 0.05 + 0.95,
+            (torch.rand((RANK_B, 4095, 5), generator=gen) - 0.5) * 0.02, torch.rand((RANK_B, 5), generator=gen))
+    z = torch.randn((RANK_B, 15), generator=gen)
+    outs = rank_pool.run(chip_smoke._rank_tp_case, dict(case, z=z.numpy(), long=[t.numpy() for t in long]))
+    spec = cvs_spec(chip_smoke._config("unused", "semilinear"))
+    ts = torch.arange(86.0, device=cuda)
+    with torch.no_grad():
+        ref_solve = solve_ode(spec.decoder.ode, params["decoder"]["ode"], z.to(cuda), ts).cpu().numpy()
+    _, _, ref_grads = svi.value_and_grad(svi.make_losses(spec, ts)[0], params, 7, device_batch(case["batch"], cuda))
+    ref_long = recurrence.affine_scan(*(t.to(cuda) for t in long)).cpu().numpy()
+    for out in outs:
+        np.testing.assert_allclose(out["solve"], ref_solve, atol=chip_smoke.TP_VALUE_ATOL,
+                                   rtol=chip_smoke.TP_VALUE_RTOL)
+        for a, b in zip(_leaves_np(out["grads"]), _leaves_np(ref_grads)):
+            np.testing.assert_allclose(a, b, rtol=chip_smoke.TP_RTOL, atol=chip_smoke.TP_ATOL)
+        np.testing.assert_allclose(out["long"], ref_long, atol=chip_smoke.TP_VALUE_ATOL)
+        np.testing.assert_allclose(out["loss_main"], float(mets["loss_main"]), rtol=chip_smoke.DP_LOSS_RTOL)
+        for a, b in zip(_leaves_np(out["params"]), tree_leaves(state.params)):
+            np.testing.assert_allclose(a, b.cpu().numpy(), rtol=chip_smoke.TP_RTOL, atol=chip_smoke.TP_ATOL)
+        assert out["counts"]["K1"] > 0 and out["counts"]["K1-bwd"] > 0 and out["long_counts"]["K1"] > 0
+        assert out["counts"]["K2"] == 0 and out["counts"]["K3"] == 0

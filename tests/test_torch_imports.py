@@ -4,8 +4,8 @@ or any module of the JAX package. Run in a subprocess with those blocked,
 so an import of any fails loudly; every module of the port is walked, the
 training slice's, the proc and challenge workloads', the sweep's, the
 generic, adjoint and adaptive solvers', the native loader's, the
-profiler's, and the plotting and figure modules' included (these two import
-matplotlib only when they draw)."""
+profiler's, the plotting and figure modules' (these two import matplotlib
+only when they draw) and the parallel package's included."""
 
 import os
 import subprocess
@@ -46,10 +46,11 @@ def test_port_never_imports_jax_or_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     walked = set(proc.stdout.split())
-    assert len(walked) >= 53  # every module of the port was imported
+    assert len(walked) >= 58  # every module of the port was imported
     training = {"prob.elbo", "train.svi", "train.driver", "train.backend", "train.artifacts",
                 "train.metrics", "utils.rng", "utils.device", "training_cvs", "data.proc",
                 "data.challenge", "training_proc", "training_challenge", "train.ensemble", "sweep",
                 "eval", "eval.metrics", "eval.__main__", "ode.solvers", "ode.adjoint",
-                "native", "utils.profiling", "utils.plotting", "eval.figures"}
+                "native", "utils.profiling", "utils.plotting", "eval.figures", "parallel", "parallel.mesh",
+                "parallel.launch", "parallel.train", "parallel.timepar"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked

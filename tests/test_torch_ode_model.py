@@ -77,11 +77,15 @@ def test_dynamics_and_initial_state_match_jax():
     np.testing.assert_allclose(port_ode.initialize_state(p, torch.from_numpy(z)).numpy(), x0_ref, atol=1e-6)
 
 
-@pytest.mark.parametrize("backend,item", [("semilinear_timepar", "A17")])
-def test_unported_backends_name_their_roadmap_item(backend, item):
+@pytest.mark.parametrize("backend,error,match", [("semilinear_timepar", RuntimeError, "time_sharding")])
+def test_unported_backends_name_their_roadmap_item(backend, error, match):
+    """Every backend is ported (the last, semilinear_timepar, with ROADMAP
+    A17): outside a time grid semilinear_timepar raises, naming the context
+    it needs, as the JAX package's does (tests/test_timepar.py); its values
+    on a grid are held in tests/test_torch_timepar.py."""
     spec = port_ode.OdeModelSpec(L, D, H, backend=backend)
     p = port_ode.ode_model_init(torch.Generator().manual_seed(0), spec)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         port_ode.solve_ode(spec, p, torch.zeros(2, L), np.arange(3, dtype=np.float32))
 
 

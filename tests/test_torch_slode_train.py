@@ -35,6 +35,7 @@ from structured_latent_odes_tpu.prob import sample_normal_ps as jax_sample
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.interop import params_from_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec, elbo_aux, elbo_main, param_masks
+from structured_latent_odes_tpu_torch.prob import l1_of_parts
 from structured_latent_odes_tpu_torch.train.svi import value_and_grad
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
@@ -127,7 +128,7 @@ def test_losses_match_jax(model, masked):
     loss_m, mets = elbo_main(pspec, p, 0, _torch(batch), ts, noise=jax_main_noise(jspec, k1, batch))
     loss_a = elbo_aux(pspec, p, 0, _torch(batch), noise=jax_aux_noise(jspec, k2, batch))
     np.testing.assert_allclose(float(loss_m), float(ref_m), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(float(mets["l1"]), float(ref_mets["l1"]), rtol=L1_RTOL)
+    np.testing.assert_allclose(float(l1_of_parts(*mets["l1_parts"])), float(ref_mets["l1"]), rtol=L1_RTOL)
     np.testing.assert_allclose(float(loss_a), float(ref_a), rtol=LOSS_RTOL)
 
 

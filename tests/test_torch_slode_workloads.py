@@ -75,6 +75,7 @@ from structured_latent_odes_tpu_torch.models import (
     proc_spec,
     recon,
 )
+from structured_latent_odes_tpu_torch.prob import l1_of_parts
 from structured_latent_odes_tpu_torch.train import svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
 from structured_latent_odes_tpu_torch.train.svi import value_and_grad
@@ -221,7 +222,7 @@ def test_losses_match_jax(dataset, model, masked):
     loss_m, mets = elbo_main(pspec, p, 0, _torch(batch), ts, noise=_draws(k1, sids, _main_sites(jspec)))
     loss_a = elbo_aux(pspec, p, 0, _torch(batch), noise=_draws(k2, sids, _aux_sites(jspec)))
     np.testing.assert_allclose(float(loss_m), float(ref_m), rtol=LOSS_RTOL)
-    np.testing.assert_allclose(float(mets["l1"]), float(ref_mets["l1"]), rtol=L1_RTOL)
+    np.testing.assert_allclose(float(l1_of_parts(*mets["l1_parts"])), float(ref_mets["l1"]), rtol=L1_RTOL)
     np.testing.assert_allclose(float(loss_a), float(ref_a), rtol=LOSS_RTOL)
 
 

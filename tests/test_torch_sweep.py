@@ -353,24 +353,28 @@ def test_sweep_cli_challenge_without_data_seed_averages_nothing(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--ensemble-parallel", "2"], "A17"),
-    (["--ensemble-data-parallel", "2"], "A17"),
+    (["--ensemble-parallel", "2"], None),  # ported (A17): two ranks over gloo (tests/test_torch_ensemble_sharded.py)
+    (["--ensemble-data-parallel", "2"], None),  # ported (A17)
     (["--reference-data-dir", "ref"], None),  # ported (A8-rest): a sweep from the reference's pickles
-    (["--ode-backend", "semilinear_timepar"], "A17"),
+    (["--ode-backend", "semilinear_timepar"], "time_sharding"),  # ported (A17): needs a time grid, as in JAX
 ], ids=["ensemble-parallel", "ensemble-data-parallel", "reference-data", "semilinear_timepar"])
 def test_unported_sweep_options_raise(cvs_data, tmp_path, argv, item):
-    """Each sweep option not ported yet raises, naming its ROADMAP item; one
-    ported since (item None) runs: "ref" is a directory of pickles written
-    from ``cvs_data``."""
+    """Every sweep option is ported: each runs (item None; "ref" is a
+    directory of pickles written from ``cvs_data``), but semilinear_timepar,
+    which needs the time grid a sweep does not install, and raises naming
+    it, as the JAX package's sweep does."""
     if item is None:
-        ref = write_reference_pickles(os.path.join(cvs_data, "cvs.npz"), str(tmp_path / "ref"))
+        if "--reference-data-dir" in argv:
+            argv = ["--reference-data-dir", write_reference_pickles(os.path.join(cvs_data, "cvs.npz"),
+                                                                    str(tmp_path / "ref"))]
         root = str(tmp_path / "sweep")
         out = sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--num-epochs", "0", "--mini-batch-size", "16",
-                          "--results-root", root, "--reference-data-dir", ref])
+                          "--results-root", root, "--data-path", cvs_data] + argv)
         _check_sweep(root, out, [3, 4])
         return
-    with pytest.raises(NotImplementedError, match=item):
-        sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--results-root", str(tmp_path)] + argv)
+    with pytest.raises(RuntimeError, match=item):
+        sweep.main(["cvs", "--device", "cpu", "--seeds", "3,4", "--num-epochs", "0", "--mini-batch-size", "16",
+                    "--data-path", cvs_data, "--results-root", str(tmp_path)] + argv)
 
 
 @pytest.mark.parametrize("backend", ["adjoint", "semilinear_auto"])

@@ -103,7 +103,7 @@ def test_checkpoint_restores_in_both_packages(trained, data_dir):
     (ARGS + ["--checkpoint-every", "1"], None),  # ported: runs (tests/test_torch_resume.py holds resume)
     (ARGS + ["--resume"], None),  # ported: no train_state.npz, so a fresh run
     (ARGS + ["--profile-dir", "prof"], None),  # ported: runs (tests/test_torch_profiling.py)
-    (ARGS + ["--data-parallel", "2"], "A17"),
+    (ARGS + ["--data-parallel", "2"], None),  # ported (A17): two ranks over gloo (tests/test_torch_parallel.py)
     (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
     (ARGS + ["--reference-data-dir", "ref"], None),  # ported: reads pickles (tests/test_torch_cvs_pickles.py)
 ], ids=["plot", "checkpoint-every", "resume", "profile-dir", "data-parallel", "prior-refit", "reference-data"])
