@@ -4,6 +4,7 @@ CUDA card: the quickest proof that the port builds, serves and trains on the
 GPU.
 
     python3 chip_smoke.py              # on the card
+    python3 chip_smoke.py --cards      # phases 1, 2 and 11 only (four cards)
     python3 chip_smoke.py --rehearse   # on the CPU: plain versions, tiny sizes
 
 Phases, each fatal on any fault:
@@ -135,25 +136,47 @@ Phases, each fatal on any fault:
    launching K1 and K1-bwd, and the recurrence of 4096 steps
    (solve_affine_recurrence_timepar) against K1. (d) A CVS sweep of four
    members over --ensemble-parallel 2 on semilinear_fused, one epoch beyond
-   epoch 0, against the unsharded sweep in member groups of two at the
-   ranks' intra-op thread count (the JAX package's member-sharded bound, params rtol 1e-5 and atol 1e-7,
-   Adam's moments within 1e-5 of each leaf's largest), and its params
-   against the unsharded stack of all four (the stacked-member bound, rtol
-   2e-4 and atol 1e-6). (e) training_cvs with
-   --data-parallel 2 on one card raises before any launch, naming the card
-   count. Launch counts are zeroed and read in each rank per case, and
+   epoch 0, bit for bit the unsharded sweep in member groups of two run in
+   this process at its default intra-op thread count (a seed's weights no
+   longer depend on it; within the JAX package's member-sharded bound,
+   params rtol 1e-5 and atol 1e-7, Adam's moments within 1e-5 of each
+   leaf's largest), and its params against the unsharded stack of all four
+   (the stacked-member bound, rtol 2e-4 and atol 1e-6). (e) training_cvs
+   with --data-parallel 2 on one card raises before any launch, naming the
+   card count. Launch counts are zeroed and read in each rank per case, and
    printed; the times are labelled as two ranks sharing one card over gloo:
    they describe this rehearsal, not the speed of several cards. The phase
    prints a {"ranks": ...} line of its times and worst errors.
+11. the layouts across cards over NCCL (ROADMAP C4), where the machine has
+   four cards or more (else one line says so), at CVS full width: four
+   ranks spawned once, rank r on cuda:r. (a) The data-parallel dual step
+   over the four cards (32 rows a rank) and over two of them, on
+   semilinear_fused and semilinear, under phase 10's bounds with the ranks'
+   params bit for bit equal; the median of five steps and, timed apart, the
+   gradient sums' share. (b) data 2 x time 2 and time 4 on
+   semilinear_timepar, and the recurrence of 4096 steps over the time
+   ranks. (c) A CVS sweep of eight members over --ensemble-parallel 4 (bit
+   for bit the unsharded sweep in member groups of two) and over
+   --ensemble-parallel 2 --ensemble-data-parallel 2 (phase 10's
+   member-sharded bound), both within the stacked-member bound of all eight, each
+   rank under its own results root (rank 0 alone must write); the gather's
+   time. (d) training_cvs --data-parallel 4 spawned by the CLI and under
+   torchrun (bit for bit each other, their artifacts elementwise within
+   (a)'s params bound of one card) and
+   the sweep CLI over --ensemble-parallel 4 (bit for bit (c)). (e)
+   --data-parallel 5 raises before any launch. Launches are counted on
+   every rank of every case (of the CLIs' own processes at their exit).
+   Prints a {"cards": ...} line. --cards runs phases 1, 2 and 11 alone.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
 dual steps, as the trainers ask, and its fastest ones in serving
 (utils/device.py::full_fp32).
 
-Prints a {"ranks": ...} line, a {"kernels": [...]} line, then the
-nvidia-smi line, then the last line {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
-before printing any result.
+Prints a {"ranks": ...} line, a {"cards": ...} line where phase 11 ran, a
+{"kernels": [...]} line, then the nvidia-smi line, then the last line
+{"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -163,6 +186,7 @@ import collections
 import json
 import math
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -195,7 +219,7 @@ from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batc
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
-from structured_latent_odes_tpu_torch.utils.device import full_fp32
+from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -2057,10 +2081,8 @@ def phase_plot_check(device, workdir: str, data_dir: str, rehearse: bool, paths:
 # of LONG_T steps (|x| below 1) atol 1e-5; its gradients and the step's
 # params rtol 1e-3 and atol 1e-4 (tests/test_timepar.py); a member-sharded
 # sweep against the unsharded one run in member groups of a rank's size
-# (each rank's stacked step holds the same members) at the ranks' intra-op
-# thread count (init_params' orthogonal init is a QR on the host, and it
-# rounds otherwise at another count: 3.0 times the bound below between 4
-# and 8 threads on the card's host): criterion rtol 1e-6,
+# (each rank's stacked step holds the same members): bit for bit, and within
+# criterion rtol 1e-6,
 # best epochs equal, params rtol 1e-5 and atol 1e-7 (the JAX package's
 # member-sharded bound, tests/test_ensemble.py) and Adam's moments, sums of
 # gradients in the hundreds, within 1e-5 of each leaf's largest; and against
@@ -2074,11 +2096,19 @@ DP_GRAD_TOL = 1e-5
 ENS_RTOL, ENS_ATOL, ENS_CRIT_RTOL = 1e-5, 1e-7, 1e-6
 STACKED_RTOL, STACKED_ATOL = 2e-4, 1e-6
 RANK_STEPS = 5  # timed dual steps per case, after the counted one
-RANK_THREADS = 4  # intra-op threads per rank: two ranks on the machine's 8 cores
+# intra-op threads per rank, a limit on the host's load only (two ranks on
+# the machine's 8 cores): since init_params' QR runs at one thread (nn/init.py),
+# no result depends on it
+RANK_THREADS = 4
 
 
 def _np_tree(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _dual_step_ms(step, state, batch, n: int, device) -> float:
@@ -2087,26 +2117,59 @@ def _dual_step_ms(step, state, batch, n: int, device) -> float:
     for _ in range(n):
         t0 = time.perf_counter()
         state, _m = step(state, batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        _sync(device)
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def _reduce_ms(step, state, batch, n: int, device) -> float:
+    """Median over ``n`` dual steps of the host time each spends in the data
+    group's sums (mesh.all_reduce_tree, both of a step's), each sum between
+    synchronises: the collective's own time, with the step's queued work
+    finished before it (the steps themselves run slower so)."""
+    summed, spent = mesh_module.all_reduce_tree, []
+
+    def timed(tree, group):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = summed(tree, group)
+        _sync(device)
+        spent[-1] += time.perf_counter() - t0
+        return out
+
+    mesh_module.all_reduce_tree = timed
+    try:
+        for _ in range(n):
+            spent.append(0.0)
+            state, _m = step(state, batch)
+    finally:
+        mesh_module.all_reduce_tree = summed
+    return float(np.median(spent)) * 1e3
 
 
 def _rank_world() -> int:
     return torch.distributed.get_world_size()
 
 
+def _rank_card() -> str:
+    """The device this rank's ``"cuda"`` resolves to, and the card's name."""
+    if not torch.cuda.is_available():
+        return "cpu"
+    return f"{resolve_device('cuda')} {torch.cuda.get_device_name(torch.cuda.current_device())}"
+
+
 def _rank_dp_step(c: dict):
     """On each rank of the data-parallel grid over ranks ``c['ranks']``
-    (groups of ``c['group_backend']``): one dual step on this rank's rows,
-    launches counted, with the summed main and aux gradients its updates
-    took (what the data group's sum, mesh.all_reduce_tree, returned), then
-    ``c['steps']`` timed. A rank outside the grid returns None."""
+    (groups of ``c['group_backend']``, None: the world's): one dual step on
+    this rank's rows, launches counted, with the summed main and aux
+    gradients its updates took (what the data group's sum,
+    mesh.all_reduce_tree, returned), then ``c['steps']`` timed and, with
+    ``c['time_reduce']``, the time of their sums (:func:`_reduce_ms`). A
+    rank outside the grid returns None."""
     grid = make_mesh(len(c["ranks"]), 1, ranks=c["ranks"], backend=c["group_backend"])
     if grid is None:
         return None
-    device = torch.device(c["device"])
+    device = resolve_device(c["device"])
     full_fp32(deterministic=True)
     spec = cvs_spec(_config(c["data_dir"], c["backend"]))
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
@@ -2119,32 +2182,38 @@ def _rank_dp_step(c: dict):
     zero_counts()
     try:
         new, mets = step(state, batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        _sync(device)
     finally:
         mesh_module.all_reduce_tree = summed
     counts = read_counts()
-    return {"params": _np_tree(new.params), "loss_main": float(mets["loss_main"]),
-            "loss_aux": float(mets["loss_aux"]), "counts": counts, "rows": int(batch["mask"].shape[0]),
-            "grads": [_np_tree(seen[0]), _np_tree(seen[1][0])],
-            "ms": _dual_step_ms(step, new, batch, c["steps"], device)}
+    out = {"params": _np_tree(new.params), "loss_main": float(mets["loss_main"]),
+           "loss_aux": float(mets["loss_aux"]), "counts": counts, "rows": int(batch["mask"].shape[0]),
+           "grads": [_np_tree(seen[0]), _np_tree(seen[1][0])],
+           "ms": _dual_step_ms(step, new, batch, c["steps"], device)}
+    if c.get("time_reduce"):
+        out["reduce_ms"] = _reduce_ms(step, new, batch, c["steps"], device)
+    return out
 
 
 def _rank_tp_case(c: dict):
-    """On a time grid of both ranks: the decoder ODE's solve on
-    semilinear_timepar (values), the main loss's gradients, one counted dual
-    step and timed ones, all at the training batch; then the recurrence of
-    ``c['long_T']`` steps through solve_affine_recurrence_timepar, its
-    launches counted."""
-    grid = make_mesh(1, 2)
-    device = torch.device(c["device"])
+    """On the ``c['grid']`` = (data, model) grid of the world, the horizon
+    over the model ranks: the decoder ODE's solve on semilinear_timepar
+    (values) and the main loss's gradients, both of the whole batch on every
+    rank, then one counted dual step on this rank's data rows and timed
+    ones; then the recurrence of ``c['long_T']`` steps through
+    solve_affine_recurrence_timepar over the model ranks, its launches
+    counted."""
+    n_data, n_model = c["grid"]
+    grid = make_mesh(n_data, n_model)
+    device = resolve_device(c["device"])
     full_fp32(deterministic=True)
     cfg = _config(c["data_dir"], "semilinear")
-    cfg.time_parallel = 2  # models/zoo.py: the semilinear_timepar backend
+    cfg.time_parallel = n_model  # models/zoo.py: the semilinear_timepar backend
     spec = cvs_spec(cfg)
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
     batch = device_batch(c["batch"], device)
+    rows = device_batch(shard_batch(grid, c["batch"]), device)
     out = {}
     with timepar.time_sharding(grid):
         zero_counts()
@@ -2155,32 +2224,51 @@ def _rank_tp_case(c: dict):
         _, _, grads = svi.value_and_grad(main_loss, params, 7, batch)
         out["grads"] = _np_tree(grads)
         init_state, step, _ = dp_train.make_dp_train_step(spec, ts, c["lr"], params, grid)
-        new, mets = step(init_state(params, c["seed"]), batch)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
+        new, mets = step(init_state(params, c["seed"]), rows)
+        _sync(device)
         out["counts"] = read_counts()
         out.update(params=_np_tree(new.params), loss_main=float(mets["loss_main"]),
-                   loss_aux=float(mets["loss_aux"]), ms=_dual_step_ms(step, new, batch, c["steps"], device))
+                   loss_aux=float(mets["loss_aux"]), ms=_dual_step_ms(step, new, rows, c["steps"], device))
     A, B, x0 = (torch.as_tensor(a, device=device) for a in c["long"])
     zero_counts()
     t0 = time.perf_counter()
     xs = timepar.solve_affine_recurrence_timepar(A, B, x0, mesh=grid)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    _sync(device)
     out.update(long_ms=(time.perf_counter() - t0) * 1e3, long_counts=read_counts(), long=xs.cpu().numpy())
     return out
 
 
-def _rank_sweep(argv):
+def _rank_sweep(argv, own_root: bool = False):
     """sweep.run in the ranks' group: rank 0's summary and stacked result,
-    and each rank's launches."""
+    each rank's launches, and the host time of the results' gather
+    (train/ensemble.py::gather_results, one gather_object) with the pickled
+    size of what this rank sent. With ``own_root`` each rank's
+    ``--results-root`` is its own ``rank<r>`` directory below the given one,
+    so that what each rank wrote can be told apart."""
+    dist = torch.distributed
+    if own_root:
+        at = argv.index("--results-root") + 1
+        argv = argv[:at] + [os.path.join(argv[at], f"rank{dist.get_rank()}")] + argv[at + 1:]
+    gather, spent = dist.gather_object, {}
+
+    def timed(obj, *args, **kwargs):
+        spent["bytes"] = len(pickle.dumps(obj))
+        t0 = time.perf_counter()
+        out = gather(obj, *args, **kwargs)
+        spent["s"] = time.perf_counter() - t0
+        return out
+
+    dist.gather_object = timed
     zero_counts()
-    run = sweep.run(sweep.parse_args(argv))
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    counts = read_counts()
-    return {"counts": counts, "summary": None if run is None else run.summary,
-            "result": None if run is None else run.result}
+    try:
+        run = sweep.run(sweep.parse_args(argv))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    finally:
+        dist.gather_object = gather
+    return {"counts": read_counts(), "summary": None if run is None else run.summary,
+            "result": None if run is None else run.result, "gather_s": spent.get("s"),
+            "gather_bytes": spent.get("bytes")}
 
 
 def _one_device_step(spec, params, batch, ts, lr: float, seed: int):
@@ -2227,6 +2315,115 @@ def _check_rank_counts(paths: dict, name: str, counts: dict, expected, rehearse:
         check(n > 0 if want else n == 0, f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
 
 
+class RankInputs:
+    """What phases 10 and 11 hand their ranks (``base``: CVS params of seed
+    0, the first training batch of ``B`` rows, the time grid, the step's
+    seed and lr), the recurrence of ``long_t`` steps and a batch of latents
+    for the time-parallel cases, and the one-device references on
+    ``device``: a dual step per backend, its time, and the time-parallel
+    cases' solve, main-loss gradients and recurrence."""
+
+    def __init__(self, device, data_dir: str, rehearse: bool):
+        self.cfg = cfg = _config(data_dir, "semilinear")
+        splits = training_cvs.build_splits(cfg, device=device)[0]
+        self.B = B = 8 if rehearse else TRAIN_B
+        batch = {k: v[0] for k, v in stacked_minibatches(splits["train"], B, shuffle=False).items()}
+        times = np.arange(86.0, dtype=np.float32)
+        self.ts = ts = torch.as_tensor(times, device=device)
+        lr, seed = cfg.learning_rate, fold_seed(12, "train")
+        self.params = params = init_params(cvs_spec(cfg), 0, device=device)
+        self.dbatch = dbatch = device_batch(batch, device)
+        self.steps = 2 if rehearse else RANK_STEPS
+        self.base = dict(params=_np_tree(params), batch=batch, times=times, seed=seed, lr=lr, data_dir=data_dir,
+                         steps=self.steps)
+        self.long_t = 256 if rehearse else LONG_T
+        gen = torch.Generator().manual_seed(10)
+        self.long = ((torch.rand((B, self.long_t - 1, 5), generator=gen) * 0.05 + 0.95),
+                     (torch.rand((B, self.long_t - 1, 5), generator=gen) - 0.5) * 0.02,
+                     torch.rand((B, 5), generator=gen))
+        self.z = torch.randn((B, 15), generator=gen)
+        self.refs = {b: _one_device_step(cvs_spec(_config(data_dir, b)), params, dbatch, ts, lr, seed)
+                     for b in ("semilinear", "semilinear_fused")}
+        self.ref_ms = {b: _dual_step_ms(r[2], r[0], dbatch, self.steps, device) for b, r in self.refs.items()}
+        spec = cvs_spec(cfg)
+        with torch.no_grad():
+            self.ref_solve = solve_ode(spec.decoder.ode, params["decoder"]["ode"], self.z.to(device), ts).cpu()
+        _, _, self.ref_grads = svi.value_and_grad(svi.make_losses(spec, ts)[0], params, 7, dbatch)
+        self.ref_long = recurrence.affine_scan(*(t.to(device) for t in self.long)).cpu()
+
+    def tp_case(self, pool_device: str, grid) -> dict:
+        return dict(self.base, device=pool_device, grid=grid, z=self.z.numpy(), long=[t.numpy() for t in self.long])
+
+
+def _hold_dp(name: str, outs, inp: RankInputs, backend: str, paths: dict, rehearse: bool) -> list:
+    """Each rank's data-parallel step (:func:`_rank_dp_step`) against the
+    one-device step, gradients included, the ranks' params bit for bit
+    equal, and each rank's launches those of ``backend``."""
+    state, mets, _, grads = inp.refs[backend]
+    worst = [_hold_step(f"{name} rank {r} ({o['rows']} rows)", o, state, mets, DP_LOSS_RTOL, DP_PARAM_RTOL,
+                        DP_PARAM_ATOL, grads) for r, o in enumerate(outs)]
+    same = all(all(np.array_equal(x, y) for x, y in zip(tree_leaves(o["params"]), tree_leaves(outs[0]["params"])))
+               for o in outs[1:])
+    check(same, f"{name}: the ranks' params differ after the step")
+    for r, o in enumerate(outs):
+        _check_rank_counts(paths, f"ranks {name} rank{r}", o["counts"], TRAINING[backend], rehearse)
+    return worst
+
+
+def _hold_tp(name: str, outs, inp: RankInputs, paths: dict, rehearse: bool) -> None:
+    """Each rank's time-parallel case (:func:`_rank_tp_case`) against one
+    device on semilinear: the solve's values, the main loss's gradients, the
+    dual step, the recurrence against K1; K1 and K1-bwd launched."""
+    state, mets, _, _ = inp.refs["semilinear"]
+    for r, o in enumerate(outs):
+        v = ratio(torch.as_tensor(o["solve"]), inp.ref_solve, TP_VALUE_ATOL, TP_VALUE_RTOL)
+        g = max(ratio(torch.as_tensor(x), y.cpu(), TP_ATOL, TP_RTOL)
+                for x, y in zip(tree_leaves(o["grads"]), tree_leaves(inp.ref_grads)))
+        lg = ratio(torch.as_tensor(o["long"]), inp.ref_long, TP_VALUE_ATOL)
+        print(f"{name} rank {r}: solve values error / tolerance {v:.3e}, main-loss gradients {g:.3e}, recurrence "
+              f"of {inp.long_t} steps against K1 {lg:.3e}", flush=True)
+        check(v <= 1.0 and g <= 1.0 and lg <= 1.0, f"{name} rank {r}: the time-parallel solve disagrees")
+        _hold_step(f"{name} dual step rank {r}", o, state, mets, DP_LOSS_RTOL, TP_RTOL, TP_ATOL)
+        _check_rank_counts(paths, f"ranks {name} semilinear_timepar rank{r}", o["counts"], TRAINING["semilinear"],
+                           rehearse)
+        _check_rank_counts(paths, f"ranks {name} recurrence T={inp.long_t} rank{r}", o["long_counts"], ("K1",),
+                           rehearse)
+
+
+def _sweep_leaves(r):
+    return tree_leaves([r.best_params, r.state.params, r.state.opt.mu, r.state.opt.nu])
+
+
+def _hold_sweep(name: str, got, grouped, stacked_ref, bit_equal: bool) -> dict:
+    """A member-sharded sweep's stacked result against the unsharded sweep
+    in member groups of a rank's size (the member-sharded bound: params
+    within ENS_RTOL and ENS_ATOL, Adam's moments within ENS_RTOL of each
+    leaf's largest, at least 1, the criterion within ENS_CRIT_RTOL; best
+    epochs equal; bit for bit where ``bit_equal``) and against the unsharded
+    stack of all members (params within the stacked-member bound, the
+    criterion within ENS_CRIT_RTOL)."""
+    rtol, atol, crit_rtol = ENS_RTOL, ENS_ATOL, ENS_CRIT_RTOL
+    n_params = len(tree_leaves([got.best_params, got.state.params]))  # the moments follow
+    pairs = [(x, y.cpu()) for x, y in zip(_sweep_leaves(got), _sweep_leaves(grouped))]
+    par = max(ratio(x, y, atol, rtol) for x, y in pairs[:n_params])
+    moments = max(float((x - y).abs().max()) / (rtol * max(float(y.abs().max()), 1.0)) for x, y in pairs[n_params:])
+    equal = all(torch.equal(x, y) for x, y in pairs) and np.array_equal(got.best_crit, grouped.best_crit)
+    stacked = max(ratio(x, y.cpu(), STACKED_ATOL, STACKED_RTOL)
+                  for x, y in zip(_sweep_leaves(got)[:n_params], _sweep_leaves(stacked_ref)[:n_params]))
+    crit = max(float(np.max(np.abs(got.best_crit - r.best_crit) / (crit_rtol * np.abs(r.best_crit))))
+               for r in (grouped, stacked_ref))
+    epochs = [got.best_epoch.tolist(), grouped.best_epoch.tolist(), stacked_ref.best_epoch.tolist()]
+    print(f"{name}, against the unsharded sweep in member groups of a rank's size: params error / tolerance "
+          f"{par:.3e}, Adam moments {moments:.3e}, all bit for bit {equal}; params against the unsharded stack of "
+          f"all members (stacked-member bound) {stacked:.3e}; criterion {crit:.3e}; best epochs {epochs[0]} "
+          f"(grouped {epochs[1]}, unsharded {epochs[2]})", flush=True)
+    check(par <= 1.0 and moments <= 1.0 and stacked <= 1.0 and crit <= 1.0 and epochs[0] == epochs[1] == epochs[2],
+          f"{name}: the member-sharded sweep differs from the unsharded one")
+    check(equal or not bit_equal, f"{name}: not bit for bit the unsharded sweep in member groups of a rank's size")
+    return {"params_over_tol": par, "moments_over_tol": moments, "bit_equal": equal,
+            "params_over_stacked_tol": stacked}
+
+
 def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
     """Phase 10 (module comment above): (a) the data-parallel dual step
     through an NCCL group of one rank, bit for bit the one-device step; (b)
@@ -2239,27 +2436,10 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
     launch, naming the card count. Launches are counted per rank and case."""
     t_phase = time.perf_counter()
     full_fp32(deterministic=True)
-    cfg = _config(data_dir, "semilinear")
-    splits = training_cvs.build_splits(cfg, device=device)[0]
-    B = 8 if rehearse else TRAIN_B
-    batch = {k: v[0] for k, v in stacked_minibatches(splits["train"], B, shuffle=False).items()}
-    times = np.arange(86.0, dtype=np.float32)
-    ts = torch.as_tensor(times, device=device)
-    lr, seed = cfg.learning_rate, fold_seed(12, "train")
-    params = init_params(cvs_spec(cfg), 0, device=device)
-    dbatch = device_batch(batch, device)
+    inp = RankInputs(device, data_dir, rehearse)
+    B, ref_ms = inp.B, inp.ref_ms
     pool_device = "cpu" if rehearse else "cuda:0"
-    steps = 2 if rehearse else RANK_STEPS
-    base = dict(params=_np_tree(params), batch=batch, times=times, seed=seed, lr=lr, device=pool_device,
-                data_dir=data_dir, steps=steps)
-    long_t = 256 if rehearse else LONG_T
-    gen = torch.Generator().manual_seed(10)
-    long = ((torch.rand((B, long_t - 1, 5), generator=gen) * 0.05 + 0.95),
-            (torch.rand((B, long_t - 1, 5), generator=gen) - 0.5) * 0.02, torch.rand((B, 5), generator=gen))
-    z = torch.randn((B, 15), generator=gen)
-    refs = {b: _one_device_step(cvs_spec(_config(data_dir, b)), params, dbatch, ts, lr, seed)
-            for b in ("semilinear", "semilinear_fused")}
-    ref_ms = {b: _dual_step_ms(r[2], r[0], dbatch, steps, device) for b, r in refs.items()}
+    base = dict(inp.base, device=pool_device)
     res = {"label": RANKS_LABEL, "one_device_step_ms": ref_ms}
     t0 = time.perf_counter()
     rank_threads = torch.get_num_threads() if rehearse else RANK_THREADS
@@ -2272,7 +2452,7 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         # (a) NCCL, a group of one rank on cuda:0 (gloo in a rehearsal)
         a = pool.run(_rank_dp_step, dict(base, ranks=[0], group_backend="gloo" if rehearse else "nccl",
                                          backend="semilinear_fused"))[0]
-        state, mets, _, grads = refs["semilinear_fused"]
+        state, mets, _, grads = inp.refs["semilinear_fused"]
         same = all(np.array_equal(o, r.cpu().numpy()) for o, r in zip(tree_leaves([a["params"], a["grads"]]),
                                                                        tree_leaves([state.params, grads])))
         same = same and a["loss_main"] == float(mets["loss_main"]) and a["loss_aux"] == float(mets["loss_aux"])
@@ -2287,94 +2467,42 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         # (b) two gloo ranks on the card, half the batch each
         for backend in ("semilinear_fused", "semilinear"):
             outs = pool.run(_rank_dp_step, dict(base, ranks=[0, 1], group_backend="gloo", backend=backend))
-            state, mets, _, grads = refs[backend]
-            worst = [_hold_step(f"(b) data-parallel 2 {backend} rank {r} ({o['rows']} rows)", o, state, mets,
-                                DP_LOSS_RTOL, DP_PARAM_RTOL, DP_PARAM_ATOL, grads) for r, o in enumerate(outs)]
-            same = all(np.array_equal(x, y) for x, y in zip(tree_leaves(outs[0]["params"]),
-                                                             tree_leaves(outs[1]["params"])))
-            check(same, f"(b) {backend}: the two ranks' params differ after the step")
-            for r, o in enumerate(outs):
-                _check_rank_counts(paths, f"ranks dp2 gloo {backend} rank{r}", o["counts"], TRAINING[backend],
-                                   rehearse)
+            worst = _hold_dp(f"(b) dp2 gloo {backend}", outs, inp, backend, paths, rehearse)
             print(f"(b) data-parallel 2 {backend} B={B}: ranks' params bit for bit equal; {outs[0]['ms']:.3f} ms "
                   f"a step, one device {ref_ms[backend]:.3f} ms ({RANKS_LABEL}; {smi})", flush=True)
             res[f"dp2_{backend}"] = {"ms": [o["ms"] for o in outs], "worst": worst}
 
         # (c) the horizon over two ranks
-        outs = pool.run(_rank_tp_case, dict(base, z=z.numpy(), long=[t.numpy() for t in long]))
-        spec1 = cvs_spec(cfg)
-        with torch.no_grad():
-            ref_solve = solve_ode(spec1.decoder.ode, params["decoder"]["ode"], z.to(device), ts).cpu()
-        main_loss, _ = svi.make_losses(spec1, ts)
-        _, _, ref_grads = svi.value_and_grad(main_loss, params, 7, dbatch)
-        ref_long = recurrence.affine_scan(*(t.to(device) for t in long)).cpu()
-        state, mets, _, _ = refs["semilinear"]
-        for r, o in enumerate(outs):
-            v = ratio(torch.as_tensor(o["solve"]), ref_solve, TP_VALUE_ATOL, TP_VALUE_RTOL)
-            g = max(ratio(torch.as_tensor(x), y.cpu(), TP_ATOL, TP_RTOL)
-                    for x, y in zip(tree_leaves(o["grads"]), tree_leaves(ref_grads)))
-            lg = ratio(torch.as_tensor(o["long"]), ref_long, TP_VALUE_ATOL)
-            print(f"(c) time-parallel 2 rank {r}: solve values error / tolerance {v:.3e}, main-loss gradients "
-                  f"{g:.3e}, recurrence of {long_t} steps against K1 {lg:.3e}", flush=True)
-            check(v <= 1.0 and g <= 1.0 and lg <= 1.0, f"(c) rank {r}: the time-parallel solve disagrees")
-            _hold_step(f"(c) time-parallel 2 dual step rank {r}", o, state, mets, DP_LOSS_RTOL, TP_RTOL, TP_ATOL)
-            _check_rank_counts(paths, f"ranks tp2 gloo semilinear_timepar rank{r}", o["counts"],
-                               TRAINING["semilinear"], rehearse)
-            _check_rank_counts(paths, f"ranks tp2 recurrence T={long_t} rank{r}", o["long_counts"], ("K1",),
-                               rehearse)
+        outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, (1, 2)))
+        _hold_tp("(c) tp2 gloo", outs, inp, paths, rehearse)
         print(f"(c) time-parallel 2 B={B}: {outs[0]['ms']:.3f} ms a dual step (one device on semilinear "
-              f"{ref_ms['semilinear']:.3f} ms); recurrence of {long_t} steps {outs[0]['long_ms']:.3f} ms, first "
-              f"call ({RANKS_LABEL}; {smi})", flush=True)
+              f"{ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps {outs[0]['long_ms']:.3f} ms, "
+              f"first call ({RANKS_LABEL}; {smi})", flush=True)
         res["tp2"] = {"ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs]}
 
-        # (d) a sweep of four members over two member ranks
+        # (d) a sweep of four members over two member ranks, held bit for bit
+        # to the unsharded sweep in member groups of two at this process's
+        # thread count (the ranks run at RANK_THREADS)
         seeds = "12,13" if rehearse else "12..15"
         argv = ["cvs", "--seeds", seeds, "--num-epochs", "1", "--ode-backend", "semilinear_fused", "--data-path",
                 data_dir, "--device", pool_device]
         t0 = time.perf_counter()
         ref = sweep.run(sweep.parse_args(argv + ["--results-root", os.path.join(workdir, "ranks-sweep-1")]))
         t_one = time.perf_counter() - t0
-        threads = torch.get_num_threads()
-        torch.set_num_threads(rank_threads)  # init_params' orthogonal init, a QR on the host, rounds with it
-        try:
-            grouped = sweep.run(sweep.parse_args(argv + ["--results-root", os.path.join(workdir, "ranks-sweep-g"),
-                                                         "--member-group", str(len(sweep.parse_seeds(seeds)) // 2)]))
-        finally:
-            torch.set_num_threads(threads)
+        grouped = sweep.run(sweep.parse_args(argv + ["--results-root", os.path.join(workdir, "ranks-sweep-g"),
+                                                     "--member-group", str(len(sweep.parse_seeds(seeds)) // 2)]))
         t0 = time.perf_counter()
         outs = pool.run(_rank_sweep, argv + ["--results-root", os.path.join(workdir, "ranks-sweep-2"),
                                              "--ensemble-parallel", "2"])
         t_two = time.perf_counter() - t0
-        got = outs[0]["result"]
-
-        def held(r):
-            return tree_leaves([r.best_params, r.state.params, r.state.opt.mu, r.state.opt.nu])
-
-        n_params = len(tree_leaves([got.best_params, got.state.params]))  # the moments follow
-        pairs = [(x, y.cpu()) for x, y in zip(held(got), held(grouped.result))]
-        par = max(ratio(x, y, ENS_ATOL, ENS_RTOL) for x, y in pairs[:n_params])
-        moments = max(float((x - y).abs().max()) / (ENS_RTOL * max(float(y.abs().max()), 1.0))
-                      for x, y in pairs[n_params:])
-        bit_equal = all(torch.equal(x, y) for x, y in pairs)
-        stacked = max(ratio(x, y.cpu(), STACKED_ATOL, STACKED_RTOL)
-                      for x, y in zip(held(got)[:n_params], held(ref.result)[:n_params]))
-        crit = max(float(np.max(np.abs(got.best_crit - r.best_crit) / (ENS_CRIT_RTOL * np.abs(r.best_crit))))
-                   for r in (grouped.result, ref.result))
-        epochs = [got.best_epoch.tolist(), grouped.result.best_epoch.tolist(), ref.result.best_epoch.tolist()]
-        print(f"(d) sweep of {len(sweep.parse_seeds(seeds))} members over --ensemble-parallel 2, against the "
-              f"unsharded sweep in member groups of a rank's size: params error / tolerance {par:.3e}, Adam moments "
-              f"{moments:.3e}, all bit for bit {bit_equal}; params against the unsharded stack of all members "
-              f"(stacked-member bound) {stacked:.3e}; criterion {crit:.3e}; best epochs {epochs[0]} (grouped "
-              f"{epochs[1]}, unsharded {epochs[2]}); {t_two:.2f} s wall on the ranks, {t_one:.2f} s unsharded "
-              f"({RANKS_LABEL}; {smi})", flush=True)
-        check(par <= 1.0 and moments <= 1.0 and stacked <= 1.0 and crit <= 1.0 and epochs[0] == epochs[1] == epochs[2],
-              "(d) the member-sharded sweep differs from the unsharded one")
+        held = _hold_sweep(f"(d) sweep of {len(sweep.parse_seeds(seeds))} members over --ensemble-parallel 2",
+                           outs[0]["result"], grouped.result, ref.result, bit_equal=True)
+        print(f"(d) {t_two:.2f} s wall on the ranks, {t_one:.2f} s unsharded ({RANKS_LABEL}; {smi})", flush=True)
         check([m["seed"] for m in outs[0]["summary"]["members"]] == sweep.parse_seeds(seeds), "(d) sweep.json seeds")
         for r, o in enumerate(outs):  # rank 0 alone finalizes: the test evals' single-member K2
             _check_rank_counts(paths, f"ranks sweep ens2 semilinear_fused rank{r}", o["counts"],
                                SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"], rehearse)
-        res["sweep_ens2"] = {"wall_s": t_two, "unsharded_wall_s": t_one, "params_over_tol": par,
-                             "moments_over_tol": moments, "bit_equal": bit_equal, "params_over_stacked_tol": stacked}
+        res["sweep_ens2"] = {"wall_s": t_two, "unsharded_wall_s": t_one, **held}
 
     # (e) the CLI past the cards: raises before any launch, naming them
     zero_counts()
@@ -2398,10 +2526,325 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
     return res
 
 
+# Phase 11: the layouts across cards over NCCL (ROADMAP C4), one card a rank,
+# where the machine has CARDS cards or more: four ranks spawned once
+# (RankPool(4, device="cuda", backend="nccl"): rank r on cuda:r) run every
+# case; the parent computes the one-device references on cuda:0, under
+# phase 10's bounds. A sweep sharded over members and minibatches (each
+# minibatch's sums also cross the data ranks, in another order) is held to
+# phase 10's member-sharded bound against the unsharded sweep in member
+# groups of a rank's size, short of bit for bit. The CLIs run as users start
+# them, the training CLI spawning its ranks and under torchrun: both on the
+# same four cards, so their artifacts are held bit for bit to each other;
+# against the one-device run, best_model.npz and the .npy outputs elementwise
+# within the data-parallel step's params bound. Launches in processes the
+# CLIs start are read at their exit (_CountHook).
+CARDS = 4
+CARDS_LABEL = "four cards of one host, one a rank, over NCCL"
+TRAINING_CLI, SWEEP_CLI = "structured_latent_odes_tpu_torch.training_cvs", "structured_latent_odes_tpu_torch.sweep"
+
+# Written as sitecustomize.py into a directory put first on PYTHONPATH of a
+# CLI's processes: at its exit each process that launched a kernel writes
+# its launch counts and rank (RANK, LOCAL_RANK, or 0 for a run on one card)
+# to SLODE_COUNTS_DIR; then the sitecustomize this one shadows, if any, runs
+# as it would have.
+_COUNT_HOOK = '''
+import atexit, importlib.machinery, importlib.util, json, os, sys
+
+def _dump():
+    mods = [sys.modules.get("structured_latent_odes_tpu_torch.ops." + m) for m in ("recurrence", "fused_step")]
+    if None in mods:
+        return
+    rec, fs = mods
+    wrappers = {"K1": rec.affine_scan_fwd, "K1-bwd": rec.affine_scan_bwd, "K2": fs.fused_semilinear_fwd,
+                "K3": fs.fused_semilinear_bwd, "K2-members": fs.fused_semilinear_fwd_members,
+                "K3-members": fs.fused_semilinear_bwd_members}
+    counts = {k: w.launches for k, w in wrappers.items()}
+    if not any(counts.values()):  # the parent of spawned ranks
+        return
+    rank = int(os.environ.get("RANK", os.environ.get("LOCAL_RANK", 0)))
+    with open(os.path.join(os.environ["SLODE_COUNTS_DIR"], "rank%d-%d.json" % (rank, os.getpid())), "w") as f:
+        json.dump({"rank": rank, "counts": counts}, f)
+
+atexit.register(_dump)
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+
+
+class _CountHook:
+    """The environment under which a CLI's processes report their launches
+    at exit (``_COUNT_HOOK``); ``counts()`` reads them by rank."""
+
+    def __init__(self, workdir: str, name: str):
+        hook_dir = os.path.join(workdir, f"count-hook-{name}")
+        self.out = os.path.join(hook_dir, "counts")
+        os.makedirs(self.out)
+        with open(os.path.join(hook_dir, "sitecustomize.py"), "w") as f:
+            f.write(_COUNT_HOOK)
+        self.env = {"PYTHONPATH": os.pathsep.join([hook_dir, REPO] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+                    "SLODE_COUNTS_DIR": self.out}
+
+    def counts(self) -> dict:
+        out = {}
+        for name in sorted(os.listdir(self.out)):
+            with open(os.path.join(self.out, name)) as f:
+                rec = json.load(f)
+            check(rec["rank"] not in out, f"two processes reported rank {rec['rank']}'s launches")
+            out[rec["rank"]] = rec["counts"]
+        return out
+
+
+def _same_sweep(got, ref) -> bool:
+    """Whether two stacked sweep results are bit for bit equal."""
+    return (all(torch.equal(x, y) for x, y in zip(_sweep_leaves(got), _sweep_leaves(ref)))
+            and np.array_equal(got.best_crit, ref.best_crit) and np.array_equal(got.best_epoch, ref.best_epoch))
+
+
+def _files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
+def _arrays(path: str) -> dict:
+    """The arrays of a results file: an .npy, or each array of an .npz."""
+    if path.endswith(".npy"):
+        return {"": np.load(path)}
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _hold_artifacts(name: str, got_dir: str, ref_dir: str, rtol: float = 0.0, atol: float = 0.0):
+    """Every .npy and .npz of ``got_dir`` against ``ref_dir``'s (the same
+    files): bit for bit where ``rtol`` and ``atol`` are 0; else each float
+    within ``atol + rtol*|ref|``. Returns the worst error over its tolerance
+    and the file (and array) where it is."""
+    got_files = [f for f in _files(got_dir) if f.endswith((".npy", ".npz"))]
+    check(got_files == [f for f in _files(ref_dir) if f.endswith((".npy", ".npz"))],
+          f"{name}: the artifacts differ from the reference's: {got_files}")
+    worst, where = 0.0, None
+    for f in got_files:
+        got, ref = _arrays(os.path.join(got_dir, f)), _arrays(os.path.join(ref_dir, f))
+        check(sorted(got) == sorted(ref), f"{name} {f}: the arrays differ")
+        for k in ref:
+            a, b = got[k], ref[k]
+            if not (rtol or atol) or b.dtype.kind != "f":
+                check(a.dtype == b.dtype and np.array_equal(a, b), f"{name} {f} {k}: not bit for bit")
+                continue
+            err = float(np.max(np.abs(a.astype(np.float64) - b) / (atol + rtol * np.abs(b))))
+            if err > worst:
+                worst, where = err, f"{f} {k}".strip()
+    check(worst <= 1.0, f"{name}: error / tolerance {worst:.3e} at {where}")
+    return worst, where
+
+
+def _check_cli_counts(paths: dict, name: str, hook: _CountHook, n: int, expected_of, rehearse: bool) -> dict:
+    """Each of the ``n`` ranks of a CLI's run launched ``expected_of(rank)``'s
+    kernels and no other (read at the processes' exit)."""
+    counts = hook.counts()
+    check(rehearse or sorted(counts) == list(range(n)), f"{name}: launch counts from ranks {sorted(counts)}")
+    for r, c in counts.items():
+        _check_rank_counts(paths, f"cards {name} rank{r}", c, expected_of(r), rehearse)
+    return counts
+
+
+def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
+    """Phase 11 (module comment above), on CARDS cards, one a rank: (a) the
+    data-parallel dual step over the four cards, 32 rows a rank, and over
+    two of them, on semilinear_fused (K2, K3) and semilinear (K1, K1-bwd);
+    (b) the horizon over data 2 x time 2 and over time 4 ranks
+    (semilinear_timepar: K1, K1-bwd), and the recurrence of LONG_T steps
+    over the time ranks; (c) a CVS sweep of eight members over
+    --ensemble-parallel 4 (bit for bit the unsharded sweep in member groups
+    of two) and over --ensemble-parallel 2 --ensemble-data-parallel 2 on
+    semilinear_fused, each rank writing under its own root (rank 0 alone
+    must write); (d) training_cvs --data-parallel 4 spawned by the CLI and
+    under torchrun, bit for bit each other and within (a)'s bounds of the
+    one-device run, and the sweep CLI over --ensemble-parallel 4, bit for
+    bit (c)'s; (e) --data-parallel 5 raises before any launch. Where the
+    machine has fewer cards it prints so and returns None; a rehearsal runs
+    four gloo ranks on the CPU."""
+    n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if not rehearse and n_cards < CARDS:
+        print(f"== phase 11 needs {CARDS} cards and found {n_cards}: not run", flush=True)
+        return None
+    t_phase = time.perf_counter()
+    full_fp32(deterministic=True)
+    inp = RankInputs(device, data_dir, rehearse)
+    B, ref_ms = inp.B, inp.ref_ms
+    pool_device = "cpu" if rehearse else "cuda"
+    label = "rehearsal: four gloo ranks on the CPU" if rehearse else CARDS_LABEL
+    base = dict(inp.base, device=pool_device)
+    res = {"label": label, "one_device_step_ms": ref_ms}
+    # a limit on the host's load (no result depends on the host's threads on
+    # the card); on the CPU the ranks compute at this process's count, as
+    # its references do
+    threads = torch.get_num_threads() if rehearse else max(1, len(os.sched_getaffinity(0)) // CARDS)
+    t0 = time.perf_counter()
+    with launch.RankPool(CARDS, device=pool_device, timeout_s=300, threads=threads, quiet=True) as pool:
+        cards = pool.run(_rank_card)
+        res["ranks_start_s"] = time.perf_counter() - t0
+        print(f"== {CARDS} ranks up in {res['ranks_start_s']:.1f} s, {threads} intra-op threads each: {cards} "
+              f"({label}; {smi})", flush=True)
+        check(rehearse or [c.split()[0] for c in cards] == [f"cuda:{r}" for r in range(CARDS)],
+              f"the ranks' cards: {cards}")
+
+        # (a) data parallelism over four and over two cards
+        for backend in ("semilinear_fused", "semilinear"):
+            res[f"dp_{backend}"] = {"one_card_ms": ref_ms[backend]}
+            for n in (CARDS, 2):
+                outs = pool.run(_rank_dp_step, dict(base, ranks=list(range(n)), group_backend=None,
+                                                    backend=backend, time_reduce=True))
+                check(all(o is None for o in outs[n:]), "(a) a rank outside the grid returned a step")
+                outs = outs[:n]
+                worst = _hold_dp(f"(a) dp{n} {backend}", outs, inp, backend, paths, rehearse)
+                print(f"(a) data-parallel {n} {backend} B={B}: {B // n} rows a rank, ranks' params bit for bit "
+                      f"equal; median of {inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a rank, of which "
+                      f"the gradient sums {[round(o['reduce_ms'], 3) for o in outs]} ms (timed apart, between "
+                      f"synchronises); one card {ref_ms[backend]:.3f} ms ({label}; {smi})", flush=True)
+                res[f"dp_{backend}"][f"cards_{n}"] = {"ms": [o["ms"] for o in outs],
+                                                      "reduce_ms": [o["reduce_ms"] for o in outs], "worst": worst}
+
+        # (b) the horizon over data 2 x time 2 and over time 4
+        for grid in ((2, 2), (1, CARDS)):
+            name = f"(b) dp{grid[0]} tp{grid[1]}"
+            outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, grid))
+            _hold_tp(name, outs, inp, paths, rehearse)
+            print(f"{name} B={B}: median of {inp.steps} dual steps {[round(o['ms'], 3) for o in outs]} ms a rank "
+                  f"(one card on semilinear {ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps over "
+                  f"{grid[1]} time ranks {[round(o['long_ms'], 3) for o in outs]} ms, first call ({label}; {smi})",
+                  flush=True)
+            res[f"dp{grid[0]}_tp{grid[1]}"] = {"ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs]}
+
+        # (c) a sweep of eight members over the cards; each run twice, the
+        # second bit for bit the first and timed warm (the first call of a
+        # process also loads the member-batched kernels and cuDNN's plans)
+        seeds = "12..15" if rehearse else "12..19"
+        n_members = len(sweep.parse_seeds(seeds))
+        argv = ["cvs", "--seeds", seeds, "--num-epochs", "1", "--ode-backend", "semilinear_fused", "--data-path",
+                data_dir]
+        one_argv = argv + ["--device", str(device)]
+        stack = [sweep.run(sweep.parse_args(one_argv + ["--results-root", os.path.join(workdir, f"cards-sweep-1-{i}")]))
+                 for i in range(2)]
+        check(_same_sweep(stack[1].result, stack[0].result), "(c) the one-card sweep's rerun differs")
+        grouped = {g: sweep.run(sweep.parse_args(one_argv + [
+            "--results-root", os.path.join(workdir, f"cards-sweep-g{g}"), "--member-group", str(g)])).result
+            for g in (n_members // CARDS, n_members // 2)}
+        res["sweep_one_card"] = [{k: r.summary[k] for k in ("wall_seconds", "train_seconds")} for r in stack]
+        print(f"(c) sweep of {n_members} members on one card, first and warm: "
+              f"{[round(r.summary['wall_seconds'], 3) for r in stack]} s wall, "
+              f"{[round(r.summary['train_seconds'], 3) for r in stack]} s training; the rerun bit for bit the first "
+              f"({smi})", flush=True)
+        for ens, n_data in ((CARDS, 1), (2, 2)):
+            name = f"(c) sweep ens{ens} data{n_data}"
+            runs = []
+            for i in range(2):
+                root = os.path.join(workdir, f"cards-sweep-ens{ens}-data{n_data}-{i}")
+                outs = pool.run(_rank_sweep, argv + ["--device", pool_device, "--results-root", root,
+                                                     "--ensemble-parallel", str(ens), "--ensemble-data-parallel",
+                                                     str(n_data)], True)
+                written = {r: _files(os.path.join(root, f"rank{r}")) for r in range(CARDS)}
+                check("sweep.json" in written[0] and any(f.startswith("deploy_mean") for f in written[0]),
+                      f"{name}: rank 0 wrote no sweep.json or deploy_mean/")
+                check(not any(written[r] for r in range(1, CARDS)), f"{name}: ranks other than 0 wrote files")
+                for r, o in enumerate(outs):
+                    _check_rank_counts(paths, f"cards {name} run {i} rank{r}", o["counts"],
+                                       SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"], rehearse)
+                runs.append(outs)
+            held = _hold_sweep(f"{name}: {n_members} members", runs[0][0]["result"], grouped[n_members // ens],
+                               stack[0].result, bit_equal=n_data == 1)
+            check(_same_sweep(runs[1][0]["result"], runs[0][0]["result"]), f"{name}: the rerun differs")
+            summaries = [outs[0]["summary"] for outs in runs]
+            check([m["seed"] for m in summaries[0]["members"]] == sweep.parse_seeds(seeds), f"{name}: sweep.json seeds")
+            gather = [[o["gather_s"] for o in outs] for outs in runs]
+            print(f"{name}, first and warm: {[round(s['wall_seconds'], 3) for s in summaries]} s wall, "
+                  f"{[round(s['train_seconds'], 3) for s in summaries]} s training; gather_object "
+                  f"{[[round(s, 4) for s in g] for g in gather]} s a rank, {[o['gather_bytes'] for o in runs[1]]} "
+                  f"bytes pickled a rank; the rerun bit for bit the first; rank 0 alone wrote its "
+                  f"{len(written[0])} files ({label}; {smi})", flush=True)
+            res[f"sweep_ens{ens}_data{n_data}"] = {
+                "wall_seconds": [s["wall_seconds"] for s in summaries],
+                "train_seconds": [s["train_seconds"] for s in summaries], "gather_s": gather,
+                "gather_bytes": [o["gather_bytes"] for o in runs[1]], **held}
+        ens_root = os.path.join(workdir, f"cards-sweep-ens{CARDS}-data1-0", "rank0")
+    # (d) the CLIs end to end, each a process of its own as users start them
+    # (their wall times include the processes' start); torchrun starts its
+    # ranks at one intra-op thread, the spawned ones take their parent's
+    # count: on the card no result depends on it, on the CPU the ranks' own
+    # products do, so a rehearsal gives torchrun's ranks the spawned ones'
+    cli = ["--num-epochs", "1", "--no-plot", "--data-path", data_dir] + (
+        ["--device", "cpu", "--mini-batch-size", str(2 * CARDS)] if rehearse else [])
+    one_card = ["--device", "cpu" if rehearse else str(device)]
+    dp = ["--data-parallel", str(CARDS)]
+    torchrun = ["torch.distributed.run", "--standalone", "--nproc_per_node", str(CARDS), "-m"]
+    omp = {"OMP_NUM_THREADS": str(torch.get_num_threads())} if rehearse else {}
+    runs = {  # name: (python -m argv, ranks, the kernels rank r launches)
+        "training_cvs one card": ([TRAINING_CLI] + cli + one_card, 1, lambda r: TRAINING["semilinear"]),
+        "training_cvs spawned": ([TRAINING_CLI] + cli + dp, CARDS, lambda r: TRAINING["semilinear"]),
+        "training_cvs torchrun": (torchrun + [TRAINING_CLI] + cli + dp, CARDS, lambda r: TRAINING["semilinear"]),
+        "sweep one card": ([SWEEP_CLI] + argv + one_card, 1, lambda r: SWEEP["semilinear_fused"]),
+        "sweep spawned": ([SWEEP_CLI] + argv + ["--device", pool_device, "--ensemble-parallel", str(CARDS)], CARDS,
+                          lambda r: SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"]),
+    }
+    roots, res["cli_s"] = {}, {}
+    for name, (args, n, expected) in runs.items():
+        roots[name] = os.path.join(workdir, "cards-cli-" + name.replace(" ", "-"))
+        hook = _CountHook(workdir, name.replace(" ", "-"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m"] + args + ["--results-root", roots[name]], cwd=REPO,
+                              env={**os.environ, **hook.env, **omp}, capture_output=True, text=True, timeout=600)
+        res["cli_s"][name] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"(d) {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        _check_cli_counts(paths, name, hook, n, expected, rehearse)
+    model_dir = f"results_{load_cvs_config().model}"
+    out_dir = {k: os.path.join(roots[f"training_cvs {k}"], model_dir) for k in ("one card", "spawned", "torchrun")}
+    for k in ("spawned", "torchrun"):
+        check(_files(roots[f"training_cvs {k}"]) == _files(roots["training_cvs one card"]),
+              f"(d) {k}: its files are not the one-card run's")
+        with open(os.path.join(out_dir[k], "model.log")) as f:
+            check(sum("loss=" in line for line in f) == 2, f"(d) {k}: model.log holds other than rank 0's two epochs")
+    _hold_artifacts("(d) torchrun against spawned", out_dir["torchrun"], out_dir["spawned"])
+    worst, where = _hold_artifacts("(d) spawned against one card", out_dir["spawned"], out_dir["one card"],
+                                   DP_PARAM_RTOL, DP_PARAM_ATOL)
+    for seed in sweep.parse_seeds(seeds):
+        _hold_artifacts(f"(d) sweep seed {seed} against (c)", os.path.join(roots["sweep spawned"], f"seed{seed}"),
+                        os.path.join(ens_root, f"seed{seed}"))
+    print(f"(d) the CLIs' wall times, process start included: "
+          f"{ {k: round(v, 3) for k, v in res['cli_s'].items()} } s; training_cvs --data-parallel {CARDS} spawned "
+          f"and under torchrun bit for bit each other, their artifacts elementwise within (a)'s params bound of one "
+          f"card ({worst:.3e}, worst at {where}), the same files as the one-card run; the sweep over --ensemble-parallel {CARDS} bit for bit "
+          f"(c)'s ({label}; {smi})", flush=True)
+    res["cli_vs_one_card"] = worst
+
+    # (e) past the cards: raises before any launch, naming them
+    zero_counts()
+    count = torch.cuda.device_count
+    if rehearse:  # the CPU takes the ranks asked for: pretend to have the cards
+        torch.cuda.device_count = lambda: CARDS
+    try:
+        training_cvs.main(cli + ["--results-root", os.path.join(workdir, "cards-past"), "--data-parallel",
+                                 str(CARDS + 1), "--device", "cuda"])
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    finally:
+        torch.cuda.device_count = count
+    counts = read_counts()
+    print(f"(e) training_cvs --data-parallel {CARDS + 1} on {CARDS} cards: {raised!r}; launches {counts}", flush=True)
+    check(raised is not None and f"> {CARDS} available devices" in raised and not any(counts.values()),
+          "(e) the CLI past the cards must raise before any launch, naming the card count")
+    res["wall_s"] = time.perf_counter() - t_phase
+    print(f"== phase 11 took {res['wall_s']:.1f} s ({label}; {smi})", flush=True)
+    return res
+
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--rehearse", action="store_true", help="CPU dry run with the plain versions")
+    p.add_argument("--cards", action="store_true",
+                   help=f"phases 1, 2 and 11 only: the layouts across {CARDS} cards over NCCL")
     args = p.parse_args(argv)
 
     device, smi = phase_device(args.rehearse)
@@ -2413,6 +2856,8 @@ def main(argv=None):
     if not args.rehearse:
         phase("2: build")
         phase_build(sorted({(H, D)} | {(c.ode_hidden_dim, c.ode_state_dim) for c in wl_cfgs.values()} | set(WIDE)))
+    if args.cards:
+        return main_cards(device, args.rehearse, smi)
     clock = Clock(device)
     odes = {"cvs": init_params(cvs_spec(cfg), 0, device=device)["decoder"]["ode"]}
     for wl, w in WORKLOADS.items():
@@ -2464,6 +2909,8 @@ def main(argv=None):
         print(f"== phase 9 took {time.perf_counter() - t9:.1f} s ({smi})", flush=True)
         phase("10: data, time and member parallelism over ranks")
         ranks = phase_ranks(device, workdir, data_dir, args.rehearse, smi, paths)
+        phase(f"11: the layouts across {CARDS} cards over NCCL")
+        cards = phase_cards(device, workdir, data_dir, args.rehearse, smi, paths)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2527,12 +2974,40 @@ def main(argv=None):
         print("rehearsal ok (no result: no card)")
         return
     print(json.dumps({"ranks": ranks}))
+    if cards is not None:
+        print(json.dumps({"cards": cards}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
+    print_ok()
+
+
+def print_ok() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))
     sys.stdout.flush()
+
+
+def main_cards(device, rehearse: bool, smi: str) -> None:
+    """``--cards``: phase 11 alone (after phases 1 and 2), on CVS data
+    generated for it; fails where the machine has fewer than CARDS cards."""
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke-", dir=os.path.join(REPO, "build"))
+    try:
+        data_dir = os.path.join(workdir, "cvs")
+        make_dataset(data_dir, data_size=40 if rehearse else 1000, device=device)
+        phase(f"11: the layouts across {CARDS} cards over NCCL")
+        cards = phase_cards(device, workdir, data_dir, rehearse, smi, {})
+        phase("done")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    check(cards is not None, f"--cards needs {CARDS} CUDA cards")
+    print(json.dumps({"cards": cards}))
+    if rehearse:
+        print("rehearsal ok (no result: no card)")
+        return
+    print(smi)
+    print_ok()
 
 
 if __name__ == "__main__":

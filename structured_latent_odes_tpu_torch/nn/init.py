@@ -1,6 +1,7 @@
 """Parameter initializers (the JAX package's ``nn/init.py``), drawn from an
 explicit CPU ``torch.Generator`` so a seed gives the same weights on any
-device.
+device and at any intra-op thread count (:func:`orthogonal`'s QR runs at
+one thread).
 
 Layout: linear weights are PyTorch's ``(out, in)``, so a layer is
 ``F.linear(x, W, b)``; the JAX package stores them ``(in, out)`` and
@@ -19,12 +20,21 @@ Tensor = torch.Tensor
 
 def orthogonal(gen: torch.Generator, shape: Sequence[int]) -> Tensor:
     """Orthogonal init (torch semantics: rows orthonormal when rows <= cols);
-    trailing dims are flattened as ``torch.nn.init.orthogonal_`` does."""
+    trailing dims are flattened as ``torch.nn.init.orthogonal_`` does.
+
+    The QR runs at one intra-op thread: LAPACK blocks it by the thread
+    count, so at another count it rounds otherwise, and a seed's weights
+    would depend on the host that drew them (tests/test_torch_init_threads.py)."""
     rows = shape[0]
     cols = math.prod(shape[1:])
     n = max(rows, cols)
     a = torch.randn((n, n), generator=gen)
-    q, r = torch.linalg.qr(a)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        q, r = torch.linalg.qr(a)
+    finally:
+        torch.set_num_threads(threads)
     q = q * torch.sign(torch.diagonal(r))
     return q[:rows, :cols].reshape(tuple(shape)).contiguous()
 

@@ -62,10 +62,19 @@ def rank0_first(fn: Callable):
         return fn()
     if dist.get_rank() == 0:
         out = fn()
-        dist.barrier()
+        _barrier()
         return out
-    dist.barrier()
+    _barrier()
     return fn()
+
+
+def _barrier() -> None:
+    """A barrier of the world; on NCCL, on the card this rank took
+    (:func:`card_index`), which NCCL would otherwise guess."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
 
 
 def _free_port() -> int:
@@ -84,9 +93,21 @@ def _loads(data: bytes):
     return torch.load(io.BytesIO(data), map_location="cpu", weights_only=False)
 
 
+def card_index(device, local_rank: int) -> Optional[int]:
+    """The card a rank takes on ``device``: the one it names where it has an
+    index (every rank on that card, as ranks sharing one card over gloo
+    are), else the rank's local index (one card a rank: ``"cuda"``); None
+    off CUDA."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return device.index if device.index is not None else local_rank
+
+
 def _set_card(device: torch.device, local_rank: int) -> None:
-    if device.type == "cuda":
-        torch.cuda.set_device(device.index if device.index is not None else local_rank)
+    card = card_index(device, local_rank)
+    if card is not None:
+        torch.cuda.set_device(card)
 
 
 def _rank_loop(rank: int, world: int, addr: str, backend: str, device: str, timeout_s: float, threads: int,

@@ -159,8 +159,13 @@ def pad_batch_to_multiple(batch, multiple: int):
 def all_reduce_tree(tree, group):
     """The sum over ``group`` of every tensor leaf of a tree (nested dicts,
     lists, tuples), in one collective: the leaves are flattened into one
-    buffer. Returns the tree with the summed leaves (lists for tuples)."""
+    buffer, so they must share one dtype (a mixed tree would be promoted,
+    an integer count rounded): it raises TypeError otherwise. Returns the
+    tree with the summed leaves (lists for tuples)."""
     leaves = tree_leaves(tree)
+    dtypes = {t.dtype for t in leaves}
+    if len(dtypes) > 1:
+        raise TypeError(f"all_reduce_tree sums leaves of one dtype, got {sorted(map(str, dtypes))}")
     flat = torch.cat([t.detach().reshape(-1) for t in leaves])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
     out, at = [], 0

@@ -66,8 +66,11 @@ Tensor = torch.Tensor
 
 
 def _all_gather(x: Tensor, group, n: int):
+    """``x`` of each rank of ``group``; every buffer contiguous (NCCL takes
+    no other), on ``x``'s card."""
+    x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n)]
-    dist.all_gather(parts, x.contiguous(), group=group)
+    dist.all_gather(parts, x, group=group)
     return parts
 
 

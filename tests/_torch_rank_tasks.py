@@ -183,3 +183,11 @@ def member_slices(c):
                               shared_data=True)
     return {"seeds": out[0].seed, "eval_seeds": out[1], "perms": out[4], "mask": out[5],
             "coords": (mesh.index("ens"), mesh.index("data"))}
+
+
+def tree_sum(c):
+    """``mesh.all_reduce_tree`` over the world of this rank's tree
+    (``c["tree"]`` times ``rank + 1``)."""
+    k = torch.distributed.get_rank() + 1
+    tree = {name: [leaf * k for leaf in leaves] for name, leaves in c["tree"].items()}
+    return mesh_module.all_reduce_tree(tree, None)

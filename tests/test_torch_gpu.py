@@ -626,6 +626,12 @@ def test_time_parallel_step_and_recurrence_on_two_ranks(cuda, rank_pool):
     each rank's chunk): the solve's values, the main loss's gradients and a
     dual step against one device on semilinear, and the recurrence of 4096
     steps against K1."""
+    _check_time_parallel(cuda, rank_pool, (1, 2), "cuda:0")
+
+
+def _check_time_parallel(cuda, pool, grid, device):
+    """chip_smoke's time-parallel case on ``pool``'s ranks, on the
+    (data, model) ``grid``, against one device."""
     import chip_smoke
     from structured_latent_odes_tpu_torch.nn.ode_model import solve_ode
     from structured_latent_odes_tpu_torch.train import svi
@@ -637,7 +643,8 @@ def test_time_parallel_step_and_recurrence_on_two_ranks(cuda, rank_pool):
     long = (torch.rand((RANK_B, 4095, 5), generator=gen) * 0.05 + 0.95,
             (torch.rand((RANK_B, 4095, 5), generator=gen) - 0.5) * 0.02, torch.rand((RANK_B, 5), generator=gen))
     z = torch.randn((RANK_B, 15), generator=gen)
-    outs = rank_pool.run(chip_smoke._rank_tp_case, dict(case, z=z.numpy(), long=[t.numpy() for t in long]))
+    outs = pool.run(chip_smoke._rank_tp_case, dict(case, device=device, grid=grid, z=z.numpy(),
+                                                   long=[t.numpy() for t in long]))
     spec = cvs_spec(chip_smoke._config("unused", "semilinear"))
     ts = torch.arange(86.0, device=cuda)
     with torch.no_grad():
@@ -655,3 +662,59 @@ def test_time_parallel_step_and_recurrence_on_two_ranks(cuda, rank_pool):
             np.testing.assert_allclose(a, b.cpu().numpy(), rtol=chip_smoke.TP_RTOL, atol=chip_smoke.TP_ATOL)
         assert out["counts"]["K1"] > 0 and out["counts"]["K1-bwd"] > 0 and out["long_counts"]["K1"] > 0
         assert out["counts"]["K2"] == 0 and out["counts"]["K3"] == 0
+
+
+# Phase 11 of chip_smoke.py as tests, where the machine has four cards or
+# more: four ranks spawned once, rank r on cuda:r, over NCCL, running
+# chip_smoke's rank functions on the batch of RANK_B rows under phase 10's
+# bounds; skipped on fewer cards.
+@pytest.fixture(scope="module")
+def card_pool():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    from structured_latent_odes_tpu_torch.parallel import launch
+
+    with launch.RankPool(4, device="cuda", timeout_s=300, threads=2, quiet=True) as pool:
+        yield pool
+
+
+def test_ranks_take_a_card_each(card_pool):
+    import chip_smoke
+
+    assert [c.split()[0] for c in card_pool.run(chip_smoke._rank_card)] == [f"cuda:{r}" for r in range(4)]
+
+
+@pytest.mark.parametrize("backend,kernels", [("semilinear_fused", ("K2", "K3")), ("semilinear", ("K1", "K1-bwd"))])
+def test_dp_step_over_four_cards(cuda, card_pool, backend, kernels):
+    import chip_smoke
+
+    case, (state, mets, _, grads), _ = _rank_case(cuda, backend)
+    outs = card_pool.run(chip_smoke._rank_dp_step, dict(case, device="cuda", ranks=[0, 1, 2, 3], group_backend=None,
+                                                         backend=backend))
+    for out in outs:
+        assert out["rows"] == RANK_B // 4
+        assert chip_smoke.grad_ratio(out["grads"], grads) <= 1.0
+        for k in ("loss_main", "loss_aux"):
+            np.testing.assert_allclose(out[k], float(mets[k]), rtol=chip_smoke.DP_LOSS_RTOL)
+        for a, b in zip(_leaves_np(out["params"]), _leaves_np(state.params)):
+            np.testing.assert_allclose(a, b, rtol=chip_smoke.DP_PARAM_RTOL, atol=chip_smoke.DP_PARAM_ATOL)
+        assert all(out["counts"][k] > 0 for k in kernels)
+        assert not any(n for k, n in out["counts"].items() if k not in kernels)
+    for out in outs[1:]:
+        assert all(np.array_equal(a, b) for a, b in zip(_leaves_np(out["params"]), _leaves_np(outs[0]["params"])))
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 4)], ids=["data2-time2", "time4"])
+def test_time_parallel_over_four_cards(cuda, card_pool, grid):
+    _check_time_parallel(cuda, card_pool, grid, "cuda")
+
+
+def test_data_parallel_past_the_cards_raises_before_any_launch(cuda, tmp_path):
+    from structured_latent_odes_tpu_torch import training_cvs
+
+    n = torch.cuda.device_count()
+    launches = [(w, w.launches) for w in (recurrence.affine_scan_fwd, fused_step.fused_semilinear_fwd)]
+    with pytest.raises(ValueError, match=rf"> {n} available devices"):
+        training_cvs.main(["--num-epochs", "1", "--no-plot", "--data-parallel", str(n + 1), "--data-path",
+                           str(tmp_path), "--results-root", str(tmp_path)])
+    assert all(w.launches == before for w, before in launches)

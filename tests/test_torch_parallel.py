@@ -49,7 +49,8 @@ from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec
 from structured_latent_odes_tpu_torch.parallel import launch
-from structured_latent_odes_tpu_torch.parallel.mesh import Grid, pad_batch_to_multiple, shard_batch, shard_stacked
+from structured_latent_odes_tpu_torch.parallel.mesh import (Grid, all_reduce_tree, pad_batch_to_multiple, shard_batch,
+                                                            shard_stacked)
 from structured_latent_odes_tpu_torch.train import backend, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
 from structured_latent_odes_tpu_torch.utils.config import Config
@@ -225,6 +226,26 @@ def test_dp_eval_matches_one_device(pool, is_post):
         for name, v in one["labels"].items():
             np.testing.assert_allclose(out["stats"]["labels"][name], float(v), rtol=1e-5, err_msg=name)
         np.testing.assert_allclose(out["losses"], [float(x) for x in losses], rtol=1e-5)
+
+
+def test_tree_sum_over_four_ranks_is_exact(pool):
+    """mesh.all_reduce_tree at world 4 sums a float32 tree (the training
+    paths' trees) in one buffer, exactly where the terms are dyadic."""
+    tree = {"w": [torch.arange(6, dtype=torch.float32).reshape(2, 3) / 8, torch.tensor(0.375)],
+            "b": [torch.full((3,), 0.25)]}
+    factor = sum(range(1, 5))  # ranks 0..3 hold the tree times 1..4
+    for out in pool.run(tasks.tree_sum, {"tree": tree}):
+        for got, leaf in zip(tree_leaves(out), tree_leaves(tree)):
+            assert got.dtype == leaf.dtype and torch.equal(got, leaf * factor), (got, leaf)
+
+
+def test_tree_sum_refuses_mixed_dtypes():
+    """A tree whose leaves differ in dtype would be promoted in the one
+    buffer (an int64 count past 2^24 rounded): all_reduce_tree raises before
+    any collective, so no group is needed to see it."""
+    tree = {"loss": torch.tensor(1.5), "count": torch.tensor(2 ** 40 + 3, dtype=torch.int64)}
+    with pytest.raises(TypeError, match="one dtype"):
+        all_reduce_tree(tree, None)
 
 
 def _grid(n, i, axis="data"):
