@@ -120,21 +120,24 @@ Phases, each fatal on any fault:
    matplotlib or scikit-learn a CVS run with plots on must raise naming the
    package and --no-plot before its first launch; with both, one epoch's
    plots are drawn. The phase prints its wall time.
-10. ranks (ROADMAP A17), at CVS full width (B = 128, T = 86, latent 15,
-   (H, D) = (25, 5)): two ranks spawned once (parallel/launch.py RankPool)
+10. ranks (ROADMAP A17; C6), at CVS full width (B = 128, T = 86, latent 15,
+   (H, D) = (25, 5)) and, in (b) and (c), also at proc's (B = 36, T = 100,
+   latent 50, (25, 8)) and challenge's (B = 32, T = 142, latent 15, (25, 5))
+   on their datasets: two ranks spawned once (parallel/launch.py RankPool)
    share cuda:0 over gloo, since NCCL refuses two ranks on one GPU, and run
    every case; the parent computes the one-device references. (a) The
    data-parallel dual step through an NCCL group of one rank, bit for bit
    the one-device step, launching K2 and K3. (b) The data-parallel dual
-   step on both ranks, 64 rows each, on semilinear_fused (K2, K3) and
+   step on both ranks, half the batch each, on semilinear_fused (K2, K3) and
    semilinear (K1, K1-bwd): loss rtol 1e-5, params rtol 1e-4 and atol 1e-5
    of the one-device step, the summed main and aux gradients that the
    step's updates took within 1e-5 of each leaf's largest (at least 1) of
    the one-device step's, the ranks' params bit for bit equal. (c) The
    horizon over both ranks (semilinear_timepar): the solve's values, the
    main loss's gradients and a dual step against semilinear on one device,
-   launching K1 and K1-bwd, and the recurrence of 4096 steps
-   (solve_affine_recurrence_timepar) against K1. (d) A CVS sweep of four
+   launching K1 and K1-bwd, and the recurrence of 4096 steps at the
+   workload's ODE state width (solve_affine_recurrence_timepar) against K1.
+   (d) A CVS sweep of four
    members over --ensemble-parallel 2 on semilinear_fused, one epoch beyond
    epoch 0, bit for bit the unsharded sweep in member groups of two run in
    this process at its default intra-op thread count (a seed's weights no
@@ -147,23 +150,25 @@ Phases, each fatal on any fault:
    printed; the times are labelled as two ranks sharing one card over gloo:
    they describe this rehearsal, not the speed of several cards. The phase
    prints a {"ranks": ...} line of its times and worst errors.
-11. the layouts across cards over NCCL (ROADMAP C4), where the machine has
-   four cards or more (else one line says so), at CVS full width: four
-   ranks spawned once, rank r on cuda:r. (a) The data-parallel dual step
-   over the four cards (32 rows a rank) and over two of them, on
-   semilinear_fused and semilinear, under phase 10's bounds with the ranks'
-   params bit for bit equal; the median of five steps and, timed apart, the
-   gradient sums' share. (b) data 2 x time 2 and time 4 on
-   semilinear_timepar, and the recurrence of 4096 steps over the time
-   ranks. (c) A CVS sweep of eight members over --ensemble-parallel 4 (bit
-   for bit the unsharded sweep in member groups of two) and over
-   --ensemble-parallel 2 --ensemble-data-parallel 2 (phase 10's
-   member-sharded bound), both within the stacked-member bound of all eight, each
-   rank under its own results root (rank 0 alone must write); the gather's
-   time. (d) training_cvs --data-parallel 4 spawned by the CLI and under
-   torchrun (bit for bit each other, their artifacts elementwise within
-   (a)'s params bound of one card) and
-   the sweep CLI over --ensemble-parallel 4 (bit for bit (c)). (e)
+11. the layouts across cards over NCCL (ROADMAP C4; C6), where the machine
+   has four cards or more (else one line says so), at CVS, proc and
+   challenge full width: four ranks spawned once, rank r on cuda:r. (a) The
+   data-parallel dual step over the four cards (CVS 32 rows a rank, proc 9,
+   challenge 8) and, at CVS, over two of them, on semilinear_fused and
+   semilinear, under phase 10's bounds with the ranks' params bit for bit
+   equal; the median of five steps and, timed apart, the gradient sums'
+   share. (b) data 2 x time 2 and time 4 on semilinear_timepar at each
+   workload, and the recurrence of 4096 steps over the time ranks. (c) A
+   CVS sweep of eight members and a proc sweep of four (seeds 12..15) over
+   --ensemble-parallel 4 (bit for bit the unsharded sweep in member groups
+   of a rank's size) and over --ensemble-parallel 2
+   --ensemble-data-parallel 2 (phase 10's member-sharded bound), both
+   within the stacked-member bound of all members, each rank under its own
+   results root (rank 0 alone must write); the gather's time. (d)
+   training_cvs, training_proc and training_challenge --data-parallel 4
+   spawned by the CLI and under torchrun (bit for bit each other, their
+   artifacts elementwise within (a)'s params bound of one card) and the
+   sweep CLI over --ensemble-parallel 4 (bit for bit (c)'s CVS sweep). (e)
    --data-parallel 5 raises before any launch. Launches are counted on
    every rank of every case (of the CLIs' own processes at their exit).
    Prints a {"cards": ...} line. --cards runs phases 1, 2 and 11 alone.
@@ -2063,7 +2068,8 @@ def phase_plot_check(device, workdir: str, data_dir: str, rehearse: bool, paths:
     print(f"plotting: matplotlib and scikit-learn here; one epoch drew {pngs}", flush=True)
 
 
-# Phase 10: data, time and member parallelism over ranks (ROADMAP A17). The
+# Phase 10: data, time and member parallelism over ranks (ROADMAP A17, and
+# C6 at proc and challenge). The
 # card's machine has one H100 and NCCL refuses two ranks on one GPU, so two
 # spawned ranks share cuda:0 over gloo (named explicitly), and NCCL runs as a
 # group of one rank. The ranks start once and run every case; the parent
@@ -2160,7 +2166,8 @@ def _rank_card() -> str:
 
 def _rank_dp_step(c: dict):
     """On each rank of the data-parallel grid over ranks ``c['ranks']``
-    (groups of ``c['group_backend']``, None: the world's): one dual step on
+    (groups of ``c['group_backend']``, None: the world's), at workload
+    ``c['workload']``: one dual step on
     this rank's rows, launches counted, with the summed main and aux
     gradients its updates took (what the data group's sum,
     mesh.all_reduce_tree, returned), then ``c['steps']`` timed and, with
@@ -2171,7 +2178,7 @@ def _rank_dp_step(c: dict):
         return None
     device = resolve_device(c["device"])
     full_fp32(deterministic=True)
-    spec = cvs_spec(_config(c["data_dir"], c["backend"]))
+    spec = _rank_spec(c["workload"], c["data_dir"], c["backend"])
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
     init_state, step, _ = dp_train.make_dp_train_step(spec, ts, c["lr"], params, grid)
@@ -2196,7 +2203,8 @@ def _rank_dp_step(c: dict):
 
 
 def _rank_tp_case(c: dict):
-    """On the ``c['grid']`` = (data, model) grid of the world, the horizon
+    """On the ``c['grid']`` = (data, model) grid of the world, at workload
+    ``c['workload']``, the horizon
     over the model ranks: the decoder ODE's solve on semilinear_timepar
     (values) and the main loss's gradients, both of the whole batch on every
     rank, then one counted dual step on this rank's data rows and timed
@@ -2207,9 +2215,7 @@ def _rank_tp_case(c: dict):
     grid = make_mesh(n_data, n_model)
     device = resolve_device(c["device"])
     full_fp32(deterministic=True)
-    cfg = _config(c["data_dir"], "semilinear")
-    cfg.time_parallel = n_model  # models/zoo.py: the semilinear_timepar backend
-    spec = cvs_spec(cfg)
+    spec = _rank_spec(c["workload"], c["data_dir"], "semilinear", n_model)
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
     batch = device_batch(c["batch"], device)
@@ -2315,37 +2321,54 @@ def _check_rank_counts(paths: dict, name: str, counts: dict, expected, rehearse:
         check(n > 0 if want else n == 0, f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
 
 
-class RankInputs:
-    """What phases 10 and 11 hand their ranks (``base``: CVS params of seed
-    0, the first training batch of ``B`` rows, the time grid, the step's
-    seed and lr), the recurrence of ``long_t`` steps and a batch of latents
-    for the time-parallel cases, and the one-device references on
-    ``device``: a dual step per backend, its time, and the time-parallel
-    cases' solve, main-loss gradients and recurrence."""
+# the workloads of phases 10 and 11: CVS at its training batch and horizon,
+# proc and challenge as phase 6 runs them (WORKLOADS)
+RANK_WORKLOADS = {"cvs": dict(spec=cvs_spec, train_b=TRAIN_B, T=86, D=5), **WORKLOADS}
 
-    def __init__(self, device, data_dir: str, rehearse: bool):
-        self.cfg = cfg = _config(data_dir, "semilinear")
-        splits = training_cvs.build_splits(cfg, device=device)[0]
-        self.B = B = 8 if rehearse else TRAIN_B
+
+def _rank_spec(wl: str, data_dir: str, backend: str, time_parallel: int = 0):
+    """The spec of ``wl`` on ``backend``; with ``time_parallel`` above 1 on
+    semilinear_timepar (models/zoo.py)."""
+    cfg = _config(data_dir, backend) if wl == "cvs" else _workload_config(wl, backend)
+    cfg.time_parallel = time_parallel
+    w = RANK_WORKLOADS[wl]
+    return w["spec"](cfg, n_time=w["T"])
+
+
+class RankInputs:
+    """What phases 10 and 11 hand their ranks at workload ``wl`` (``base``:
+    the workload's params of seed 0, its first training batch of ``B`` rows,
+    its time grid, the step's seed and lr), the recurrence of ``long_t``
+    steps at its ODE state width and a batch of latents for the
+    time-parallel cases, and the one-device references on ``device``: a dual
+    step per backend, its time, and the time-parallel cases' solve,
+    main-loss gradients and recurrence."""
+
+    def __init__(self, device, data_dir: str, rehearse: bool, wl: str):
+        self.wl, w = wl, RANK_WORKLOADS[wl]
+        cfg = _config(data_dir, "semilinear") if wl == "cvs" else _workload_config(wl, "semilinear")
+        spec, splits, times = serve._build(wl, cfg, device)
+        check(len(times) == w["T"] and spec.decoder.ode.ode_state_dim == w["D"], f"{wl}: the rank inputs' shapes")
+        self.B = B = 8 if rehearse and wl == "cvs" else w["train_b"]
         batch = {k: v[0] for k, v in stacked_minibatches(splits["train"], B, shuffle=False).items()}
-        times = np.arange(86.0, dtype=np.float32)
+        times = np.asarray(times, dtype=np.float32)
         self.ts = ts = torch.as_tensor(times, device=device)
         lr, seed = cfg.learning_rate, fold_seed(12, "train")
-        self.params = params = init_params(cvs_spec(cfg), 0, device=device)
+        self.params = params = init_params(spec, 0, device=device)
         self.dbatch = dbatch = device_batch(batch, device)
         self.steps = 2 if rehearse else RANK_STEPS
         self.base = dict(params=_np_tree(params), batch=batch, times=times, seed=seed, lr=lr, data_dir=data_dir,
-                         steps=self.steps)
+                         steps=self.steps, workload=wl)
         self.long_t = 256 if rehearse else LONG_T
+        D = w["D"]
         gen = torch.Generator().manual_seed(10)
-        self.long = ((torch.rand((B, self.long_t - 1, 5), generator=gen) * 0.05 + 0.95),
-                     (torch.rand((B, self.long_t - 1, 5), generator=gen) - 0.5) * 0.02,
-                     torch.rand((B, 5), generator=gen))
-        self.z = torch.randn((B, 15), generator=gen)
-        self.refs = {b: _one_device_step(cvs_spec(_config(data_dir, b)), params, dbatch, ts, lr, seed)
+        self.long = ((torch.rand((B, self.long_t - 1, D), generator=gen) * 0.05 + 0.95),
+                     (torch.rand((B, self.long_t - 1, D), generator=gen) - 0.5) * 0.02,
+                     torch.rand((B, D), generator=gen))
+        self.z = torch.randn((B, spec.latent_dim), generator=gen)
+        self.refs = {b: _one_device_step(_rank_spec(wl, data_dir, b), params, dbatch, ts, lr, seed)
                      for b in ("semilinear", "semilinear_fused")}
         self.ref_ms = {b: _dual_step_ms(r[2], r[0], dbatch, self.steps, device) for b, r in self.refs.items()}
-        spec = cvs_spec(cfg)
         with torch.no_grad():
             self.ref_solve = solve_ode(spec.decoder.ode, params["decoder"]["ode"], self.z.to(device), ts).cpu()
         _, _, self.ref_grads = svi.value_and_grad(svi.make_losses(spec, ts)[0], params, 7, dbatch)
@@ -2353,6 +2376,12 @@ class RankInputs:
 
     def tp_case(self, pool_device: str, grid) -> dict:
         return dict(self.base, device=pool_device, grid=grid, z=self.z.numpy(), long=[t.numpy() for t in self.long])
+
+
+def _wl_tag(wl: str) -> str:
+    """The prefix of a case's name at workload ``wl``: none at CVS, whose
+    names are those of PR 9 and 10."""
+    return "" if wl == "cvs" else f"{wl} "
 
 
 def _hold_dp(name: str, outs, inp: RankInputs, backend: str, paths: dict, rehearse: bool) -> list:
@@ -2370,11 +2399,13 @@ def _hold_dp(name: str, outs, inp: RankInputs, backend: str, paths: dict, rehear
     return worst
 
 
-def _hold_tp(name: str, outs, inp: RankInputs, paths: dict, rehearse: bool) -> None:
+def _hold_tp(name: str, outs, inp: RankInputs, paths: dict, rehearse: bool) -> dict:
     """Each rank's time-parallel case (:func:`_rank_tp_case`) against one
     device on semilinear: the solve's values, the main loss's gradients, the
-    dual step, the recurrence against K1; K1 and K1-bwd launched."""
+    dual step, the recurrence against K1; K1 and K1-bwd launched. Returns
+    the worst error over its tolerance of each."""
     state, mets, _, _ = inp.refs["semilinear"]
+    worst = collections.defaultdict(float)
     for r, o in enumerate(outs):
         v = ratio(torch.as_tensor(o["solve"]), inp.ref_solve, TP_VALUE_ATOL, TP_VALUE_RTOL)
         g = max(ratio(torch.as_tensor(x), y.cpu(), TP_ATOL, TP_RTOL)
@@ -2383,11 +2414,15 @@ def _hold_tp(name: str, outs, inp: RankInputs, paths: dict, rehearse: bool) -> N
         print(f"{name} rank {r}: solve values error / tolerance {v:.3e}, main-loss gradients {g:.3e}, recurrence "
               f"of {inp.long_t} steps against K1 {lg:.3e}", flush=True)
         check(v <= 1.0 and g <= 1.0 and lg <= 1.0, f"{name} rank {r}: the time-parallel solve disagrees")
-        _hold_step(f"{name} dual step rank {r}", o, state, mets, DP_LOSS_RTOL, TP_RTOL, TP_ATOL)
+        step = _hold_step(f"{name} dual step rank {r}", o, state, mets, DP_LOSS_RTOL, TP_RTOL, TP_ATOL)
+        for k, x in (("values", v), ("grads", g), ("long", lg), ("step_loss", step["loss"]),
+                     ("step_params", step["params"])):
+            worst[k] = max(worst[k], x)
         _check_rank_counts(paths, f"ranks {name} semilinear_timepar rank{r}", o["counts"], TRAINING["semilinear"],
                            rehearse)
         _check_rank_counts(paths, f"ranks {name} recurrence T={inp.long_t} rank{r}", o["long_counts"], ("K1",),
                            rehearse)
+    return dict(worst)
 
 
 def _sweep_leaves(r):
@@ -2427,20 +2462,23 @@ def _hold_sweep(name: str, got, grouped, stacked_ref, bit_equal: bool) -> dict:
 def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
     """Phase 10 (module comment above): (a) the data-parallel dual step
     through an NCCL group of one rank, bit for bit the one-device step; (b)
-    two gloo ranks on the card, 64 rows each, on semilinear_fused (K2, K3)
-    and semilinear (K1, K1-bwd); (c) the horizon over two ranks
-    (semilinear_timepar: K1, K1-bwd) at the training batch, and the
-    recurrence at LONG_T steps against K1; (d) a CVS sweep of four members
+    two gloo ranks on the card, half the training batch each (CVS 64 rows,
+    proc 18, challenge 16), on semilinear_fused (K2, K3) and semilinear (K1,
+    K1-bwd), at CVS, proc and challenge; (c) the horizon over two ranks
+    (semilinear_timepar: K1, K1-bwd) at each workload's training batch and
+    horizon (85, 99 and 141 steps), and the recurrence at LONG_T steps at its
+    ODE state width against K1; (d) a CVS sweep of four members
     over --ensemble-parallel 2 on semilinear_fused against the unsharded
     sweep; (e) the CLI with --data-parallel 2 on one card raises before any
     launch, naming the card count. Launches are counted per rank and case."""
     t_phase = time.perf_counter()
     full_fp32(deterministic=True)
-    inp = RankInputs(device, data_dir, rehearse)
+    inputs = {wl: RankInputs(device, data_dir, rehearse, wl) for wl in RANK_WORKLOADS}
+    inp = inputs["cvs"]
     B, ref_ms = inp.B, inp.ref_ms
     pool_device = "cpu" if rehearse else "cuda:0"
     base = dict(inp.base, device=pool_device)
-    res = {"label": RANKS_LABEL, "one_device_step_ms": ref_ms}
+    res = {"label": RANKS_LABEL, "one_device_step_ms": {wl: i.ref_ms for wl, i in inputs.items()}}
     t0 = time.perf_counter()
     rank_threads = torch.get_num_threads() if rehearse else RANK_THREADS
     with launch.RankPool(2, device=pool_device, backend="gloo", timeout_s=300, threads=rank_threads,
@@ -2464,21 +2502,29 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                            rehearse)
         res["nccl_world1"] = {"bit_equal": same, "ms": a["ms"]}
 
-        # (b) two gloo ranks on the card, half the batch each
-        for backend in ("semilinear_fused", "semilinear"):
-            outs = pool.run(_rank_dp_step, dict(base, ranks=[0, 1], group_backend="gloo", backend=backend))
-            worst = _hold_dp(f"(b) dp2 gloo {backend}", outs, inp, backend, paths, rehearse)
-            print(f"(b) data-parallel 2 {backend} B={B}: ranks' params bit for bit equal; {outs[0]['ms']:.3f} ms "
-                  f"a step, one device {ref_ms[backend]:.3f} ms ({RANKS_LABEL}; {smi})", flush=True)
-            res[f"dp2_{backend}"] = {"ms": [o["ms"] for o in outs], "worst": worst}
+        # (b) two gloo ranks on the card, half the batch each, at each workload
+        for wl, w_inp in inputs.items():
+            tag = _wl_tag(wl)
+            for backend in ("semilinear_fused", "semilinear"):
+                outs = pool.run(_rank_dp_step, dict(w_inp.base, device=pool_device, ranks=[0, 1],
+                                                    group_backend="gloo", backend=backend))
+                worst = _hold_dp(f"(b) {tag}dp2 gloo {backend}", outs, w_inp, backend, paths, rehearse)
+                print(f"(b) {tag}data-parallel 2 {backend} B={w_inp.B}: ranks' params bit for bit equal; median of "
+                      f"{w_inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a rank, one device "
+                      f"{w_inp.ref_ms[backend]:.3f} ms ({RANKS_LABEL}; {smi})", flush=True)
+                res[f"{tag.replace(' ', '_')}dp2_{backend}"] = {"ms": [o["ms"] for o in outs], "worst": worst}
 
-        # (c) the horizon over two ranks
-        outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, (1, 2)))
-        _hold_tp("(c) tp2 gloo", outs, inp, paths, rehearse)
-        print(f"(c) time-parallel 2 B={B}: {outs[0]['ms']:.3f} ms a dual step (one device on semilinear "
-              f"{ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps {outs[0]['long_ms']:.3f} ms, "
-              f"first call ({RANKS_LABEL}; {smi})", flush=True)
-        res["tp2"] = {"ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs]}
+        # (c) the horizon over two ranks, at each workload
+        for wl, w_inp in inputs.items():
+            tag = _wl_tag(wl)
+            outs = pool.run(_rank_tp_case, w_inp.tp_case(pool_device, (1, 2)))
+            worst = _hold_tp(f"(c) {tag}tp2 gloo", outs, w_inp, paths, rehearse)
+            print(f"(c) {tag}time-parallel 2 B={w_inp.B}, {w_inp.ts.numel() - 1} steps: median of {w_inp.steps} dual "
+                  f"steps {[round(o['ms'], 3) for o in outs]} ms a rank (one device on semilinear "
+                  f"{w_inp.ref_ms['semilinear']:.3f} ms); recurrence of {w_inp.long_t} steps "
+                  f"{outs[0]['long_ms']:.3f} ms, first call ({RANKS_LABEL}; {smi})", flush=True)
+            res[f"{tag.replace(' ', '_')}tp2"] = {"ms": [o["ms"] for o in outs],
+                                                  "long_ms": [o["long_ms"] for o in outs], "worst": worst}
 
         # (d) a sweep of four members over two member ranks, held bit for bit
         # to the unsharded sweep in member groups of two at this process's
@@ -2526,7 +2572,8 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
     return res
 
 
-# Phase 11: the layouts across cards over NCCL (ROADMAP C4), one card a rank,
+# Phase 11: the layouts across cards over NCCL (ROADMAP C4; C6 at proc and
+# challenge), one card a rank,
 # where the machine has CARDS cards or more: four ranks spawned once
 # (RankPool(4, device="cuda", backend="nccl"): rank r on cuda:r) run every
 # case; the parent computes the one-device references on cuda:0, under
@@ -2541,7 +2588,7 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
 # CLIs start are read at their exit (_CountHook).
 CARDS = 4
 CARDS_LABEL = "four cards of one host, one a rank, over NCCL"
-TRAINING_CLI, SWEEP_CLI = "structured_latent_odes_tpu_torch.training_cvs", "structured_latent_odes_tpu_torch.sweep"
+TRAINING_CLI, SWEEP_CLI = "structured_latent_odes_tpu_torch.training_{}", "structured_latent_odes_tpu_torch.sweep"
 
 # Written as sitecustomize.py into a directory put first on PYTHONPATH of a
 # CLI's processes: at its exit each process that launched a kernel writes
@@ -2652,18 +2699,20 @@ def _check_cli_counts(paths: dict, name: str, hook: _CountHook, n: int, expected
 
 def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
     """Phase 11 (module comment above), on CARDS cards, one a rank: (a) the
-    data-parallel dual step over the four cards, 32 rows a rank, and over
-    two of them, on semilinear_fused (K2, K3) and semilinear (K1, K1-bwd);
-    (b) the horizon over data 2 x time 2 and over time 4 ranks
-    (semilinear_timepar: K1, K1-bwd), and the recurrence of LONG_T steps
-    over the time ranks; (c) a CVS sweep of eight members over
-    --ensemble-parallel 4 (bit for bit the unsharded sweep in member groups
-    of two) and over --ensemble-parallel 2 --ensemble-data-parallel 2 on
-    semilinear_fused, each rank writing under its own root (rank 0 alone
-    must write); (d) training_cvs --data-parallel 4 spawned by the CLI and
-    under torchrun, bit for bit each other and within (a)'s bounds of the
-    one-device run, and the sweep CLI over --ensemble-parallel 4, bit for
-    bit (c)'s; (e) --data-parallel 5 raises before any launch. Where the
+    data-parallel dual step over the four cards (CVS 32 rows a rank, proc 9,
+    challenge 8) and, at CVS, over two of them, on semilinear_fused (K2, K3)
+    and semilinear (K1, K1-bwd); (b) the horizon over data 2 x time 2 and
+    over time 4 ranks (semilinear_timepar: K1, K1-bwd) at each workload, and
+    the recurrence of LONG_T steps over the time ranks; (c) a CVS sweep of
+    eight members and a proc sweep of four over --ensemble-parallel 4 (bit
+    for bit the unsharded sweep in member groups of a rank's size) and over
+    --ensemble-parallel 2 --ensemble-data-parallel 2 on semilinear_fused,
+    each rank writing under its own root (rank 0 alone must write); (d)
+    training_cvs, training_proc and training_challenge --data-parallel 4
+    spawned by the CLI and under torchrun, bit for bit each other and within
+    (a)'s bounds of the one-device run, and the sweep CLI over
+    --ensemble-parallel 4, bit for bit (c)'s CVS sweep; (e) --data-parallel
+    5 raises before any launch. Where the
     machine has fewer cards it prints so and returns None; a rehearsal runs
     four gloo ranks on the CPU."""
     n_cards = torch.cuda.device_count() if device.type == "cuda" else 0
@@ -2672,12 +2721,10 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         return None
     t_phase = time.perf_counter()
     full_fp32(deterministic=True)
-    inp = RankInputs(device, data_dir, rehearse)
-    B, ref_ms = inp.B, inp.ref_ms
+    inputs = {wl: RankInputs(device, data_dir, rehearse, wl) for wl in RANK_WORKLOADS}
     pool_device = "cpu" if rehearse else "cuda"
     label = "rehearsal: four gloo ranks on the CPU" if rehearse else CARDS_LABEL
-    base = dict(inp.base, device=pool_device)
-    res = {"label": label, "one_device_step_ms": ref_ms}
+    res = {"label": label, "one_device_step_ms": {wl: i.ref_ms for wl, i in inputs.items()}}
     # a limit on the host's load (no result depends on the host's threads on
     # the card); on the CPU the ranks compute at this process's count, as
     # its references do
@@ -2691,104 +2738,128 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         check(rehearse or [c.split()[0] for c in cards] == [f"cuda:{r}" for r in range(CARDS)],
               f"the ranks' cards: {cards}")
 
-        # (a) data parallelism over four and over two cards
-        for backend in ("semilinear_fused", "semilinear"):
-            res[f"dp_{backend}"] = {"one_card_ms": ref_ms[backend]}
-            for n in (CARDS, 2):
-                outs = pool.run(_rank_dp_step, dict(base, ranks=list(range(n)), group_backend=None,
-                                                    backend=backend, time_reduce=True))
-                check(all(o is None for o in outs[n:]), "(a) a rank outside the grid returned a step")
-                outs = outs[:n]
-                worst = _hold_dp(f"(a) dp{n} {backend}", outs, inp, backend, paths, rehearse)
-                print(f"(a) data-parallel {n} {backend} B={B}: {B // n} rows a rank, ranks' params bit for bit "
-                      f"equal; median of {inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a rank, of which "
-                      f"the gradient sums {[round(o['reduce_ms'], 3) for o in outs]} ms (timed apart, between "
-                      f"synchronises); one card {ref_ms[backend]:.3f} ms ({label}; {smi})", flush=True)
-                res[f"dp_{backend}"][f"cards_{n}"] = {"ms": [o["ms"] for o in outs],
-                                                      "reduce_ms": [o["reduce_ms"] for o in outs], "worst": worst}
+        # (a) data parallelism over four cards at each workload, and over two
+        # at CVS
+        for wl, inp in inputs.items():
+            tag = _wl_tag(wl)
+            for backend in ("semilinear_fused", "semilinear"):
+                rec = res[f"{tag.replace(' ', '_')}dp_{backend}"] = {"one_card_ms": inp.ref_ms[backend]}
+                for n in (CARDS, 2) if wl == "cvs" else (CARDS,):
+                    outs = pool.run(_rank_dp_step, dict(inp.base, device=pool_device, ranks=list(range(n)),
+                                                        group_backend=None, backend=backend, time_reduce=True))
+                    check(all(o is None for o in outs[n:]), "(a) a rank outside the grid returned a step")
+                    outs = outs[:n]
+                    worst = _hold_dp(f"(a) {tag}dp{n} {backend}", outs, inp, backend, paths, rehearse)
+                    print(f"(a) {tag}data-parallel {n} {backend} B={inp.B}: {inp.B // n} rows a rank, ranks' params "
+                          f"bit for bit equal; median of {inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a "
+                          f"rank, of which the gradient sums {[round(o['reduce_ms'], 3) for o in outs]} ms (timed "
+                          f"apart, between synchronises); one card {inp.ref_ms[backend]:.3f} ms ({label}; {smi})",
+                          flush=True)
+                    rec[f"cards_{n}"] = {"ms": [o["ms"] for o in outs], "reduce_ms": [o["reduce_ms"] for o in outs],
+                                         "worst": worst}
 
-        # (b) the horizon over data 2 x time 2 and over time 4
-        for grid in ((2, 2), (1, CARDS)):
-            name = f"(b) dp{grid[0]} tp{grid[1]}"
-            outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, grid))
-            _hold_tp(name, outs, inp, paths, rehearse)
-            print(f"{name} B={B}: median of {inp.steps} dual steps {[round(o['ms'], 3) for o in outs]} ms a rank "
-                  f"(one card on semilinear {ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps over "
-                  f"{grid[1]} time ranks {[round(o['long_ms'], 3) for o in outs]} ms, first call ({label}; {smi})",
-                  flush=True)
-            res[f"dp{grid[0]}_tp{grid[1]}"] = {"ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs]}
+        # (b) the horizon over data 2 x time 2 and over time 4, at each
+        # workload
+        for wl, inp in inputs.items():
+            tag = _wl_tag(wl)
+            for grid in ((2, 2), (1, CARDS)):
+                name = f"(b) {tag}dp{grid[0]} tp{grid[1]}"
+                outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, grid))
+                worst = _hold_tp(name, outs, inp, paths, rehearse)
+                print(f"{name} B={inp.B}, {inp.ts.numel() - 1} steps: median of {inp.steps} dual steps "
+                      f"{[round(o['ms'], 3) for o in outs]} ms a rank (one card on semilinear "
+                      f"{inp.ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps over {grid[1]} time "
+                      f"ranks {[round(o['long_ms'], 3) for o in outs]} ms, first call ({label}; {smi})", flush=True)
+                res[f"{tag.replace(' ', '_')}dp{grid[0]}_tp{grid[1]}"] = {
+                    "ms": [o["ms"] for o in outs], "long_ms": [o["long_ms"] for o in outs], "worst": worst}
 
-        # (c) a sweep of eight members over the cards; each run twice, the
-        # second bit for bit the first and timed warm (the first call of a
-        # process also loads the member-batched kernels and cuDNN's plans)
-        seeds = "12..15" if rehearse else "12..19"
-        n_members = len(sweep.parse_seeds(seeds))
-        argv = ["cvs", "--seeds", seeds, "--num-epochs", "1", "--ode-backend", "semilinear_fused", "--data-path",
-                data_dir]
-        one_argv = argv + ["--device", str(device)]
-        stack = [sweep.run(sweep.parse_args(one_argv + ["--results-root", os.path.join(workdir, f"cards-sweep-1-{i}")]))
-                 for i in range(2)]
-        check(_same_sweep(stack[1].result, stack[0].result), "(c) the one-card sweep's rerun differs")
-        grouped = {g: sweep.run(sweep.parse_args(one_argv + [
-            "--results-root", os.path.join(workdir, f"cards-sweep-g{g}"), "--member-group", str(g)])).result
-            for g in (n_members // CARDS, n_members // 2)}
-        res["sweep_one_card"] = [{k: r.summary[k] for k in ("wall_seconds", "train_seconds")} for r in stack]
-        print(f"(c) sweep of {n_members} members on one card, first and warm: "
-              f"{[round(r.summary['wall_seconds'], 3) for r in stack]} s wall, "
-              f"{[round(r.summary['train_seconds'], 3) for r in stack]} s training; the rerun bit for bit the first "
-              f"({smi})", flush=True)
-        for ens, n_data in ((CARDS, 1), (2, 2)):
-            name = f"(c) sweep ens{ens} data{n_data}"
-            runs = []
-            for i in range(2):
-                root = os.path.join(workdir, f"cards-sweep-ens{ens}-data{n_data}-{i}")
-                outs = pool.run(_rank_sweep, argv + ["--device", pool_device, "--results-root", root,
-                                                     "--ensemble-parallel", str(ens), "--ensemble-data-parallel",
-                                                     str(n_data)], True)
-                written = {r: _files(os.path.join(root, f"rank{r}")) for r in range(CARDS)}
-                check("sweep.json" in written[0] and any(f.startswith("deploy_mean") for f in written[0]),
-                      f"{name}: rank 0 wrote no sweep.json or deploy_mean/")
-                check(not any(written[r] for r in range(1, CARDS)), f"{name}: ranks other than 0 wrote files")
-                for r, o in enumerate(outs):
-                    _check_rank_counts(paths, f"cards {name} run {i} rank{r}", o["counts"],
-                                       SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"], rehearse)
-                runs.append(outs)
-            held = _hold_sweep(f"{name}: {n_members} members", runs[0][0]["result"], grouped[n_members // ens],
-                               stack[0].result, bit_equal=n_data == 1)
-            check(_same_sweep(runs[1][0]["result"], runs[0][0]["result"]), f"{name}: the rerun differs")
-            summaries = [outs[0]["summary"] for outs in runs]
-            check([m["seed"] for m in summaries[0]["members"]] == sweep.parse_seeds(seeds), f"{name}: sweep.json seeds")
-            gather = [[o["gather_s"] for o in outs] for outs in runs]
-            print(f"{name}, first and warm: {[round(s['wall_seconds'], 3) for s in summaries]} s wall, "
-                  f"{[round(s['train_seconds'], 3) for s in summaries]} s training; gather_object "
-                  f"{[[round(s, 4) for s in g] for g in gather]} s a rank, {[o['gather_bytes'] for o in runs[1]]} "
-                  f"bytes pickled a rank; the rerun bit for bit the first; rank 0 alone wrote its "
-                  f"{len(written[0])} files ({label}; {smi})", flush=True)
-            res[f"sweep_ens{ens}_data{n_data}"] = {
-                "wall_seconds": [s["wall_seconds"] for s in summaries],
-                "train_seconds": [s["train_seconds"] for s in summaries], "gather_s": gather,
-                "gather_bytes": [o["gather_bytes"] for o in runs[1]], **held}
-        ens_root = os.path.join(workdir, f"cards-sweep-ens{CARDS}-data1-0", "rank0")
+        # (c) sweeps over the cards: CVS's eight members, each run twice (the
+        # second bit for bit the first and timed warm: the first call of a
+        # process also loads the member-batched kernels and cuDNN's plans),
+        # and proc's four, once (on datasets/proc, the config's 200 draws;
+        # the fold pinned, as in phase 7, so that the members deploy)
+        sweeps = {"cvs": ("12..15" if rehearse else "12..19", ["--data-path", data_dir], 2),
+                  "proc": ("12..15", ["--data-seed", "12"] + (["--num-samples", "2"] if rehearse else []), 1)}
+        for wl, (seeds, extra, n_runs) in sweeps.items():
+            tag = _wl_tag(wl)
+            n_members = len(sweep.parse_seeds(seeds))
+            argv = [wl, "--seeds", seeds, "--num-epochs", "1", "--ode-backend", "semilinear_fused"] + extra
+            one_argv = argv + ["--device", str(device)]
+            stack = [sweep.run(sweep.parse_args(one_argv + [
+                "--results-root", os.path.join(workdir, f"cards-sweep-{wl}-1-{i}")])) for i in range(n_runs)]
+            check(_same_sweep(stack[-1].result, stack[0].result), f"(c) {tag}the one-card sweep's rerun differs")
+            grouped = {g: sweep.run(sweep.parse_args(one_argv + [
+                "--results-root", os.path.join(workdir, f"cards-sweep-{wl}-g{g}"), "--member-group", str(g)])).result
+                for g in (n_members // CARDS, n_members // 2)}
+            res[f"{tag.replace(' ', '_')}sweep_one_card"] = [
+                {k: r.summary[k] for k in ("wall_seconds", "train_seconds")} for r in stack]
+            print(f"(c) {tag}sweep of {n_members} members on one card{', first and warm' if n_runs > 1 else ''}: "
+                  f"{[round(r.summary['wall_seconds'], 3) for r in stack]} s wall, "
+                  f"{[round(r.summary['train_seconds'], 3) for r in stack]} s training ({smi})", flush=True)
+            for ens, n_data in ((CARDS, 1), (2, 2)):
+                name = f"(c) {tag}sweep ens{ens} data{n_data}"
+                runs = []
+                for i in range(n_runs):
+                    root = os.path.join(workdir, f"cards-sweep-{wl}-ens{ens}-data{n_data}-{i}")
+                    outs = pool.run(_rank_sweep, argv + ["--device", pool_device, "--results-root", root,
+                                                         "--ensemble-parallel", str(ens), "--ensemble-data-parallel",
+                                                         str(n_data)], True)
+                    written = {r: _files(os.path.join(root, f"rank{r}")) for r in range(CARDS)}
+                    check("sweep.json" in written[0] and any(f.startswith("deploy_mean") for f in written[0]),
+                          f"{name}: rank 0 wrote no sweep.json or deploy_mean/")
+                    check(not any(written[r] for r in range(1, CARDS)), f"{name}: ranks other than 0 wrote files")
+                    for r, o in enumerate(outs):
+                        _check_rank_counts(paths, f"cards {name} run {i} rank{r}", o["counts"],
+                                           SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"],
+                                           rehearse)
+                    runs.append(outs)
+                held = _hold_sweep(f"{name}: {n_members} members", runs[0][0]["result"], grouped[n_members // ens],
+                                   stack[0].result, bit_equal=n_data == 1)
+                check(_same_sweep(runs[-1][0]["result"], runs[0][0]["result"]), f"{name}: the rerun differs")
+                summaries = [outs[0]["summary"] for outs in runs]
+                check([m["seed"] for m in summaries[0]["members"]] == sweep.parse_seeds(seeds),
+                      f"{name}: sweep.json seeds")
+                gather = [[o["gather_s"] for o in outs] for outs in runs]
+                print(f"{name}{', first and warm' if n_runs > 1 else ''}: "
+                      f"{[round(s['wall_seconds'], 3) for s in summaries]} s wall, "
+                      f"{[round(s['train_seconds'], 3) for s in summaries]} s training; gather_object "
+                      f"{[[round(s, 4) for s in g] for g in gather]} s a rank, {[o['gather_bytes'] for o in runs[-1]]} "
+                      f"bytes pickled a rank; rank 0 alone wrote its {len(written[0])} files ({label}; {smi})",
+                      flush=True)
+                res[f"{tag.replace(' ', '_')}sweep_ens{ens}_data{n_data}"] = {
+                    "wall_seconds": [s["wall_seconds"] for s in summaries],
+                    "train_seconds": [s["train_seconds"] for s in summaries], "gather_s": gather,
+                    "gather_bytes": [o["gather_bytes"] for o in runs[-1]], **held}
+            if wl == "cvs":
+                cvs_sweep = (argv, seeds, os.path.join(workdir, f"cards-sweep-cvs-ens{CARDS}-data1-0", "rank0"))
     # (d) the CLIs end to end, each a process of its own as users start them
     # (their wall times include the processes' start); torchrun starts its
     # ranks at one intra-op thread, the spawned ones take their parent's
     # count: on the card no result depends on it, on the CPU the ranks' own
     # products do, so a rehearsal gives torchrun's ranks the spawned ones'
-    cli = ["--num-epochs", "1", "--no-plot", "--data-path", data_dir] + (
-        ["--device", "cpu", "--mini-batch-size", str(2 * CARDS)] if rehearse else [])
     one_card = ["--device", "cpu" if rehearse else str(device)]
     dp = ["--data-parallel", str(CARDS)]
     torchrun = ["torch.distributed.run", "--standalone", "--nproc_per_node", str(CARDS), "-m"]
     omp = {"OMP_NUM_THREADS": str(torch.get_num_threads())} if rehearse else {}
-    runs = {  # name: (python -m argv, ranks, the kernels rank r launches)
-        "training_cvs one card": ([TRAINING_CLI] + cli + one_card, 1, lambda r: TRAINING["semilinear"]),
-        "training_cvs spawned": ([TRAINING_CLI] + cli + dp, CARDS, lambda r: TRAINING["semilinear"]),
-        "training_cvs torchrun": (torchrun + [TRAINING_CLI] + cli + dp, CARDS, lambda r: TRAINING["semilinear"]),
+    cli = {"cvs": ["--num-epochs", "1", "--no-plot", "--data-path", data_dir] + (
+        ["--device", "cpu", "--mini-batch-size", str(2 * CARDS)] if rehearse else [])}
+    for wl in WORKLOADS:  # on datasets/, at the config's batch and 200 draws
+        cli[wl] = ["--num-epochs", "1", "--no-plot"] + (["--device", "cpu", "--num-samples", "2"] if rehearse else [])
+    runs = {}  # name: (python -m argv, ranks, the kernels rank r launches)
+    for wl, args in cli.items():
+        module = TRAINING_CLI.format(wl)
+        runs.update({
+            f"training_{wl} one card": ([module] + args + one_card, 1, lambda r: TRAINING["semilinear"]),
+            f"training_{wl} spawned": ([module] + args + dp, CARDS, lambda r: TRAINING["semilinear"]),
+            f"training_{wl} torchrun": (torchrun + [module] + args + dp, CARDS, lambda r: TRAINING["semilinear"]),
+        })
+    argv, seeds, ens_root = cvs_sweep
+    runs.update({
         "sweep one card": ([SWEEP_CLI] + argv + one_card, 1, lambda r: SWEEP["semilinear_fused"]),
         "sweep spawned": ([SWEEP_CLI] + argv + ["--device", pool_device, "--ensemble-parallel", str(CARDS)], CARDS,
                           lambda r: SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"]),
-    }
-    roots, res["cli_s"] = {}, {}
+    })
+    roots, res["cli_s"], res["cli_vs_one_card"] = {}, {}, {}
     for name, (args, n, expected) in runs.items():
         roots[name] = os.path.join(workdir, "cards-cli-" + name.replace(" ", "-"))
         hook = _CountHook(workdir, name.replace(" ", "-"))
@@ -2799,24 +2870,27 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         check(proc.returncode == 0, f"(d) {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
         _check_cli_counts(paths, name, hook, n, expected, rehearse)
     model_dir = f"results_{load_cvs_config().model}"
-    out_dir = {k: os.path.join(roots[f"training_cvs {k}"], model_dir) for k in ("one card", "spawned", "torchrun")}
-    for k in ("spawned", "torchrun"):
-        check(_files(roots[f"training_cvs {k}"]) == _files(roots["training_cvs one card"]),
-              f"(d) {k}: its files are not the one-card run's")
-        with open(os.path.join(out_dir[k], "model.log")) as f:
-            check(sum("loss=" in line for line in f) == 2, f"(d) {k}: model.log holds other than rank 0's two epochs")
-    _hold_artifacts("(d) torchrun against spawned", out_dir["torchrun"], out_dir["spawned"])
-    worst, where = _hold_artifacts("(d) spawned against one card", out_dir["spawned"], out_dir["one card"],
-                                   DP_PARAM_RTOL, DP_PARAM_ATOL)
+    for wl in cli:
+        out_dir = {k: os.path.join(roots[f"training_{wl} {k}"], model_dir) for k in ("one card", "spawned", "torchrun")}
+        for k in ("spawned", "torchrun"):
+            check(_files(roots[f"training_{wl} {k}"]) == _files(roots[f"training_{wl} one card"]),
+                  f"(d) training_{wl} {k}: its files are not the one-card run's")
+            with open(os.path.join(out_dir[k], "model.log")) as f:
+                check(sum("loss=" in line for line in f) == 2,
+                      f"(d) training_{wl} {k}: model.log holds other than rank 0's two epochs")
+        _hold_artifacts(f"(d) training_{wl} torchrun against spawned", out_dir["torchrun"], out_dir["spawned"])
+        worst, where = _hold_artifacts(f"(d) training_{wl} spawned against one card", out_dir["spawned"],
+                                       out_dir["one card"], DP_PARAM_RTOL, DP_PARAM_ATOL)
+        res["cli_vs_one_card"][wl] = {"worst": worst, "where": where}
+        print(f"(d) training_{wl} --data-parallel {CARDS} spawned and under torchrun bit for bit each other, their "
+              f"artifacts elementwise within (a)'s params bound of one card ({worst:.3e}, worst at {where}), the same "
+              f"files as the one-card run ({label}; {smi})", flush=True)
     for seed in sweep.parse_seeds(seeds):
         _hold_artifacts(f"(d) sweep seed {seed} against (c)", os.path.join(roots["sweep spawned"], f"seed{seed}"),
                         os.path.join(ens_root, f"seed{seed}"))
     print(f"(d) the CLIs' wall times, process start included: "
-          f"{ {k: round(v, 3) for k, v in res['cli_s'].items()} } s; training_cvs --data-parallel {CARDS} spawned "
-          f"and under torchrun bit for bit each other, their artifacts elementwise within (a)'s params bound of one "
-          f"card ({worst:.3e}, worst at {where}), the same files as the one-card run; the sweep over --ensemble-parallel {CARDS} bit for bit "
-          f"(c)'s ({label}; {smi})", flush=True)
-    res["cli_vs_one_card"] = worst
+          f"{ {k: round(v, 3) for k, v in res['cli_s'].items()} } s; the sweep over --ensemble-parallel {CARDS} bit "
+          f"for bit (c)'s ({label}; {smi})", flush=True)
 
     # (e) past the cards: raises before any launch, naming them
     zero_counts()
@@ -2824,8 +2898,8 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
     if rehearse:  # the CPU takes the ranks asked for: pretend to have the cards
         torch.cuda.device_count = lambda: CARDS
     try:
-        training_cvs.main(cli + ["--results-root", os.path.join(workdir, "cards-past"), "--data-parallel",
-                                 str(CARDS + 1), "--device", "cuda"])
+        training_cvs.main(cli["cvs"] + ["--results-root", os.path.join(workdir, "cards-past"), "--data-parallel",
+                                        str(CARDS + 1), "--device", "cuda"])
         raised = None
     except ValueError as e:
         raised = str(e)

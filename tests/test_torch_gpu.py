@@ -584,7 +584,7 @@ def _rank_case(cuda, backend):
     cfg = chip_smoke._config("unused", backend)
     params = init_params(cvs_spec(cfg), 0, device=cuda)
     case = dict(params=chip_smoke._np_tree(params), batch=batch, times=times, seed=5, lr=cfg.learning_rate,
-                device="cuda:0", data_dir="unused", steps=1)
+                device="cuda:0", data_dir="unused", steps=1, workload="cvs")
     ref = chip_smoke._one_device_step(cvs_spec(cfg), params, device_batch(batch, cuda), torch.as_tensor(times,
                                       device=cuda), cfg.learning_rate, 5)
     return case, ref, params
@@ -664,6 +664,47 @@ def _check_time_parallel(cuda, pool, grid, device):
         assert out["counts"]["K2"] == 0 and out["counts"]["K3"] == 0
 
 
+# Phase 10's (b) and (c) at proc and challenge (ROADMAP C6): chip_smoke's
+# RankInputs of the workload (its datasets/, its first training batch, its
+# horizon and widths) and rank functions, under chip_smoke's bounds, with
+# the launches of each rank held to the path's kernels.
+@pytest.fixture(scope="module", params=["proc", "challenge"])
+def workload_inputs(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+
+    full_fp32(deterministic=True)
+    return chip_smoke.RankInputs(torch.device("cuda"), "unused", False, request.param)
+
+
+def _held(hold, *args):
+    """A chip_smoke check (which exits on a fault) as a test's failure."""
+    try:
+        return hold(*args)
+    except SystemExit as e:
+        pytest.fail(str(e))
+
+
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_workload_dp_step_on_two_ranks_sharing_the_card(cuda, rank_pool, workload_inputs, backend):
+    import chip_smoke
+
+    inp = workload_inputs
+    outs = rank_pool.run(chip_smoke._rank_dp_step, dict(inp.base, device="cuda:0", ranks=[0, 1],
+                                                         group_backend="gloo", backend=backend))
+    assert [o["rows"] for o in outs] == [inp.B // 2] * 2
+    _held(chip_smoke._hold_dp, f"{inp.wl} dp2 {backend}", outs, inp, backend, {}, False)
+
+
+def test_workload_time_parallel_on_two_ranks(cuda, rank_pool, workload_inputs):
+    import chip_smoke
+
+    outs = rank_pool.run(chip_smoke._rank_tp_case, workload_inputs.tp_case("cuda:0", (1, 2)))
+    _held(chip_smoke._hold_tp, f"{workload_inputs.wl} tp2", outs, workload_inputs, {}, False)
+
+
 # Phase 11 of chip_smoke.py as tests, where the machine has four cards or
 # more: four ranks spawned once, rank r on cuda:r, over NCCL, running
 # chip_smoke's rank functions on the batch of RANK_B rows under phase 10's
@@ -718,3 +759,24 @@ def test_data_parallel_past_the_cards_raises_before_any_launch(cuda, tmp_path):
         training_cvs.main(["--num-epochs", "1", "--no-plot", "--data-parallel", str(n + 1), "--data-path",
                            str(tmp_path), "--results-root", str(tmp_path)])
     assert all(w.launches == before for w, before in launches)
+
+
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_workload_dp_step_over_four_cards(cuda, card_pool, workload_inputs, backend):
+    """Phase 11 (a) at proc (9 rows a card) and challenge (8)."""
+    import chip_smoke
+
+    inp = workload_inputs
+    outs = card_pool.run(chip_smoke._rank_dp_step, dict(inp.base, device="cuda", ranks=[0, 1, 2, 3],
+                                                         group_backend=None, backend=backend))
+    assert [o["rows"] for o in outs] == [inp.B // 4] * 4
+    _held(chip_smoke._hold_dp, f"{inp.wl} dp4 {backend}", outs, inp, backend, {}, False)
+
+
+@pytest.mark.parametrize("grid", [(2, 2), (1, 4)], ids=["data2-time2", "time4"])
+def test_workload_time_parallel_over_four_cards(cuda, card_pool, workload_inputs, grid):
+    """Phase 11 (b) at proc's 99 steps and challenge's 141."""
+    import chip_smoke
+
+    outs = card_pool.run(chip_smoke._rank_tp_case, workload_inputs.tp_case("cuda", grid))
+    _held(chip_smoke._hold_tp, f"{workload_inputs.wl} dp{grid[0]} tp{grid[1]}", outs, workload_inputs, {}, False)

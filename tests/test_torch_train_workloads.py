@@ -154,8 +154,8 @@ UNPORTED = [
     (ARGS + ["--checkpoint-every", "1"], None),  # ported: runs (tests/test_torch_resume.py holds resume)
     (ARGS + ["--resume"], None),  # ported: no train_state.npz, so a fresh run
     (ARGS + ["--profile-dir", "prof"], None),  # ported: runs (tests/test_torch_profiling.py)
-    (ARGS + ["--data-parallel", "2"], None),  # ported (A17): two ranks over gloo (tests/test_torch_parallel.py)
-    (ARGS + ["--time-parallel", "2"], None),  # ported (A17): the horizon over two ranks
+    (ARGS + ["--data-parallel", "2"], None),  # ported (A17): tests/test_torch_layouts_<dataset>.py hold it
+    (ARGS + ["--time-parallel", "2"], None),  # ported (A17): held there at --time-parallel 4 and 2 x 2
     (ARGS + ["--prior-refit-epochs", "2"], None),  # ported: runs (tests/test_torch_ensemble.py holds its numbers)
     (ARGS + ["--ode-backend", "generic"], None),  # ported: runs (tests/test_torch_ode_model.py holds its numbers)
     (ARGS + ["--ode-backend", "semilinear_auto"], None),  # ported: runs
