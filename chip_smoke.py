@@ -97,7 +97,10 @@ Phases, each fatal on any fault:
    forward to generic's and its first-step gradients to generic's at rk4
    within rtol 2e-2, atol 1e-2 of each leaf's largest value, the adaptive backends
    to generic at rk4 within rtol 5e-3, atol 5e-3; semilinear_auto's choice is printed per workload and
-   launches exactly its path's kernels. Last, two-member CVS sweeps on
+   launches exactly its path's kernels. Then one CVS training epoch each on
+   semilinear_seq, generic and adjoint as a CUDA graph (train/svi.py), bit
+   for bit the eager epoch, and one more replayed epoch timed beside the
+   eager one. Last, two-member CVS sweeps on
    adjoint and on adaptive (cut to one epoch of 40 trajectories), members
    0 and 1 held to their sequential runs as in phase 7.
 9. the rest of the training surface. Batch-exact resume at full width:
@@ -172,6 +175,23 @@ Phases, each fatal on any fault:
    --data-parallel 5 raises before any launch. Launches are counted on
    every rank of every case (of the CLIs' own processes at their exit).
    Prints a {"cards": ...} line. --cards runs phases 1, 2 and 11 alone.
+12. the training and eval epochs as CUDA graphs (train/svi.py,
+   utils/graphs.py), at CVS (B = 128), proc (B = 36) and challenge (B = 32)
+   full width on semilinear_fused (K2, K3) and semilinear (K1, K1-bwd): two
+   training epochs from one state, replayed (the first warms up on a side
+   stream, captures the dual step and replays it; the second only replays)
+   and eager, bit for bit equal (params, Adam moments, counts, per-step
+   metrics) with equal launches; each eval epoch (val and train, posterior
+   and prior) twice, bit for bit eager, launches equal. Median of 5, host
+   clock to a synchronize: a dual step (an epoch over its steps), a val eval
+   epoch and, at CVS, a whole epoch as the driver runs it (training and the
+   four eval epochs), eager and replayed; the host time of a fresh capture
+   of the step and of the val eval epoch; each graph's private pool (bytes
+   reserved); a traced epoch each way (device busy time, idle share, the
+   host's launching calls a step). Prints a {"graphs": ...} line (with
+   phase 8's menu epochs). The training runs of phases 5, 6 and 9
+   replay graphs too: each prints its replays (and the CLI its "epoch
+   dispatch: cuda graph" line), and a run that replayed none fails.
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
@@ -179,7 +199,7 @@ dual steps, as the trainers ask, and its fastest ones in serving
 (utils/device.py::full_fp32).
 
 Prints a {"ranks": ...} line, a {"cards": ...} line where phase 11 ran, a
-{"kernels": [...]} line, then the nvidia-smi line, then the last line
+{"graphs": ...} line, a {"kernels": [...]} line, then the nvidia-smi line, then the last line
 {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero before
 printing any result.
 """
@@ -224,6 +244,7 @@ from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batc
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch
+from structured_latent_odes_tpu_torch.utils import graphs
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -1304,12 +1325,18 @@ FORWARD = {"semilinear": ("K1",), "semilinear_pallas": ("K1",), "semilinear_fuse
 TRAINING = {"semilinear": ("K1", "K1-bwd"), "semilinear_fused": ("K2", "K3"), "semilinear_seq": ()}
 
 
-def counted(paths: dict, name: str, expected, rehearse: bool, fn):
+def counted(paths: dict, name: str, expected, rehearse: bool, fn, replayed: bool = False):
     """Run ``fn`` with every launch count set to 0 just before and read just
     after, into ``paths[name]``: each kernel of ``expected`` must have
-    launched, and no other kernel (on the CPU none launches)."""
+    launched, and no other kernel (on the CPU none launches). ``replayed``:
+    ``fn`` trains, and its epochs must replay CUDA graphs (train/svi.py)."""
     zero_counts()
+    replays = graphs.Graph.replays
     out = fn()
+    if replayed:
+        n = graphs.Graph.replays - replays
+        print(f"epoch dispatch of {name}: {n} CUDA graph replays", flush=True)
+        check(rehearse or n > 0, f"{name}: its epochs replayed no CUDA graph")
     paths[name] = counts = read_counts()
     VARIANT_PATHS[name] = {key: collections.Counter(w.variants) for key, w in KERNELS.items() if hasattr(w, "variants")}
     print(f"launches {name}: {counts}", flush=True)
@@ -1466,7 +1493,7 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
         results[backend, model] = counted(paths, name, TRAINING[backend], rehearse, lambda: training_cvs.main([
             "--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
             "--data-path", data_dir, "--results-root", root, "--device", str(device),
-        ]))
+        ]), replayed=True)
         print(f"== trained {model} on {backend}: 2 epochs in {time.perf_counter() - t0:.2f} s ({CARD['smi']})",
               flush=True)
 
@@ -1619,7 +1646,7 @@ def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str
                     "--results-root", os.path.join(workdir, f"train-{wl}-{backend}-{model}")]
             t0 = time.perf_counter()
             out = results[backend, model] = counted(paths, name, TRAINING[backend], rehearse,
-                                                    lambda: w["driver"].main(argv))
+                                                    lambda: w["driver"].main(argv), replayed=True)
             losses = _check_trained(name, out, artifacts)
             print(f"== {name}: 2 epochs, test and {n_samples}-draw bands in {time.perf_counter() - t0:.2f} s; "
                   f"epoch losses {losses}, best epoch {out['best']['epoch']}, artifacts ok ({CARD['smi']})",
@@ -1888,19 +1915,230 @@ def phase_resume(device, workdir: str, data_dir: str, rehearse: bool, paths: dic
         driver = DRIVERS[wl]
         t0 = time.perf_counter()
         out = counted(paths, f"resume {wl} {backend}: epochs 0-2", TRAINING[backend], rehearse,
-                      lambda: driver.main(common + ["--num-epochs", "2", "--results-root", full]))
+                      lambda: driver.main(common + ["--num-epochs", "2", "--results-root", full]), replayed=True)
         t1 = time.perf_counter()
         counted(paths, f"resume {wl} {backend}: epochs 0-1", TRAINING[backend], rehearse,
-                lambda: driver.main(common + ["--num-epochs", "1", "--results-root", part]))
+                lambda: driver.main(common + ["--num-epochs", "1", "--results-root", part]), replayed=True)
         t2 = time.perf_counter()
         resumed = counted(paths, f"resume {wl} {backend}: --resume to epoch 2", TRAINING[backend], rehearse,
-                          lambda: driver.main(common + ["--num-epochs", "2", "--resume", "--results-root", part]))
+                          lambda: driver.main(common + ["--num-epochs", "2", "--resume", "--results-root", part]),
+                          replayed=True)
         t3 = time.perf_counter()
         n = _bit_equal(out["out_dir"], resumed["out_dir"], f"resume {wl} {backend}")
         check(out["best"]["epoch"] == resumed["best"]["epoch"], f"resume {wl} {backend}: best epochs differ")
         print(f"== resume {wl} {backend}: {n} arrays (train_state.npz and best_model.npz leaves, .npy artifacts) "
               f"bit for bit equal; best epoch {out['best']['epoch']}; runs of 3, 2 and 1 epochs in "
               f"{t1 - t0:.2f}, {t2 - t1:.2f}, {t3 - t2:.2f} s ({CARD['smi']})", flush=True)
+
+
+# phase 12: the backends whose epochs it holds against eager, with their kernels
+GRAPH_BACKENDS = {"semilinear_fused": ("K2", "K3"), "semilinear": ("K1", "K1-bwd")}
+GRAPH_REPEATS = 5
+# the host's calls that put work on the card, counted per step in a trace
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def _graphs_of(memo) -> list:
+    """The utils/graphs.py Graphs held by one of train/svi.py's memos."""
+    return [g.run for g in memo._d.values()]
+
+
+def _states_equal(a, b) -> bool:
+    return (a.step == b.step and a.seed == b.seed
+            and [s.count for s in svi._slots(a.opt)] == [s.count for s in svi._slots(b.opt)]
+            and all(torch.equal(x, y) for x, y in zip(svi._tensors(a), svi._tensors(b))))
+
+
+def _trees_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _median_ms(fn, n: int, device) -> float:
+    """Median host time of ``n`` calls of ``fn``, each ending in a synchronise."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _trace_epochs(fn, n: int, steps: int) -> dict:
+    """torch.profiler over ``n`` calls of ``fn`` (an epoch of ``steps``
+    dual steps): per step the wall time, the device's busy time (its
+    operations' durations summed), the idle share and the host's launching
+    calls (LAUNCH_CALLS)."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / (n * steps)
+    events = prof.events()
+    busy = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3 / (n * steps)
+    launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS) / (n * steps)
+    check(busy > 0, "the profiler recorded no device operation")
+    return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "host_launches": launches}
+
+
+def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
+    """The dual step and the eval epochs replayed as CUDA graphs, held
+    against eager at CVS, proc and challenge on GRAPH_BACKENDS: two epochs
+    from one state (the first warms up, captures and replays, the second
+    only replays), each bit for bit the eager epoch (params, moments,
+    counts, per-step metrics) with the same launches; each eval epoch (val
+    and train, posterior and prior) twice, bit for bit eager, launches
+    equal. Then, median of GRAPH_REPEATS, host clock to a synchronize: a
+    dual step (an epoch over its steps), an eval epoch and, at CVS, a whole
+    epoch as the driver runs it (training and the four eval epochs), eager
+    and replayed, and a fresh capture of the step and of the val eval
+    epoch; each graph's pool; and a traced epoch each way (device idle
+    share, host launches a step). In a rehearsal the graphs' plain version
+    runs."""
+    full_fp32(deterministic=True)
+    graphed = "plain" if rehearse else None
+    out = {}
+    for wl in RANK_WORKLOADS:
+        cfg = _config(data_dir, "semilinear") if wl == "cvs" else _workload_config(wl, "semilinear")
+        _, splits, times = serve._build(wl, cfg, device)
+        ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=device)
+        B = 8 if rehearse and wl == "cvs" else RANK_WORKLOADS[wl]["train_b"]
+        batches = device_batch(stacked_minibatches(splits["train"], B, shuffle=True, rng=np.random.RandomState(0)),
+                               device)
+        stacks = {name: device_batch(stacked_minibatches(splits[name], B, shuffle=False), device)
+                  for name in ("val", "train")}
+        steps = batches["mask"].shape[0]
+        for backend, kernels in GRAPH_BACKENDS.items():
+            case, t0 = f"graphs {wl} {backend}", time.perf_counter()
+            spec = _rank_spec(wl, data_dir, backend)
+            dispatch = svi.epoch_dispatch(spec, device)
+            check(rehearse or dispatch == "cuda graph", f"{case}: epoch dispatch {dispatch}")
+            params = init_params(spec, 0, device=device)
+            init_state, _, eager_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch="eager")
+            _, _, graph_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=graphed)
+            eager_eval = svi.make_eval_epoch(spec, ts, dispatch="eager")
+            graph_eval = svi.make_eval_epoch(spec, ts, dispatch=graphed)
+            svi._TRAIN_GRAPHS.clear()  # fresh captures: their times and pools
+            svi._EVAL_GRAPHS.clear()
+            s_eager, s_graph = init_state(params, 5), init_state(params, 5)
+            for epoch in range(2):
+                s_eager, m_eager = counted(paths, f"{case} epoch {epoch} eager", kernels, rehearse,
+                                           lambda: eager_epoch(s_eager, batches))
+                replays = graphs.Graph.replays
+                s_graph, m_graph = counted(paths, f"{case} epoch {epoch} graph", kernels, rehearse,
+                                           lambda: graph_epoch(s_graph, batches))
+                check(rehearse or graphs.Graph.replays - replays == steps - (1 - epoch) * 1,
+                      f"{case} epoch {epoch}: {graphs.Graph.replays - replays} replays of {steps} steps")
+                check(_states_equal(s_eager, s_graph), f"{case} epoch {epoch}: the replayed state differs from eager")
+                check(_trees_equal(m_eager, m_graph), f"{case} epoch {epoch}: the replayed metrics differ from eager")
+                check(paths[f"{case} epoch {epoch} eager"] == paths[f"{case} epoch {epoch} graph"],
+                      f"{case} epoch {epoch}: launches differ from eager")
+            (train_graph,) = _graphs_of(svi._TRAIN_GRAPHS)
+            params_now = svi.own_state(s_eager).params
+            for name in ("val", "train"):
+                for is_post in (True, False):
+                    seed = fold_seed(7, name, is_post)
+                    tag = f"{case} eval {name} {'post' if is_post else 'prior'}"
+                    ref = counted(paths, f"{tag} eager", kernels[:1], rehearse,
+                                  lambda: eager_eval(params_now, seed, stacks[name], is_post))
+                    for call in range(2):
+                        got = counted(paths, f"{tag} graph {call}", kernels[:1], rehearse,
+                                      lambda: graph_eval(params_now, seed, stacks[name], is_post))
+                        check(_trees_equal(ref, got), f"{tag} call {call}: the replayed statistics differ from eager")
+                        check(paths[f"{tag} eager"] == paths[f"{tag} graph {call}"], f"{tag}: launches differ")
+            eval_graphs = _graphs_of(svi._EVAL_GRAPHS)
+            print(f"== {case}: two epochs of {steps} steps and four eval epochs, replayed bit for bit eager, "
+                  f"launches equal", flush=True)
+
+            n = 2 if rehearse else GRAPH_REPEATS
+            rec = {"steps": steps, "B": B}
+            s_e, s_g = svi.own_state(s_eager), s_graph
+            rec["epoch_eager_ms"] = _median_ms(lambda: eager_epoch(s_e, batches), n, device)
+            rec["epoch_replayed_ms"] = _median_ms(lambda: graph_epoch(s_g, batches), n, device)
+            rec["step_eager_ms"] = rec["epoch_eager_ms"] / steps
+            rec["step_replayed_ms"] = rec["epoch_replayed_ms"] / steps
+            rec["eval_eager_ms"] = _median_ms(lambda: eager_eval(params_now, 3, stacks["val"], True), n, device)
+            rec["eval_replayed_ms"] = _median_ms(lambda: graph_eval(params_now, 3, stacks["val"], True), n, device)
+            if wl == "cvs":
+                def whole(epoch_fn, eval_fn):
+                    def run():
+                        epoch_fn(s_e, batches)
+                        for name in ("val", "train"):
+                            for is_post in (True, False):
+                                eval_fn(params_now, 3, stacks[name], is_post)
+                    return run
+                rec["cvs_epoch_eager_ms"] = _median_ms(whole(eager_epoch, eager_eval), n, device)
+                rec["cvs_epoch_replayed_ms"] = _median_ms(whole(graph_epoch, graph_eval), n, device)
+            rec["pool_bytes"] = {"train": train_graph.pool_bytes, "eval": [g.pool_bytes for g in eval_graphs]}
+            # capture times: fresh graphs of the step (two steps: a warm-up, then the capture) and of the val eval
+            two = {k: torch.cat([v[:1], v[:1]]) for k, v in batches.items()}
+            captures = {"train": [], "eval": []}
+            for _ in range(n):
+                svi._TRAIN_GRAPHS.clear()
+                svi._EVAL_GRAPHS.clear()
+                graph_epoch(svi.own_state(s_eager), two)
+                graph_eval(params_now, 3, stacks["val"], True)
+                graph_eval(params_now, 3, stacks["val"], True)
+                captures["train"] += [g.capture_ms for g in _graphs_of(svi._TRAIN_GRAPHS)]
+                captures["eval"] += [g.capture_ms for g in _graphs_of(svi._EVAL_GRAPHS)]
+            rec["capture_ms"] = {k: float(np.median(v)) for k, v in captures.items()}
+            if not rehearse:
+                rec["trace_eager"] = _trace_epochs(lambda: eager_epoch(s_e, batches), 1, steps)
+                rec["trace_replayed"] = _trace_epochs(lambda: graph_epoch(s_g, batches), 1, steps)
+            rec["case_s"] = time.perf_counter() - t0
+            out[f"{wl} {backend}"] = rec
+            print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+    return out
+
+
+# phase 12's other capturable backends, at CVS: the plain loop and the
+# fixed-step solvers under autograd and the continuous adjoint
+GRAPH_MENU = ("semilinear_seq", "generic", "adjoint")
+
+
+def phase_graph_menu(device, data_dir: str, rehearse: bool, paths: dict) -> dict:
+    """One training epoch of CVS (B = 128) as a CUDA graph on each
+    GRAPH_MENU backend (a warm-up step, the capture, replays), bit for bit
+    the eager epoch, launching no kernel of the port; then one more epoch
+    replayed throughout, timed beside the eager one (one each, host clock to
+    a synchronize)."""
+    full_fp32(deterministic=True)
+    graphed = "plain" if rehearse else None
+    cfg = _config(data_dir, "semilinear")
+    _, splits, times = serve._build("cvs", cfg, device)
+    ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=device)
+    B = 8 if rehearse else TRAIN_B
+    batches = device_batch(stacked_minibatches(splits["train"], B, shuffle=True, rng=np.random.RandomState(0)), device)
+    out = {}
+    for backend in GRAPH_MENU:
+        case = f"graphs cvs {backend}"
+        spec = _rank_spec("cvs", data_dir, backend)
+        dispatch = svi.epoch_dispatch(spec, device)
+        check(rehearse or dispatch == "cuda graph", f"{case}: epoch dispatch {dispatch}")
+        params = init_params(spec, 0, device=device)
+        init_state, _, eager_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch="eager")
+        _, _, graph_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=graphed)
+        s0 = init_state(params, 5)
+        t0 = time.perf_counter()
+        s_eager, m_eager = counted(paths, f"{case} eager", (), rehearse, lambda: eager_epoch(s0, batches))
+        _sync(device)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        s_graph, m_graph = counted(paths, f"{case} graph", (), rehearse, lambda: graph_epoch(s0, batches))
+        check(_states_equal(s_eager, s_graph) and _trees_equal(m_eager, m_graph),
+              f"{case}: the replayed epoch differs from eager")
+        t0 = time.perf_counter()
+        graph_epoch(s_graph, batches)
+        _sync(device)
+        out[backend] = {"epoch_eager_ms": eager_ms, "epoch_replayed_ms": (time.perf_counter() - t0) * 1e3,
+                        "steps": batches["mask"].shape[0]}
+        print(f"== {case}: an epoch replayed bit for bit eager; {json.dumps(out[backend])}", flush=True)
+    return out
 
 
 # the fused kernels' names in a profiler trace (csrc/fused_semilinear_*.cu)
@@ -1913,7 +2151,8 @@ def phase_trace(device, workdir: str, data_dir: str, rehearse: bool, paths: dict
     prof = os.path.join(workdir, "profile")
     counted(paths, "trace cvs semilinear_fused", TRAINING["semilinear_fused"], rehearse, lambda: training_cvs.main([
         "--num-epochs", "1", "--no-plot", "--ode-backend", "semilinear_fused", "--data-path", data_dir,
-        "--profile-dir", prof, "--results-root", os.path.join(workdir, "trace"), "--device", str(device)]))
+        "--profile-dir", prof, "--results-root", os.path.join(workdir, "trace"), "--device", str(device)]),
+        replayed=True)
     (name,) = os.listdir(prof)
     with open(os.path.join(prof, name)) as f:
         events = json.load(f)["traceEvents"]
@@ -2965,6 +3204,8 @@ def main(argv=None):
         phase_c2_paths(device, data_dir, args.rehearse, smi, paths)
         phase("8: the ODE backend menu")
         phase_menu(device, clock, data_dir, args.rehearse, smi, paths)
+        phase("8: the menu's training epochs as CUDA graphs")
+        menu_graphs = phase_graph_menu(device, data_dir, args.rehearse, paths)
         phase("8: sweeps on adjoint and adaptive")
         phase_menu_sweeps(device, workdir, args.rehearse, smi, paths)
         t9 = time.perf_counter()
@@ -2985,6 +3226,11 @@ def main(argv=None):
         ranks = phase_ranks(device, workdir, data_dir, args.rehearse, smi, paths)
         phase(f"11: the layouts across {CARDS} cards over NCCL")
         cards = phase_cards(device, workdir, data_dir, args.rehearse, smi, paths)
+        t12 = time.perf_counter()
+        phase("12: the training and eval epochs as CUDA graphs")
+        graphed = phase_graphs(device, data_dir, args.rehearse, smi, paths)
+        graphed["menu"] = menu_graphs
+        print(f"== phase 12 took {time.perf_counter() - t12:.1f} s ({smi})", flush=True)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3050,6 +3296,7 @@ def main(argv=None):
     print(json.dumps({"ranks": ranks}))
     if cards is not None:
         print(json.dumps({"cards": cards}))
+    print(json.dumps({"graphs": graphed}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print_ok()

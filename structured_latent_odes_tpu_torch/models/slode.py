@@ -200,7 +200,8 @@ def masked_abs_parts(err: Tensor, sample_mask: Optional[Tensor]) -> Tuple[Tensor
     where None) as its numerator and denominator, each ``(1,)``:
     ``l1_of_parts`` of them is the mean."""
     if sample_mask is None:
-        num, den = torch.sum(torch.abs(err)), err.new_tensor(float(err.numel()))
+        # a fill on the device, not a copy from the host: a CUDA graph can capture it
+        num, den = torch.sum(torch.abs(err)), err.new_full((), float(err.numel()))
     else:
         w = sample_mask[:, None, None]
         num, den = torch.sum(torch.abs(err) * w), torch.sum(w) * err.shape[1] * err.shape[2]

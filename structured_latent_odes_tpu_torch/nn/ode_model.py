@@ -79,6 +79,22 @@ def solve_is_per_member(spec: OdeModelSpec) -> bool:
     return spec.backend in ADAPTIVE_BACKENDS or spec.backend == "semilinear_timepar"
 
 
+# the backends whose solve a CUDA graph cannot capture, and why
+NOT_CAPTURABLE = {
+    **{b: "its trips read the host and replay graphs of their own" for b in ADAPTIVE_BACKENDS},
+    "semilinear_timepar": "its collectives span the time ranks",
+}
+
+
+def solve_is_capturable(spec: OdeModelSpec) -> bool:
+    """Whether a CUDA graph can capture this spec's solve, forward and
+    backward (``utils/graphs.py``): every fixed-step backend, whose
+    operations and shapes do not depend on the data; not the adaptive ones,
+    whose loops read their condition on the host, nor 'semilinear_timepar'
+    (:data:`NOT_CAPTURABLE`)."""
+    return spec.backend not in NOT_CAPTURABLE
+
+
 @dataclasses.dataclass(frozen=True)
 class OdeModelSpec:
     latent_dim: int

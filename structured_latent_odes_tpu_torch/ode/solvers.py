@@ -35,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from structured_latent_odes_tpu_torch.ode.tableaus import ButcherTableau, get_tableau
+from structured_latent_odes_tpu_torch.utils.graphs import Graph
 
 Tensor = torch.Tensor
 ODEFunc = Callable[[Tensor, Tensor], Tensor]  # f(t, y) -> dy/dt
@@ -144,37 +145,19 @@ def _interp_eval(coeffs: Tensor, t0: Tensor, t1: Tensor, t: Tensor) -> Tensor:
     return e + theta * (d + theta * (c + theta * (b + theta * a)))
 
 
-class _Trip:
+class _Trip(Graph):
     """One loop trip of an adaptive solver, ``trip()``, which reads and
     writes tensors that live as long as the solver. On a CUDA device the
     first two trips run eagerly on a side stream, the third is captured as a
-    CUDA graph, and every trip from then on replays it: the trip's several
-    hundred small operations (seven stages, each a vector-Jacobian product in
-    the adjoint) in one launch, without the host's cost per operation, which
-    otherwise bounds the solve. A replay runs the captured operations
-    themselves. On the CPU each trip runs eagerly."""
+    CUDA graph, and every trip from then on replays it
+    (``utils/graphs.py``): the trip's several hundred small operations
+    (seven stages, each a vector-Jacobian product in the adjoint) in one
+    launch, without the host's cost per operation, which otherwise bounds
+    the solve. A replay runs the captured operations themselves. On the CPU
+    each trip runs eagerly (the graph's plain version)."""
 
     def __init__(self, trip, device: torch.device):
-        self.trip, self.graph = trip, None
-        self.warm = 2 if device.type == "cuda" else None
-
-    def __call__(self) -> None:
-        if self.warm is None:
-            self.trip()
-        elif self.graph is not None:
-            self.graph.replay()
-        elif self.warm > 0:
-            self.warm -= 1
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self.trip()
-            torch.cuda.current_stream().wait_stream(side)
-        else:
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.trip()
-            self.graph.replay()
+        super().__init__(trip, device, warm=2, plain=device.type != "cuda")
 
 
 class _Dopri5:

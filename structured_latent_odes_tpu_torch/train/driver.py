@@ -26,8 +26,8 @@ from structured_latent_odes_tpu_torch.parallel.launch import is_writer
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint as ckpt
 from structured_latent_odes_tpu_torch.train import metrics as M
-from structured_latent_odes_tpu_torch.train.svi import SVIState, eval_seeds
-from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+from structured_latent_odes_tpu_torch.train.svi import SVIState, eval_seeds, own_state
+from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
 log = logging.getLogger("slode")
 
@@ -226,11 +226,17 @@ def run_training_epochs(
     whole batches' numbers), every rank reads the checkpoint on resume, and
     rank 0 alone writes: the checkpoints, the epoch lines, the trace and
     what ``on_epoch`` draws.
+
+    Where ``train_epoch`` replays a CUDA graph (its ``dispatch``, printed
+    before the first epoch as ``epoch dispatch: ...``), the state it returns
+    lives in the graph's buffers, which its next epoch overwrites: the best
+    params are a copy, taken when they improve, and the state returned is
+    the caller's own (``svi.own_state``).
     """
     writer = is_writer()
     device = tree_leaves(state.params)[0].device
     put = put_batch or (lambda b: device_batch(b, device))
-    best = {"params": state.params, "epoch": 0, "criterion": np.inf}
+    best = {"params": _copy(state.params), "epoch": 0, "criterion": np.inf}
     batch_size = config.mini_batch_size
     t_start = time.time()
     start_epoch = 0
@@ -254,6 +260,8 @@ def run_training_epochs(
         return _stats_from_fused(spec, eval_epoch(params, seed, eval_stacks[name], is_post))
 
     trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir and writer else None
+    if writer and getattr(train_epoch, "dispatch", None):
+        print(f"epoch dispatch: {train_epoch.dispatch}")
     for epoch in range(start_epoch, config.num_epochs + 1):
         aux_mult = epoch_aux_mult(config, epoch)
         if epoch == trace_epoch:
@@ -302,8 +310,6 @@ def run_training_epochs(
             plot_prior = eval_split(spec, state.params, k2, splits["val"], eval_fns, batch_size, is_post=False)
 
         prev_best = best
-        # state.params is replaced, never updated in place, by each step, so
-        # the best model's reference needs no copy
         best = select_best(
             epoch,
             {"post": val_post, "prior": val_prior},
@@ -313,6 +319,9 @@ def run_training_epochs(
             epoch_losses,
         )
         improved = "*" if best is not prev_best else ""
+        if improved:
+            # a graph's next epoch overwrites state.params in place
+            best = dict(best, params=_copy(best["params"]))
 
         if writer and checkpoint_path and checkpoint_every and epoch % checkpoint_every == 0:
             ckpt.save(
@@ -343,7 +352,11 @@ def run_training_epochs(
             if on_epoch is not None:
                 on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
 
-    return state, best
+    return own_state(state), best
+
+
+def _copy(params):
+    return tree_map(lambda t: t.detach().clone(), params)
 
 
 def final_test_eval(spec: ModelSpec, best_params, seed: int, split, eval_fns, batch_size: int):

@@ -73,6 +73,7 @@ from structured_latent_odes_tpu_torch.train.svi import (
     shared_adam_init,
     shared_adam_update,
     stacked_step_seeds,
+    step_corrections,
 )
 from structured_latent_odes_tpu_torch.utils.tree import tree_map
 
@@ -406,6 +407,7 @@ def make_ensemble_runner(
         for j, epoch in enumerate(int(e) for e in epochs):
             batches = _epoch_batches(split, perms[:, j], shared_data)
             seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
+            corrections, _ = step_corrections(optim, state.opt, nb, device)
             shared = {"aux_mult": torch.tensor(mults[j], device=device)}
             if scales is not None:
                 shared["lr_scale"] = torch.tensor(scales[j], device=device)
@@ -413,7 +415,7 @@ def make_ensemble_runner(
             for i in range(nb):
                 batch = {k: v[:, i] for k, v in batches.items()}
                 batch.update(shared, mask=mask[i])
-                state, m = step(state, batch, dims, seeds[i])
+                state, m = step(state, batch, dims, seeds[i], corrections[i])
                 mets.append(torch.stack([m["loss_main"], m["loss_aux"]], dim=-1))  # (S, 2)
             losses = torch.stack(mets, dim=1)  # (S, nb, 2)
             back = [losses]

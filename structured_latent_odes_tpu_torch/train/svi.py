@@ -11,17 +11,26 @@ touch. ``optimizer='shared'`` (the default) reproduces that with one
 ``models.slode.param_masks``; ``optimizer='split'`` keeps two independent
 Adams, one per loss.
 
-PyTorch runs eagerly: the step is a Python function and an epoch a Python
-loop over the stacked minibatches on the device. Parameters are nested dicts
-of tensors, replaced (not updated in place) by each step, so a stored
-reference to them, such as the best model's, stays valid. The JAX package's
-``BoundedMemo`` exists only to avoid re-tracing under ``jit`` and has no
-counterpart here.
+The step is a Python function and an epoch a loop over the stacked
+minibatches on the device. Parameters are nested dicts of tensors, which the
+eager step replaces (it updates none in place). On a CUDA device, where the
+spec's solve can be captured and no ranks reduce (:func:`epoch_dispatch`),
+``train_epoch`` replays the dual step as a CUDA graph
+(``utils/graphs.py``), and ``eval_epoch`` a whole split as one graph: the
+counterpart of the JAX package's jitted ``lax.scan`` epochs. The graphs keep
+the state in buffers that each replay overwrites in place, as JAX's
+``donate_argnums=0`` donates the state; they are memoized in a
+``BoundedMemo`` (``utils/memo.py``), as the JAX package memoizes its jitted
+builders.
 
 Randomness: the state carries an integer seed and a step counter. Each step's
 main and aux draws are keyed by ``fold_seed(seed, step, 'main' | 'aux')``
 (``prob/distributions.py``), and each particle's by its index, so a draw
-depends only on (seed, step, site, sample_id).
+depends only on (seed, step, site, sample_id). The host derives those seeds
+for a whole epoch as one int64 tensor, and Adam's bias corrections as one
+float32 tensor (:func:`epoch_scalars`): the step's device operations read
+every number that changes from step to step from a tensor, in the eager
+step and in its graph alike. The step counts stay host ints.
 
 ``make_stacked_dual_step`` is the dual step of an ensemble's S members
 (``train/ensemble.py``): stacked parameters, one ``torch.func.vmap`` over the
@@ -40,8 +49,10 @@ from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_
 from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_main, param_masks, recon
 from structured_latent_odes_tpu_torch.models.slode import masked_abs_parts
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
-from structured_latent_odes_tpu_torch.nn.ode_model import solve_is_per_member
+from structured_latent_odes_tpu_torch.nn.ode_model import NOT_CAPTURABLE, solve_is_capturable, solve_is_per_member
 from structured_latent_odes_tpu_torch.prob import fold_seed, l1_of_parts, seed_tensor
+from structured_latent_odes_tpu_torch.utils.graphs import Graph
+from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -95,11 +106,16 @@ class SVIState:
 
 
 class DualOptimizer(NamedTuple):
-    """State init and the two per-loss update rules."""
+    """State init, the two per-loss update rules, and ``schedule(opt) ->
+    (corrections, opt')``: on the host, a dual step's bias corrections, an
+    array ``(2, 2, L)`` (the main then the aux update's
+    :func:`bias_corrections`), and ``opt`` with the step counts that the
+    step leaves."""
 
     init: Callable[[Any], Any]
-    update_main: Callable[..., Tuple[Any, Any]]  # (grads, opt, params, lr_scale)
+    update_main: Callable[..., Tuple[Any, Any]]  # (grads, opt, params, lr_scale, corrections)
     update_aux: Callable[..., Tuple[Any, Any]]
+    schedule: Callable[[Any], Tuple[np.ndarray, Any]]
 
 
 def shared_adam_init(params) -> AdamSlots:
@@ -115,31 +131,58 @@ def _bias_correction(b: float, count: int) -> float:
     return float(np.float32(1.0) - np.power(np.float32(b), np.float32(count)))
 
 
+def advance_counts(count, mask):
+    """The step counts after an update: one more on each leaf that ``mask``
+    steps."""
+    return tree_map(lambda c, mk: c + 1 if mk else c, count, mask)
+
+
+def bias_corrections(count, mask, b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
+    """An update's bias corrections on the host, float32 ``(2, L)`` over
+    the leaves in ``tree_leaves`` order: ``1 - b1**c`` and ``1 - b2**c`` at
+    the count c that the update gives each leaf ``mask`` steps, 1 on the
+    others (which the update leaves)."""
+    out = np.ones((2, len(tree_leaves(count))), np.float32)
+    for i, (c, mk) in enumerate(zip(tree_leaves(count), tree_leaves(mask))):
+        if mk:
+            out[:, i] = _bias_correction(b1, c + 1), _bias_correction(b2, c + 1)
+    return out
+
+
 def shared_adam_update(grads, slots: AdamSlots, params, mask, lr, b1: float = 0.9,
-                       b2: float = 0.999, eps: float = 1e-8, lr_scales=None):
+                       b2: float = 0.999, eps: float = 1e-8, lr_scales=None, corrections=None):
     """One ``torch.optim.Adam`` step on the parameters whose ``mask`` leaf is
     True. Masked-out leaves keep their params, moments and step count, as
     torch does for a parameter whose grad is None. ``lr`` may be a 0-d tensor
     (a per-batch scale); ``lr_scales`` is an optional congruent tree of
-    per-leaf multipliers (the prior-lr knob)."""
+    per-leaf multipliers (the prior-lr knob).
+
+    ``corrections`` is the update's :func:`bias_corrections` as a float32
+    tensor on the params' device (a dual step's comes from
+    :func:`epoch_scalars`); None makes it from ``slots.count``. The moments
+    are divided by its elements, device tensors, so an eager update and a
+    graph's replay of it divide alike."""
+    if corrections is None:
+        corrections = torch.as_tensor(bias_corrections(slots.count, mask, b1, b2),
+                                      device=tree_leaves(params)[0].device)
+    c1, c2 = corrections
     scales = tree_leaves(lr_scales) if lr_scales is not None else [1.0] * len(tree_leaves(params))
-    new_p, new_m, new_n, new_c = [], [], [], []
-    for p, g, m, n, c, mk, sc in zip(
+    new_p, new_m, new_n = [], [], []
+    for i, (p, g, m, n, mk, sc) in enumerate(zip(
         tree_leaves(params), tree_leaves(grads), tree_leaves(slots.mu), tree_leaves(slots.nu),
-        tree_leaves(slots.count), tree_leaves(mask), scales,
-    ):
+        tree_leaves(mask), scales,
+    )):
         if not mk:
-            new_p.append(p), new_m.append(m), new_n.append(n), new_c.append(c)
+            new_p.append(p), new_m.append(m), new_n.append(n)
             continue
-        c2 = c + 1
         m2 = b1 * m + (1.0 - b1) * g
         n2 = b2 * n + (1.0 - b2) * g * g
-        m_hat = m2 / _bias_correction(b1, c2)
-        n_hat = n2 / _bias_correction(b2, c2)
+        m_hat = m2 / c1[i]
+        n_hat = n2 / c2[i]
         new_p.append(p - (lr * sc) * m_hat / (torch.sqrt(n_hat) + eps))
-        new_m.append(m2), new_n.append(n2), new_c.append(c2)
+        new_m.append(m2), new_n.append(n2)
     return tree_unflatten(params, new_p), AdamSlots(
-        tree_unflatten(params, new_m), tree_unflatten(params, new_n), tree_unflatten(params, new_c)
+        tree_unflatten(params, new_m), tree_unflatten(params, new_n), advance_counts(slots.count, mask)
     )
 
 
@@ -157,27 +200,41 @@ def make_dual_optimizer(spec: ModelSpec, params_example, lr: float, mode: str = 
             }
 
         def update(mask):
-            def fn(grads, slots, params, sc=1.0):
-                return shared_adam_update(grads, slots, params, mask, lr * sc, lr_scales=lr_scales)
+            def fn(grads, slots, params, sc=1.0, corrections=None):
+                return shared_adam_update(grads, slots, params, mask, lr * sc, lr_scales=lr_scales,
+                                          corrections=corrections)
             return fn
 
-        return DualOptimizer(init=shared_adam_init, update_main=update(main_mask), update_aux=update(aux_mask))
+        def schedule(slots: AdamSlots):
+            main = bias_corrections(slots.count, main_mask)
+            count = advance_counts(slots.count, main_mask)
+            aux = bias_corrections(count, aux_mask)
+            return np.stack([main, aux]), AdamSlots(slots.mu, slots.nu, advance_counts(count, aux_mask))
+
+        return DualOptimizer(init=shared_adam_init, update_main=update(main_mask), update_aux=update(aux_mask),
+                             schedule=schedule)
     if mode == "split":
         if prior_lr_mult != 1.0:
             raise ValueError("prior_lr_mult requires optimizer='shared'")
 
         def update(mask, which: int):
-            def fn(grads, opt, params, sc=1.0):
+            def fn(grads, opt, params, sc=1.0, corrections=None):
                 if not isinstance(sc, float):
                     raise ValueError("lr schedules require optimizer='shared'")
-                params, slots = shared_adam_update(grads, opt[which], params, mask, lr)
+                params, slots = shared_adam_update(grads, opt[which], params, mask, lr, corrections=corrections)
                 return params, tuple(slots if i == which else s for i, s in enumerate(opt))
             return fn
+
+        def schedule(opt):
+            masks = (main_mask, aux_mask)
+            return (np.stack([bias_corrections(s.count, mk) for s, mk in zip(opt, masks)]),
+                    tuple(AdamSlots(s.mu, s.nu, advance_counts(s.count, mk)) for s, mk in zip(opt, masks)))
 
         return DualOptimizer(
             init=lambda p: (shared_adam_init(p), shared_adam_init(p)),
             update_main=update(main_mask, 0),
             update_aux=update(aux_mask, 1),
+            schedule=schedule,
         )
     raise ValueError(f"unknown optimizer mode: {mode!r}")
 
@@ -196,7 +253,8 @@ def value_and_grad(loss_fn, params, *args):
 
 def particle_seeds(seed, num_particles: int):
     """Each particle's seed, ``fold_seed(seed, p)``; a tensor of seeds is
-    taken to hold them already (the stacked step derives them on the host)."""
+    taken to hold them already (:func:`stacked_step_seeds` derives them on
+    the host)."""
     if isinstance(seed, Tensor):
         return [seed[p] for p in range(num_particles)]
     return [fold_seed(seed, p) for p in range(num_particles)]
@@ -239,12 +297,18 @@ def _same(tree):
     return tree
 
 
+def _device(state: SVIState) -> torch.device:
+    return tree_leaves(state.params)[0].device
+
+
 def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1,
                    reduce: Optional[Callable] = None):
-    """The sequential dual-loss SVI update: ``step(state, batch, noise=None)
-    -> (state, metrics)``. ``noise`` is None or ``{"main": [...], "aux":
-    [...]}`` with one ``noise=`` dict per particle (tests feed JAX's draws).
-    The batch may override ``aux_mult`` and ``lr_scale``.
+    """The sequential dual-loss SVI update: ``step(state, batch, noise=None,
+    scalars=None) -> (state, metrics)``. ``noise`` is None or ``{"main":
+    [...], "aux": [...]}`` with one ``noise=`` dict per particle (tests feed
+    JAX's draws). The batch may override ``aux_mult`` and ``lr_scale``.
+    ``scalars`` is this step's ``(seeds (2, P), corrections (2, 2, L))``, a
+    row of :func:`epoch_scalars`; None derives it from the state.
 
     ``reduce`` (data parallelism, ``parallel/train.py``; None on one device)
     sums a tree of tensors over the ranks that hold slices of one batch.
@@ -255,19 +319,23 @@ def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_partic
     main_loss, aux_loss = make_losses(spec, ts, num_particles)
     reduce = reduce or _same
 
-    def step(state: SVIState, batch, noise: Optional[Dict] = None) -> Tuple[SVIState, Dict[str, Tensor]]:
-        seed = fold_seed(state.seed, state.step)
+    def step(state: SVIState, batch, noise: Optional[Dict] = None,
+             scalars: Optional[Tuple[Tensor, Tensor]] = None) -> Tuple[SVIState, Dict[str, Tensor]]:
+        if scalars is None:
+            seeds, corrections, _ = epoch_scalars(optim, state, 1, num_particles)
+            scalars = seeds[0], corrections[0]
+        seeds, corrections = scalars
         sc = batch.get("lr_scale", 1.0)
         loss_m, mets, grads = value_and_grad(
-            main_loss, state.params, fold_seed(seed, "main"), batch, None if noise is None else noise["main"]
+            main_loss, state.params, seeds[0], batch, None if noise is None else noise["main"]
         )
-        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc)
+        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc, corrections[0])
         loss_a, _, grads_a = value_and_grad(
-            aux_loss, params, fold_seed(seed, "aux"), batch, None if noise is None else noise["aux"]
+            aux_loss, params, seeds[1], batch, None if noise is None else noise["aux"]
         )
         # the metrics' sums ride with the aux gradients
         grads_a, (sums, parts) = reduce([grads_a, [[loss_m, loss_a, torch.sum(batch["mask"])], mets["l1_parts"]]])
-        params, opt = optim.update_aux(grads_a, opt, params, sc)
+        params, opt = optim.update_aux(grads_a, opt, params, sc, corrections[1])
         n = torch.clamp(sums[2], min=1.0)
         metrics = {"loss_main": sums[0] / n, "loss_aux": sums[1] / n, "l1": particle_l1(parts)}
         return SVIState(params, opt, state.seed, state.step + 1), metrics
@@ -275,8 +343,150 @@ def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_partic
     return step
 
 
+def epoch_scalars(optim: DualOptimizer, state: SVIState, n_steps: int, num_particles: int = 1):
+    """What changes from step to step, for the ``n_steps`` dual steps from
+    ``state``, derived on the host and moved to the params' device at once:
+    the draws' seeds, int64 ``(n_steps, 2, P)`` (the main and the aux loss's
+    particle seeds, :func:`stacked_step_seeds`), Adam's bias corrections,
+    float32 ``(n_steps, 2, 2, L)`` (``optim.schedule``), and the optimizer
+    state with the step counts after the last of those steps."""
+    device = _device(state)
+    seeds = stacked_step_seeds([state.seed], range(state.step, state.step + n_steps), num_particles, device)
+    corrections, opt = step_corrections(optim, state.opt, n_steps, device)
+    return seeds.reshape(n_steps, 2, num_particles), corrections, opt
+
+
+def step_corrections(optim: DualOptimizer, opt, n_steps: int, device):
+    """Adam's bias corrections of ``n_steps`` dual steps from the optimizer
+    state ``opt``, float32 ``(n_steps, 2, 2, L)`` on ``device``
+    (``optim.schedule``), and ``opt`` with the counts after them."""
+    corrections = []
+    for _ in range(n_steps):
+        c, opt = optim.schedule(opt)
+        corrections.append(c)
+    return torch.as_tensor(np.stack(corrections), device=device), opt
+
+
+def _slots(opt):
+    return [opt] if isinstance(opt, AdamSlots) else list(opt)
+
+
+def _tensors(state: SVIState):
+    """The state's tensors: the params, then each slot set's moments."""
+    return tree_leaves(state.params) + [t for s in _slots(state.opt) for t in tree_leaves(s.mu) + tree_leaves(s.nu)]
+
+
+def own_state(state: SVIState) -> SVIState:
+    """A copy of the state's tensors, with its counts, seed and step: what a
+    caller keeps of a state over a graph's buffers."""
+    def own(t):
+        return t.detach().clone()
+
+    opt = [AdamSlots(tree_map(own, s.mu), tree_map(own, s.nu), s.count) for s in _slots(state.opt)]
+    return SVIState(tree_map(own, state.params), opt[0] if isinstance(state.opt, AdamSlots) else tuple(opt),
+                    state.seed, state.step)
+
+
+def _with_counts(opt, counts_of):
+    """``opt``'s moments with the step counts of ``counts_of``."""
+    if isinstance(opt, AdamSlots):
+        return AdamSlots(opt.mu, opt.nu, counts_of.count)
+    return tuple(AdamSlots(s.mu, s.nu, c.count) for s, c in zip(opt, counts_of))
+
+
+def _copy_in(dst, src) -> None:
+    for d, s in zip(dst, src):
+        if d is not s:
+            d.copy_(s)
+
+
+def _signature(batches):
+    """A stacked epoch's per-step keys, shapes and dtypes."""
+    return tuple((k, tuple(v.shape[1:]), str(v.dtype)) for k, v in sorted(batches.items()))
+
+
+def _ts_key(ts: Tensor):
+    a = ts.detach().cpu().numpy()
+    return a.shape, str(a.dtype), a.tobytes()
+
+
+_TRAIN_GRAPHS = BoundedMemo()
+_EVAL_GRAPHS = BoundedMemo()
+
+
+def epoch_dispatch(spec: ModelSpec, device, reduce: Optional[Callable] = None) -> str:
+    """How ``train_epoch`` and ``eval_epoch`` run: 'cuda graph' on a CUDA
+    device when the spec's solve can be captured
+    (``nn/ode_model.py::solve_is_capturable``) and no ranks reduce, else
+    'eager (<reason>)'. The sums over ranks (gloo, and NCCL here) are not
+    captured."""
+    device = torch.device(device)
+    backend = spec.decoder.ode.backend
+    if device.type != "cuda":
+        return f"eager (on {device.type}: a CUDA graph needs a CUDA device)"
+    if reduce is not None:
+        return "eager (ranks: the sums over ranks are not captured)"
+    if not solve_is_capturable(spec.decoder.ode):
+        return f"eager ({backend}: {NOT_CAPTURABLE[backend]})"
+    return "cuda graph"
+
+
+def _resolve_dispatch(dispatch: Optional[str], spec: ModelSpec, device, reduce) -> str:
+    """A builder's ``dispatch``: None is :func:`epoch_dispatch`'s choice;
+    'eager' and 'plain' are taken as asked."""
+    if dispatch is None:
+        return epoch_dispatch(spec, device, reduce)
+    if dispatch not in ("eager", "plain"):
+        raise ValueError(f"unknown epoch dispatch {dispatch!r}: None, 'eager' or 'plain'")
+    return dispatch
+
+
+class _StepGraph:
+    """The dual step ``step`` over buffers of the state, of one minibatch and
+    of its :func:`epoch_scalars` row, run by a :class:`Graph`: the captured
+    step ends by writing the new params and moments into the state's
+    buffers, in place."""
+
+    def __init__(self, step, state: SVIState, batches, num_particles: int, plain: bool):
+        device = _device(state)
+        self.state = own = own_state(state)
+        self.buffers = buffers = _tensors(own)
+        self.batch = batch = {k: torch.empty_like(v[0]) for k, v in batches.items()}
+        self.seeds = seeds = torch.zeros((2, num_particles), dtype=torch.int64, device=device)
+        self.corrections = corrections = torch.ones((2, 2, len(tree_leaves(state.params))), dtype=torch.float32,
+                                                    device=device)
+
+        def body():  # refers to the buffers, not to self: an evicted graph is freed at once
+            new, metrics = step(own, batch, None, (seeds, corrections))
+            for buf, t in zip(buffers, _tensors(new)):
+                buf.copy_(t)
+            return metrics
+
+        self.run = Graph(body, device, plain=plain)
+
+    def epoch(self, state: SVIState, batches, seeds: Tensor, corrections: Tensor, opt):
+        """The epoch's steps from ``state`` (copied into the buffers unless it
+        is them); returns the state over the buffers with ``opt``'s counts,
+        and the metrics stacked."""
+        _copy_in(self.buffers, _tensors(state))
+        n = batches["mask"].shape[0]
+        mets = None
+        for i in range(n):
+            for k, buf in self.batch.items():
+                buf.copy_(batches[k][i])
+            self.seeds.copy_(seeds[i])
+            self.corrections.copy_(corrections[i])
+            m = self.run()
+            if mets is None:
+                mets = {k: v.new_empty((n,) + v.shape) for k, v in m.items()}
+            for k, v in m.items():
+                mets[k][i].copy_(v)
+        return SVIState(self.state.params, _with_counts(self.state.opt, opt), state.seed, state.step + n), mets
+
+
 def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_particles: int = 1,
-                    optimizer: str = "shared", prior_lr_mult: float = 1.0, reduce: Optional[Callable] = None):
+                    optimizer: str = "shared", prior_lr_mult: float = 1.0, reduce: Optional[Callable] = None,
+                    dispatch: Optional[str] = None):
     """Returns (init_state, train_step, train_epoch).
 
     ``train_step(state, batch)`` is one dual step on a batch of tensors;
@@ -284,8 +494,22 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
     ``(n_batches, B, ...)`` axes, on the device) and returns the per-step
     metrics stacked. ``ts`` is the time grid as a tensor on the device.
     ``reduce``: as for :func:`make_dual_step`.
+
+    ``dispatch`` picks how ``train_epoch`` runs: None as
+    :func:`epoch_dispatch` says; 'eager'; or 'plain', the captured path's
+    buffers with the graph's plain version (``utils/graphs.py``; the CPU
+    tests). ``train_epoch.dispatch`` names the choice. When it is the CUDA
+    graph, the step is captured once for each recipe and batch shape and
+    memoized (``utils/memo.py``); ``train_epoch`` returns a state over the
+    graph's buffers, which the graph's next epoch overwrites, whoever calls
+    it: keep a clone of what must outlive it (JAX's donated state).
     """
     optim = make_dual_optimizer(spec, params_example, lr, optimizer, prior_lr_mult=prior_lr_mult)
+    device = ts.device
+    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
+    graphed = dispatch in ("cuda graph", "plain")
+    key = (spec, _ts_key(ts), int(num_particles), optimizer, float(lr), float(prior_lr_mult), str(device),
+           dispatch) if graphed else None
 
     def init_state(params, seed: int) -> SVIState:
         params = tree_map(lambda p: p.detach().clone(), params)
@@ -294,12 +518,22 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
     train_step = make_dual_step(spec, ts, optim, num_particles, reduce)
 
     def train_epoch(state: SVIState, batches) -> Tuple[SVIState, Dict[str, Tensor]]:
+        n = batches["mask"].shape[0]
+        seeds, corrections, opt = epoch_scalars(optim, state, n, num_particles)
+        if graphed:
+            graph_key = key + (_signature(batches),)
+            graph = _TRAIN_GRAPHS.get(graph_key)
+            if graph is None:
+                graph = _TRAIN_GRAPHS[graph_key] = _StepGraph(train_step, state, batches, num_particles,
+                                                              plain=dispatch == "plain")
+            return graph.epoch(state, batches, seeds, corrections, opt)
         mets = []
-        for i in range(batches["mask"].shape[0]):
-            state, m = train_step(state, {k: v[i] for k, v in batches.items()})
+        for i in range(n):
+            state, m = train_step(state, {k: v[i] for k, v in batches.items()}, scalars=(seeds[i], corrections[i]))
             mets.append(m)
         return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
 
+    train_epoch.dispatch = dispatch
     return init_state, train_step, train_epoch
 
 
@@ -345,14 +579,15 @@ def over_members(spec: ModelSpec, fn, in_dims):
 def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1,
                            reduce: Optional[Callable] = None):
     """The dual step of S stacked members (the JAX ensemble's vmapped
-    ``make_dual_step``): ``step(state, batch, batch_dims, seeds) -> (state,
-    metrics)``. ``state`` holds stacked parameters and optimizer slots (a
+    ``make_dual_step``): ``step(state, batch, batch_dims, seeds,
+    corrections=None) -> (state, metrics)``. ``state`` holds stacked parameters and optimizer slots (a
     leading member axis on every tensor; the step counts are Python ints,
     shared, since members step in lockstep), the members' seeds as a list and
     one step counter. ``batch_dims`` names, per batch key, 0 for a leading
     member axis or None for a value all members share (the mask, ``aux_mult``,
     ``lr_scale``); ``seeds`` is this step's ``(S, 2, P)`` slice of
-    :func:`stacked_step_seeds`.
+    :func:`stacked_step_seeds`, ``corrections`` its ``(2, 2, L)`` row of
+    :func:`step_corrections` (None: made from the state's counts).
 
     Both gradients are ``torch.func.vmap`` of ``torch.func.grad_and_value``
     over the members (:func:`over_members`), so every operation, the kernels
@@ -372,14 +607,16 @@ def make_stacked_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, nu
 
     reduce = reduce or _same
 
-    def step(state: SVIState, batch, batch_dims, seeds: Tensor):
+    def step(state: SVIState, batch, batch_dims, seeds: Tensor, corrections: Optional[Tensor] = None):
+        if corrections is None:
+            corrections = step_corrections(optim, state.opt, 1, seeds.device)[0][0]
         sc = batch.get("lr_scale", 1.0)
         grads, (loss_m, mets) = over_members(spec, grad_main, (0, 0, batch_dims))(state.params, seeds[:, 0], batch)
-        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc)
+        params, opt = optim.update_main(reduce(grads), state.opt, state.params, sc, corrections[0])
         grads_a, loss_a = over_members(spec, grad_aux, (0, 0, batch_dims))(params, seeds[:, 1], batch)
         grads_a, (sums, parts) = reduce([grads_a, [[loss_m, loss_a, torch.sum(batch["mask"], dim=-1)],
                                                    mets["l1_parts"]]])
-        params, opt = optim.update_aux(grads_a, opt, params, sc)
+        params, opt = optim.update_aux(grads_a, opt, params, sc, corrections[1])
         n = torch.clamp(sums[2], min=1.0)
         metrics = {"loss_main": sums[0] / n, "loss_aux": sums[1] / n, "l1": particle_l1(parts)}
         return SVIState(params, opt, state.seed, state.step + 1), metrics
@@ -413,7 +650,26 @@ def make_eval_fns(spec: ModelSpec, ts: Tensor):
     return evaluate_losses, classify, reconstruct
 
 
-def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = None):
+class _EvalGraph:
+    """One split's eval epoch ``body(params, seeds, batches, is_post)`` over
+    buffers of the params, the stacked split and the eval seeds, run by a
+    :class:`Graph`."""
+
+    def __init__(self, body, params, batches, is_post: bool, plain: bool):
+        device = tree_leaves(params)[0].device
+        self.params = own = tree_map(lambda t: t.detach().clone(), params)
+        self.batches = stack = {k: v.clone() for k, v in batches.items()}
+        self.seeds = seeds = torch.zeros(3, dtype=torch.int64, device=device)
+        self.run = Graph(lambda: body(own, seeds, stack, is_post), device, plain=plain)  # no reference to self
+
+    def __call__(self, params, seeds: Tensor, batches):
+        _copy_in(tree_leaves(self.params), tree_leaves(params))
+        _copy_in([self.batches[k] for k in sorted(self.batches)], [batches[k] for k in sorted(batches)])
+        self.seeds.copy_(seeds)
+        return tree_map(torch.clone, self.run())
+
+
+def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = None, dispatch: Optional[str] = None):
     """Whole-split evaluation over stacked minibatches on the device: what
     the ``eval_split`` host loop computes (per-loss ELBO as a sum of
     per-batch loss/n, recon L1 sum, n, one summed statistic per label) with
@@ -424,13 +680,24 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
     :func:`make_dual_step`) each rank holds a slice of every batch: the
     batches' sums (losses, count, the L1's parts, the label statistics) are
     summed over the ranks in one collective, and each batch's ratios are
-    taken from the sums."""
+    taken from the sums.
+
+    The three eval seeds reach the device as one int64 tensor. ``dispatch``
+    as for :func:`make_train_step`: as a CUDA graph each (split shape,
+    ``is_post``) is captured once and memoized, and a call copies the
+    params, the split and the seeds into the graph's buffers and replays
+    the whole split in one launch (the JAX package's one dispatch per split
+    and mode)."""
     evaluate_losses, classify, reconstruct = make_eval_fns(spec, ts)
+    device = ts.device
+    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
     reduce = reduce or _same
+    graphed = dispatch in ("cuda graph", "plain")
+    key = (spec, _ts_key(ts), str(device), dispatch) if graphed else None
 
     @torch.no_grad()
-    def eval_epoch(params, seed, batches, is_post: bool):
-        s_loss, s_recon, s_cls = eval_seeds(seed)
+    def body(params, seeds: Tensor, batches, is_post: bool):
+        s_loss, s_recon, s_cls = seeds
         rows = []
         for i in range(batches["mask"].shape[0]):
             batch = {k: v[i] for k, v in batches.items()}
@@ -455,4 +722,16 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
             sums = one if sums is None else tree_map(torch.add, sums, one)
         return sums
 
+    def eval_epoch(params, seed, batches, is_post: bool):
+        seeds = seed_tensor(eval_seeds(seed), device)
+        if not graphed:
+            return body(params, seeds, batches, is_post)
+        graph_key = key + (tuple((k, tuple(v.shape), str(v.dtype)) for k, v in sorted(batches.items())),
+                           bool(is_post))
+        graph = _EVAL_GRAPHS.get(graph_key)
+        if graph is None:
+            graph = _EVAL_GRAPHS[graph_key] = _EvalGraph(body, params, batches, is_post, plain=dispatch == "plain")
+        return graph(params, seeds, batches)
+
+    eval_epoch.dispatch = dispatch
     return eval_epoch

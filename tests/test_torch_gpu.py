@@ -20,7 +20,9 @@ leaf within 1e-5 of its largest value.
 
 Beyond the kernels: a CVS run on semilinear_fused resumed from its
 checkpoint is bit for bit the uninterrupted run, and the profiler trace of
-an epoch names K2's and K3's kernels among its device events.
+an epoch names K2's and K3's kernels among its device events. The training
+and eval epochs replayed as CUDA graphs are bit for bit the eager ones, with
+the same launches; the trainers replay graphs; a capture that fails raises.
 """
 
 import json
@@ -468,7 +470,7 @@ def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
         def init(self, trip, device):
             warm(self, trip, device)
             if not graphs:
-                self.warm = None
+                self.plain = True
 
         solvers._Trip.__init__ = init
         try:
@@ -780,3 +782,86 @@ def test_workload_time_parallel_over_four_cards(cuda, card_pool, workload_inputs
 
     outs = card_pool.run(chip_smoke._rank_tp_case, workload_inputs.tp_case("cuda", grid))
     _held(chip_smoke._hold_tp, f"{workload_inputs.wl} dp{grid[0]} tp{grid[1]}", outs, workload_inputs, {}, False)
+
+
+# The CUDA graphs of the training step and the eval epochs (train/svi.py,
+# utils/graphs.py; chip_smoke.py phase 12 at full width): at CVS widths on
+# 60 generated trajectories, batches of 16.
+def _counts():
+    return [w.launches for w in (recurrence.affine_scan_fwd, recurrence.affine_scan_bwd,
+                                 fused_step.fused_semilinear_fwd, fused_step.fused_semilinear_bwd)]
+
+
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_epochs_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
+    """Two training epochs from one state, replayed (the first warms up and
+    captures) and eager: states, counts and metrics bit for bit equal, the
+    kernels' launches equal; each eval epoch twice, bit for bit eager."""
+    from structured_latent_odes_tpu_torch import training_cvs
+    from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    full_fp32(deterministic=True)
+    cfg = load_cvs_config()
+    cfg.data_path, cfg.ode_backend = tiny_cvs, backend
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    assert svi.epoch_dispatch(spec, cuda) == "cuda graph"
+    ts = torch.arange(86.0, device=cuda)
+    params = init_params(spec, 0, device=cuda)
+    batches = device_batch(stacked_minibatches(splits["train"], 16, shuffle=True, rng=np.random.RandomState(0)), cuda)
+    init_state, _, eager = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch="eager")
+    _, _, graphed = svi.make_train_step(spec, ts, cfg.learning_rate, params)
+    assert graphed.dispatch == "cuda graph"
+    s_e, s_g = init_state(params, 5), init_state(params, 5)
+    for _ in range(2):
+        c0 = _counts()
+        s_e, m_e = eager(s_e, batches)
+        c1, r1 = _counts(), Graph.replays
+        s_g, m_g = graphed(s_g, batches)
+        torch.cuda.synchronize()
+        assert Graph.replays > r1 and [b - a for a, b in zip(c0, c1)] == [b - a for a, b in zip(c1, _counts())]
+        assert [s.count for s in svi._slots(s_e.opt)] == [s.count for s in svi._slots(s_g.opt)]
+        assert s_e.step == s_g.step
+        for a, b in zip(svi._tensors(s_e) + tree_leaves(m_e), svi._tensors(s_g) + tree_leaves(m_g)):
+            assert torch.equal(a, b)
+    stack = device_batch(stacked_minibatches(splits["val"], 16, shuffle=False), cuda)
+    eager_eval, graph_eval = svi.make_eval_epoch(spec, ts, dispatch="eager"), svi.make_eval_epoch(spec, ts)
+    for is_post in (True, False):
+        ref = eager_eval(s_e.params, 9, stack, is_post)
+        for _ in range(2):
+            got = graph_eval(s_e.params, 9, stack, is_post)
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
+
+
+def test_trainer_replays_graphs_on_card(cuda, tiny_cvs, tmp_path, capsys):
+    """training_cvs on the card prints its epoch dispatch, a CUDA graph, and
+    its epochs replay graphs."""
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    replays = Graph.replays
+    _cvs_run(cuda, tiny_cvs, tmp_path / "run", "--num-epochs", "1")
+    assert "epoch dispatch: cuda graph" in capsys.readouterr().out
+    assert Graph.replays > replays
+
+
+def test_failed_capture_raises_on_card(cuda):
+    """A body that reads a value on the host cannot be captured: the capture
+    raises, and the helper does not fall back to running it eagerly."""
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    buf = torch.ones(4, device=cuda)
+
+    def body():
+        buf.mul_(2.0)
+        return {"host": torch.tensor(float(buf.sum().item()), device=cuda)}
+
+    graph = Graph(body, cuda, warm=0)
+    with pytest.raises(RuntimeError):
+        graph()
+    assert graph.graph is None
+    torch.cuda.synchronize()

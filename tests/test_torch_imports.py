@@ -5,7 +5,8 @@ so an import of any fails loudly; every module of the port is walked, the
 training slice's, the proc and challenge workloads', the sweep's, the
 generic, adjoint and adaptive solvers', the native loader's, the
 profiler's, the plotting and figure modules' (these two import matplotlib
-only when they draw) and the parallel package's included."""
+only when they draw), the parallel package's and the CUDA graphs' (the
+memo, a copy of the JAX package's, and the graph helper) included."""
 
 import os
 import subprocess
@@ -52,5 +53,5 @@ def test_port_never_imports_jax_or_the_jax_package():
                 "data.challenge", "training_proc", "training_challenge", "train.ensemble", "sweep",
                 "eval", "eval.metrics", "eval.__main__", "ode.solvers", "ode.adjoint",
                 "native", "utils.profiling", "utils.plotting", "eval.figures", "parallel", "parallel.mesh",
-                "parallel.launch", "parallel.train", "parallel.timepar"}
+                "parallel.launch", "parallel.train", "parallel.timepar", "utils.memo", "utils.graphs"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked

@@ -158,7 +158,12 @@ def test_epoch_loop_matches_hand_stepped_dual_steps():
                                  cfg.mini_batch_size, is_post=True)
         np.testing.assert_allclose(val_elbo, loop.elbo, rtol=2e-5)  # eval epoch vs host loop, as the JAX package's test
     assert [e for e, *_ in seen] == [0, 1, 2] and state.step == 3 * 3  # 3 epochs of ceil(10 / 4) steps
-    assert best["params"] is seen[best["epoch"]][3]
+    # the best params are a copy of the selected epoch's (a graph's next
+    # epoch would overwrite the params it hands select_best)
+    chosen = seen[best["epoch"]][3]
+    assert best["params"] is not chosen
+    for a, b in zip(tree_leaves(best["params"]), tree_leaves(chosen)):
+        assert a is not b and torch.equal(a, b)
 
 
 def test_eval_every_skips_the_statistics(capsys):

@@ -125,7 +125,10 @@ def test_selection_policy(trained):
         i = int(np.argmin([c[2] for c in calls]))
         assert best["epoch"] == i and best["criterion"] == calls[i][2]
         assert config.mini_batch_size == 32  # 28 train subjects, padded to a multiple of 8
-    assert best["params"] is calls[i][3]["params"]
+    # a copy of the selected epoch's params (a graph's next epoch would
+    # overwrite the params it hands select_best)
+    for a, b in zip(tree_leaves(best["params"]), tree_leaves(calls[i][3]["params"])):
+        assert a is not b and torch.equal(a, b)
 
 
 def test_test_l1_counts_only_real_rows(trained):
