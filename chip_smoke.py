@@ -78,7 +78,8 @@ Phases, each fatal on any fault:
    at S = 1, 2 and 10, its time at S = 1 and 10 and ten sequential dual
    steps beside it; then sweep.run at full width: CVS over seeds 12..21 on
    semilinear and semilinear_fused, proc over seeds 12..16 on
-   semilinear_fused, one epoch beyond epoch 0, launches counted per sweep.
+   semilinear_fused, one epoch beyond epoch 0, launches counted per sweep;
+   each sweep must print "epoch dispatch: cuda graph" and replay graphs.
    Every member's artifacts exist and are finite, sweep.json parses,
    deploy_mean/ is written, and members 0 and S-1 match the port's
    sequential CLI run at their seeds (final and best params within rtol
@@ -102,7 +103,8 @@ Phases, each fatal on any fault:
    for bit the eager epoch, and one more replayed epoch timed beside the
    eager one. Last, two-member CVS sweeps on
    adjoint and on adaptive (cut to one epoch of 40 trajectories), members
-   0 and 1 held to their sequential runs as in phase 7.
+   0 and 1 held to their sequential runs as in phase 7, each printing its
+   epoch dispatch (adjoint's a CUDA graph, adaptive's eager).
 9. the rest of the training surface. Batch-exact resume at full width:
    training_cvs.main on semilinear_fused (K2, K3) and on semilinear (K1,
    K1-bwd) and training_proc.main on semilinear_fused, each once over
@@ -143,7 +145,8 @@ Phases, each fatal on any fault:
    (d) A CVS sweep of four
    members over --ensemble-parallel 2 on semilinear_fused, one epoch beyond
    epoch 0, bit for bit the unsharded sweep in member groups of two run in
-   this process at its default intra-op thread count (a seed's weights no
+   this process at its default intra-op thread count, each rank replaying
+   CUDA graphs on the card (a seed's weights no
    longer depend on it; within the JAX package's member-sharded bound,
    params rtol 1e-5 and atol 1e-7, Adam's moments within 1e-5 of each
    leaf's largest), and its params against the unsharded stack of all four
@@ -167,7 +170,9 @@ Phases, each fatal on any fault:
    of a rank's size) and over --ensemble-parallel 2
    --ensemble-data-parallel 2 (phase 10's member-sharded bound), both
    within the stacked-member bound of all members, each rank under its own
-   results root (rank 0 alone must write); the gather's time. (d)
+   results root (rank 0 alone must write); each rank of --ensemble-parallel
+   4 must replay CUDA graphs on its card and each of 2 x 2 none (its data
+   ranks sum over NCCL, eagerly); the gather's time. (d)
    training_cvs, training_proc and training_challenge --data-parallel 4
    spawned by the CLI and under torchrun (bit for bit each other, their
    artifacts elementwise within (a)'s params bound of one card) and the
@@ -192,6 +197,20 @@ Phases, each fatal on any fault:
    phase 8's menu epochs). The training runs of phases 5, 6 and 9
    replay graphs too: each prints its replays (and the CLI its "epoch
    dispatch: cuda graph" line), and a run that replayed none fails.
+13. the sweeps' epochs as CUDA graphs (train/ensemble.py: the stacked dual
+   step, the members' val ELBO, the prior refit's update), two epochs of
+   sweep.train_ensemble at full width: CVS over seeds 12..21 on
+   semilinear_fused and semilinear, proc over 12..16 on semilinear_fused
+   with one refit epoch, challenge over 12, 13 on semilinear_fused. Each
+   replayed run (fresh captures), its 1-epoch chunks and, at CVS, its
+   member groups of 5 bit for bit the eager runs (state, moments, counts,
+   best params, criteria and epochs, history), launches equal. Median of
+   5, host clock to a synchronize, eager and replayed: the stacked dual
+   step (an epoch of it over its steps) at the case's S and at CVS at S =
+   1, a sweep epoch (the steps, the val ELBO, the host's selection) and a
+   refit step; each graph's capture time and pool; a traced epoch each way
+   (device busy time, idle share, host launching calls a step). Its
+   numbers join the {"graphs": ...} line under "sweeps".
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
@@ -208,6 +227,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -1270,9 +1290,11 @@ def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, 
         common = ["--num-epochs", "1", "--ode-backend", backend, "--device", str(device)]
         extra = ["--data-path", data_dir] if dataset == "cvs" else ["--data-seed", "12", "--num-samples", n_samples]
         t0 = time.perf_counter()
-        run = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend], rehearse, lambda: sweep.run(
-            sweep.parse_args([dataset, "--seeds", seeds, "--results-root", root] + common + extra)))
+        run, text = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend], rehearse, lambda: printed(
+            lambda: sweep.run(sweep.parse_args([dataset, "--seeds", seeds, "--results-root", root] + common + extra))),
+            replayed=True)
         wall = time.perf_counter() - t0
+        check_dispatch(f"sweep {dataset} {backend}", text, "eager (on cpu" if rehearse else "cuda graph")
         with open(os.path.join(root, "sweep.json")) as f:
             summary = json.load(f)
         check(summary["seeds"] == sweep.parse_seeds(seeds), f"sweep {dataset} {backend}: sweep.json seeds")
@@ -1840,9 +1862,11 @@ def phase_menu_sweeps(device, workdir: str, rehearse: bool, smi: str, paths: dic
         t0, before = time.perf_counter(), _trips()
         root = os.path.join(workdir, f"sweep-menu-{backend}")
         common = ["--num-epochs", "0", "--ode-backend", backend, "--device", str(device), "--data-path", data_dir]
-        run = counted(paths, f"sweep cvs {backend}", (), rehearse, lambda: sweep.run(
-            sweep.parse_args(["cvs", "--seeds", "12,13", "--results-root", root] + common)))
+        run, text = counted(paths, f"sweep cvs {backend}", (), rehearse, lambda: printed(lambda: sweep.run(
+            sweep.parse_args(["cvs", "--seeds", "12,13", "--results-root", root] + common))))
         wall = time.perf_counter() - t0
+        check_dispatch(f"sweep cvs {backend}", text, "eager (on cpu" if rehearse else
+                       svi.epoch_dispatch(run.members[0]["spec"], device))
         for i, seed in enumerate((12, 13)):
             out = counted(paths, f"sequential cvs {backend} seed {seed}", (), rehearse, lambda: training_cvs.main(
                 ["--seed", str(seed), "--no-plot", "--no-eval-train", "--results-root",
@@ -1968,9 +1992,10 @@ def _median_ms(fn, n: int, device) -> float:
 
 def _trace_epochs(fn, n: int, steps: int) -> dict:
     """torch.profiler over ``n`` calls of ``fn`` (an epoch of ``steps``
-    dual steps): per step the wall time, the device's busy time (its
-    operations' durations summed), the idle share and the host's launching
-    calls (LAUNCH_CALLS)."""
+    dual steps): per step the wall time, the device's busy time (the union
+    of its operations' intervals), the idle share, the operations' durations
+    summed (above the busy time where records overlap) and the host's
+    launching calls (LAUNCH_CALLS)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1980,11 +2005,19 @@ def _trace_epochs(fn, n: int, steps: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (n * steps)
     events = prof.events()
-    busy = sum(e.time_range.elapsed_us() for e in events if e.device_type == DeviceType.CUDA) / 1e3 / (n * steps)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    busy = busy / 1e3 / (n * steps)
+    summed = sum(b - a for a, b in spans) / 1e3 / (n * steps)
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS) / (n * steps)
     check(busy > 0, "the profiler recorded no device operation")
     return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "host_launches": launches}
+            "device_ops_summed_ms": summed, "host_launches": launches}
 
 
 def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
@@ -2088,6 +2121,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                 captures["train"] += [g.capture_ms for g in _graphs_of(svi._TRAIN_GRAPHS)]
                 captures["eval"] += [g.capture_ms for g in _graphs_of(svi._EVAL_GRAPHS)]
             rec["capture_ms"] = {k: float(np.median(v)) for k, v in captures.items()}
+            s_g = graph_epoch(s_g, batches)[0]  # over the last capture's buffers: the traced epoch copies no state in
             if not rehearse:
                 rec["trace_eager"] = _trace_epochs(lambda: eager_epoch(s_e, batches), 1, steps)
                 rec["trace_replayed"] = _trace_epochs(lambda: graph_epoch(s_g, batches), 1, steps)
@@ -2143,6 +2177,174 @@ def phase_graph_menu(device, data_dir: str, rehearse: bool, paths: dict) -> dict
 
 # the fused kernels' names in a profiler trace (csrc/fused_semilinear_*.cu)
 TRACE_NAMES = {"K2": "fused_semilinear_fwd_kernel", "K3": "fused_semilinear_bwd_kernel"}
+
+
+# phase 13: the sweeps whose epochs it holds replayed against eager: (dataset,
+# backend, seeds, refit epochs); member groups of SWEEP_GROUP where the seeds
+# split into them
+SWEEP_GRAPH_CASES = (("cvs", "semilinear_fused", "12..21", 0), ("cvs", "semilinear", "12..21", 0),
+                     ("proc", "semilinear_fused", "12..16", 1), ("challenge", "semilinear_fused", "12,13", 0))
+SWEEP_GROUP = 5
+SWEEP_MEMOS = {"step": ensemble._STEP_GRAPHS, "val": ensemble._VAL_GRAPHS, "refit": ensemble._REFIT_GRAPHS}
+
+
+class _Tee:
+    """A stdout that also keeps what it is given."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, []
+
+    def write(self, text: str) -> int:
+        self.seen.append(text)
+        return self.out.write(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+
+def printed(fn):
+    """``fn()`` and what it printed (which still reaches stdout)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn()
+    return out, "".join(tee.seen)
+
+
+def check_dispatch(name: str, text: str, want: str) -> None:
+    """``text``, a sweep's or a CLI's output, printed ``epoch dispatch:
+    <want>...`` once."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("epoch dispatch: ")]
+    check(len(lines) == 1 and lines[0].startswith(f"epoch dispatch: {want}"), f"{name}: printed {lines}")
+
+
+def _results_equal(a, b) -> bool:
+    """Two ensemble results bit for bit equal: the final state (params,
+    moments, counts), best params, criteria and epochs, history, EMA."""
+    return (_states_equal(a.state, b.state) and _trees_equal(a.best_params, b.best_params)
+            and np.array_equal(a.best_crit, b.best_crit) and np.array_equal(a.best_epoch, b.best_epoch)
+            and all(np.array_equal(a.history[k], b.history[k]) for k in a.history)
+            and (a.ema_params is None) == (b.ema_params is None)
+            and (a.ema_params is None or _trees_equal(a.ema_params, b.ema_params)))
+
+
+def _sweep_config(dataset: str, data_dir: str, backend: str, refit: int):
+    """The sweep CLI's config for ``dataset`` at one epoch beyond epoch 0,
+    as ``sweep.run`` builds it from ``--num-epochs 1 --ode-backend backend``
+    (CVS on the generated data, proc and challenge on --data-seed 12's
+    fold) and ``--prior-refit-epochs refit``."""
+    cfg = sweep.load_base_config(dataset)
+    cfg.num_epochs, cfg.ode_backend, cfg.prior_refit_epochs = 1, backend, refit or None
+    if dataset == "cvs":
+        cfg.data_path = data_dir
+    else:
+        cfg.data_seed = 12
+    return cfg
+
+
+def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
+    """The sweeps' epochs replayed as CUDA graphs (train/ensemble.py: the
+    stacked dual step, the members' val ELBO, the prior refit's update),
+    held against eager on SWEEP_GRAPH_CASES at full width, two epochs each:
+    sweep.train_ensemble replayed (fresh captures), in 1-epoch chunks and,
+    where the seeds split, in member groups of SWEEP_GROUP, each bit for bit
+    its eager run (state, moments, counts, best params, criteria and epochs,
+    history) with the same launches. Then, median of GRAPH_REPEATS, host
+    clock to a synchronize, eager and replayed: the stacked dual step (an
+    epoch of it over its steps) at the case's S and, at CVS, at S = 1, a
+    sweep epoch (run_chunk: the steps, the val ELBO, the host's selection)
+    and a refit step (the refit over its steps); each graph's capture time
+    and pool; and a traced epoch of stacked steps each way (device busy
+    time, idle share, host launching calls a step). In a rehearsal the
+    graphs' plain version runs."""
+    full_fp32(deterministic=True)
+    graphed = "plain" if rehearse else None
+    n = 2 if rehearse else GRAPH_REPEATS
+    out = {}
+    for dataset, backend, seeds, refit in SWEEP_GRAPH_CASES:
+        case, t0 = f"sweep graphs {dataset} {backend}", time.perf_counter()
+        seeds = [12, 13] if rehearse else sweep.parse_seeds(seeds)
+        cfg = _sweep_config(dataset, data_dir, backend, refit)
+        members = [sweep.prepare_member(dataset, cfg, seed, device) for seed in seeds]
+        S, kernels = len(members), STACKED[backend]
+        for memo in SWEEP_MEMOS.values():
+            memo.clear()  # fresh captures: their times and pools
+
+        def train(name, **kw):
+            return counted(paths, f"{case} {name}", kernels, rehearse, lambda: printed(
+                lambda: sweep.train_ensemble(members, device=device, **kw)))
+
+        eager, text = train("eager", dispatch="eager")
+        check_dispatch(f"{case} eager", text, "eager")
+        replays = graphs.Graph.replays
+        got, text = train("replayed", dispatch=graphed)
+        check_dispatch(f"{case} replayed", text, "plain" if rehearse else "cuda graph")
+        check(rehearse or graphs.Graph.replays > replays, f"{case}: no CUDA graph replayed")
+        rec = {"S": S, "steps": int(members[0]["mask"].shape[0]), "epochs": int(members[0]["perms"].shape[0]),
+               "refit_epochs": refit, "replays": graphs.Graph.replays - replays,
+               "capture_ms": {k: [g.capture_ms for g in _graphs_of(m)] for k, m in SWEEP_MEMOS.items()},
+               "pool_mib": {k: [g.pool_bytes / 2**20 for g in _graphs_of(m)] for k, m in SWEEP_MEMOS.items()}}
+        checks = [("replayed", eager, got)]
+        checks.append(("1-epoch chunks", eager, train("replayed chunks", dispatch=graphed, chunk_epochs=1)[0]))
+        if S > SWEEP_GROUP and S % SWEEP_GROUP == 0:
+            checks.append((f"groups of {SWEEP_GROUP}", train("eager groups", dispatch="eager",
+                                                             member_group=SWEEP_GROUP)[0],
+                           train("replayed groups", dispatch=graphed, member_group=SWEEP_GROUP)[0]))
+        for what, ref, run in checks:
+            check(_results_equal(ref, run), f"{case} {what}: differs from eager")
+        for a, b in (("eager", "replayed"), ("eager", "replayed chunks"), ("eager groups", "replayed groups")):
+            if f"{case} {b}" in paths:
+                check(paths[f"{case} {a}"] == paths[f"{case} {b}"], f"{case} {b}: launches differ from {a}")
+        print(f"== {case} x {S}: replayed, in 1-epoch chunks{' and in groups' if len(checks) > 2 else ''} bit "
+              f"for bit eager, launches equal ({paths[f'{case} eager']})", flush=True)
+
+        def timed(group, dispatch, whole: bool):
+            """One runner's medians over ``group``, each after a warm-up call
+            (which captures): its stacked step and, if ``whole``, a sweep
+            epoch, a refit step and a traced epoch of stacked steps."""
+            runner, inp, shared = sweep.prepare_run(group, device=device, dispatch=dispatch)
+            split = {k: torch.as_tensor(v, device=device) for k, v in inp["train_splits"].items()}
+            perms = torch.as_tensor(inp["perms"], device=device).long()
+            mask = torch.as_tensor(inp["mask"], device=device)
+            batches, steps = ensemble._epoch_batches(split, perms[:, 0], shared), mask.shape[0]
+            fills = {"aux_mult": float(inp["aux_mult"][0, 0])}
+            lr_sched = None if inp["lr_sched"] is None else inp["lr_sched"][:, :1]
+            if lr_sched is not None:
+                fills["lr_scale"] = float(lr_sched[0, 0])
+            state = [inp["states"]]
+            carry = runner.init_carry(inp["states"], inp["eval_seeds"])
+
+            def epoch():
+                state[0] = runner.train_epoch(state[0], batches, mask, fills)[0]
+
+            def sweep_epoch():
+                runner.run_chunk(carry, inp["train_splits"], inp["val_stacks"], inp["perms"][:, :1], inp["mask"],
+                                 inp["aux_mult"][:, :1], lr_sched, [0])
+
+            def refit():
+                runner.refit(inp["states"].params, inp["eval_seeds"], inp["train_splits"], inp["refit_perms"],
+                             inp["mask"])
+
+            refits = 0 if inp["refit_perms"] is None else inp["refit_perms"].shape[1]
+            t = {}
+            for name, fn, per in (("step_ms", epoch, steps), ("sweep_epoch_ms", sweep_epoch, whole),
+                                  ("refit_step_ms", refit, whole * steps * refits)):
+                if per:
+                    fn()
+                    t[name] = _median_ms(fn, n, device) / per
+            if whole and not rehearse:
+                t["trace"] = _trace_epochs(epoch, 1, steps)
+            return t
+
+        t1 = time.perf_counter()
+        for width, group in ((1, members[:1]), (S, members)):
+            if width == S or dataset == "cvs":
+                for way, dispatch in (("eager", "eager"), ("replayed", graphed)):
+                    rec[f"S={width} {way}"] = timed(group, dispatch, width == S)
+        rec["case_s"] = time.perf_counter() - t0
+        rec["held_s"], rec["timed_s"] = t1 - t0, rec["case_s"] - (t1 - t0)
+        out[f"{dataset} {backend}"] = rec
+        print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+    return out
 
 
 def phase_trace(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
@@ -2485,7 +2687,8 @@ def _rank_tp_case(c: dict):
 
 def _rank_sweep(argv, own_root: bool = False):
     """sweep.run in the ranks' group: rank 0's summary and stacked result,
-    each rank's launches, and the host time of the results' gather
+    each rank's launches and CUDA graph replays, and the host time of the
+    results' gather
     (train/ensemble.py::gather_results, one gather_object) with the pickled
     size of what this rank sent. With ``own_root`` each rank's
     ``--results-root`` is its own ``rank<r>`` directory below the given one,
@@ -2505,6 +2708,7 @@ def _rank_sweep(argv, own_root: bool = False):
 
     dist.gather_object = timed
     zero_counts()
+    replays = graphs.Graph.replays
     try:
         run = sweep.run(sweep.parse_args(argv))
         if torch.cuda.is_available():
@@ -2513,7 +2717,7 @@ def _rank_sweep(argv, own_root: bool = False):
         dist.gather_object = gather
     return {"counts": read_counts(), "summary": None if run is None else run.summary,
             "result": None if run is None else run.result, "gather_s": spent.get("s"),
-            "gather_bytes": spent.get("bytes")}
+            "gather_bytes": spent.get("bytes"), "replays": graphs.Graph.replays - replays}
 
 
 def _one_device_step(spec, params, batch, ts, lr: float, seed: int):
@@ -2787,7 +2991,9 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         for r, o in enumerate(outs):  # rank 0 alone finalizes: the test evals' single-member K2
             _check_rank_counts(paths, f"ranks sweep ens2 semilinear_fused rank{r}", o["counts"],
                                SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"], rehearse)
-        res["sweep_ens2"] = {"wall_s": t_two, "unsharded_wall_s": t_one, **held}
+            check(rehearse or o["replays"] > 0, f"(d) rank {r} replayed no CUDA graph")
+        res["sweep_ens2"] = {"wall_s": t_two, "unsharded_wall_s": t_one, "replays": [o["replays"] for o in outs],
+                             **held}
 
     # (e) the CLI past the cards: raises before any launch, naming them
     zero_counts()
@@ -3051,6 +3257,9 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                         _check_rank_counts(paths, f"cards {name} run {i} rank{r}", o["counts"],
                                            SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"],
                                            rehearse)
+                        # member ranks alone capture on their cards; data ranks sum over NCCL, eagerly
+                        check(rehearse or (o["replays"] > 0) == (n_data == 1),
+                              f"{name} rank {r}: {o['replays']} CUDA graph replays")
                     runs.append(outs)
                 held = _hold_sweep(f"{name}: {n_members} members", runs[0][0]["result"], grouped[n_members // ens],
                                    stack[0].result, bit_equal=n_data == 1)
@@ -3066,7 +3275,7 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                       f"bytes pickled a rank; rank 0 alone wrote its {len(written[0])} files ({label}; {smi})",
                       flush=True)
                 res[f"{tag.replace(' ', '_')}sweep_ens{ens}_data{n_data}"] = {
-                    "wall_seconds": [s["wall_seconds"] for s in summaries],
+                    "replays": [o["replays"] for o in runs[0]], "wall_seconds": [s["wall_seconds"] for s in summaries],
                     "train_seconds": [s["train_seconds"] for s in summaries], "gather_s": gather,
                     "gather_bytes": [o["gather_bytes"] for o in runs[-1]], **held}
             if wl == "cvs":
@@ -3231,6 +3440,10 @@ def main(argv=None):
         graphed = phase_graphs(device, data_dir, args.rehearse, smi, paths)
         graphed["menu"] = menu_graphs
         print(f"== phase 12 took {time.perf_counter() - t12:.1f} s ({smi})", flush=True)
+        t13 = time.perf_counter()
+        phase("13: the sweeps' epochs as CUDA graphs")
+        graphed["sweeps"] = phase_sweep_graphs(device, data_dir, args.rehearse, smi, paths)
+        print(f"== phase 13 took {time.perf_counter() - t13:.1f} s ({smi})", flush=True)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

@@ -18,7 +18,10 @@ policy (train/ensemble.py; member parity tested in
 tests/test_torch_ensemble.py), to float32 roundoff from batched products. The
 members are stacked and every dual step runs once for all of them
 (``torch.func.vmap``), so the kernels K1-K3 launch once per step for all S
-members.
+members. On a CUDA card the epochs replay CUDA graphs (the stacked step, the
+val ELBO, the prior refit; ``train/ensemble.py``) unless the spec's solve
+cannot be captured or data ranks sum the gradients; the sweep prints
+``epoch dispatch: cuda graph`` or ``epoch dispatch: eager (<reason>)`` once.
 
 After training, each member's best params get the standard final test
 evaluation and ``.npy`` artifact dump into ``<results-root>/seed<seed>/
@@ -202,7 +205,7 @@ def _trees_equal(trees) -> bool:
 def train_ensemble(
     members: List[Dict], *, num_particles=1, optimizer="shared",
     chunk_epochs: int = 0, ensemble_parallel: int = 0,
-    ensemble_data_parallel: int = 1, member_group: int = 0, device="cuda",
+    ensemble_data_parallel: int = 1, member_group: int = 0, device="cuda", dispatch: Optional[str] = None,
 ) -> Optional[EnsembleResult]:
     """Stack member preps and run all members to completion.
 
@@ -213,26 +216,38 @@ def train_ensemble(
     of the process group calls this with all members, runs its part of the
     ``(ens, data)`` grid (``train/ensemble.py::shard_runner_inputs``), and
     rank 0 gets every member's result (the other ranks None).
-    """
-    if member_group and len(members) > member_group:
-        G = member_group
-        n_groups = -(-len(members) // G)
-        results = []
-        for gi in range(0, len(members), G):
-            grp = members[gi:gi + G]
-            print(f"  member group {gi // G + 1}/{n_groups} ({len(grp)} members)", flush=True)
-            results.append(train_ensemble(grp, num_particles=num_particles, optimizer=optimizer,
-                                          chunk_epochs=chunk_epochs, ensemble_parallel=ensemble_parallel,
-                                          ensemble_data_parallel=ensemble_data_parallel, device=device))
-        return None if results[0] is None else concat_results(results)
 
+    ``dispatch`` as for ``train/ensemble.py::make_ensemble_runner`` (None: a
+    CUDA graph where ``svi.epoch_dispatch`` allows, which the member-sharded
+    layouts without data ranks do on each rank's card); the choice is printed
+    once, as ``epoch dispatch: ...``.
+    """
+    G = member_group if member_group and len(members) > member_group else len(members)
+    groups = [members[gi:gi + G] for gi in range(0, len(members), G)]
+    results = []
+    for gi, grp in enumerate(groups):
+        if len(groups) > 1:
+            print(f"  member group {gi + 1}/{len(groups)} ({len(grp)} members)", flush=True)
+        results.append(_train_group(grp, num_particles=num_particles, optimizer=optimizer, chunk_epochs=chunk_epochs,
+                                    ensemble_parallel=ensemble_parallel, ensemble_data_parallel=ensemble_data_parallel,
+                                    device=device, dispatch=dispatch, announce=gi == 0))
+    if results[0] is None:
+        return None
+    return results[0] if len(results) == 1 else concat_results(results)
+
+
+# the runner's inputs, in shard_runner_inputs' order
+RUN_INPUTS = ("states", "eval_seeds", "train_splits", "val_stacks", "perms", "mask", "aux_mult", "refit_perms",
+              "lr_sched")
+
+
+def prepare_run(members: List[Dict], *, num_particles=1, optimizer="shared", device="cuda", reduce=None,
+                dispatch: Optional[str] = None):
+    """One stacked run of the members: ``(runner, inputs, shared_data)``,
+    the runner (``train/ensemble.py::make_ensemble_runner``) and its inputs
+    by the names of :data:`RUN_INPUTS`, all members stacked."""
     m0 = members[0]
-    spec, times, policy = m0["spec"], m0["times"], m0["policy"]
     cfg = m0["config"]
-    ts = torch.as_tensor(times, device=device)
-    mesh = None
-    if (ensemble_parallel and ensemble_parallel > 1) or ensemble_data_parallel > 1:
-        mesh = member_mesh(ensemble_parallel or None, n_data=ensemble_data_parallel)
     # seed sweeps vary only the training seed, so every member usually trains
     # on the same dataset: give it to the runner once (shared_data) instead of
     # stacking S copies. Splits can differ per member (challenge or proc folds
@@ -241,15 +256,13 @@ def train_ensemble(
         m0["val_stack"] is None or _trees_equal([m["val_stack"] for m in members])
     )
     runner = make_ensemble_runner(
-        spec, ts, cfg.learning_rate, m0["params"], policy=policy, num_particles=num_particles,
-        optimizer=optimizer, prior_lr_mult=float(cfg.get("prior_lr_mult") or 1.0),
-        refit_epochs=int(cfg.get("prior_refit_epochs") or 0), use_lr_sched=m0["lr_sched"] is not None,
-        shared_data=shared_data, tail_ema_decay=float(cfg.get("tail_ema") or 0.0),
-        tail_ema_start=int(cfg.get("tail_ema_start") or 0),
-        reduce=data_reduce(mesh) if mesh is not None and mesh.size("data") > 1 else None,
+        m0["spec"], torch.as_tensor(m0["times"], device=device), cfg.learning_rate, m0["params"],
+        policy=m0["policy"], num_particles=num_particles, optimizer=optimizer,
+        prior_lr_mult=float(cfg.get("prior_lr_mult") or 1.0), refit_epochs=int(cfg.get("prior_refit_epochs") or 0),
+        use_lr_sched=m0["lr_sched"] is not None, shared_data=shared_data,
+        tail_ema_decay=float(cfg.get("tail_ema") or 0.0), tail_ema_start=int(cfg.get("tail_ema_start") or 0),
+        reduce=reduce, dispatch=dispatch,
     )
-    states = stack_states([runner.init_state(m["params"], m["train_seed"]) for m in members])
-    eval_seed_list = [m["eval_seed"] for m in members]
     if shared_data:
         train_splits = m0["splits"]["train"]
         val_stacks = m0["val_stack"]
@@ -262,27 +275,43 @@ def train_ensemble(
     for m in members[1:]:
         if not np.array_equal(m["mask"], m0["mask"]):
             raise ValueError("member batch layouts differ")
-    perms = np.stack([m["perms"] for m in members])
-    mask = m0["mask"]
-    aux_mult = np.stack([m["aux_mult"] for m in members])
-    refit_perms = np.stack([m["refit_perms"] for m in members]) if m0["refit_perms"] is not None else None
-    lr_sched = np.stack([m["lr_sched"] for m in members]) if m0["lr_sched"] is not None else None
+    inputs = {
+        "states": stack_states([runner.init_state(m["params"], m["train_seed"]) for m in members]),
+        "eval_seeds": [m["eval_seed"] for m in members],
+        "train_splits": train_splits,
+        "val_stacks": val_stacks,
+        "perms": np.stack([m["perms"] for m in members]),
+        "mask": m0["mask"],
+        "aux_mult": np.stack([m["aux_mult"] for m in members]),
+        "refit_perms": np.stack([m["refit_perms"] for m in members]) if m0["refit_perms"] is not None else None,
+        "lr_sched": np.stack([m["lr_sched"] for m in members]) if m0["lr_sched"] is not None else None,
+    }
+    return runner, inputs, shared_data
+
+
+def _train_group(members: List[Dict], *, num_particles, optimizer, chunk_epochs: int, ensemble_parallel: int,
+                 ensemble_data_parallel: int, device, dispatch: Optional[str], announce: bool):
+    """:func:`train_ensemble` of one stacked run; ``announce`` prints its
+    epoch dispatch (on the writing rank)."""
+    mesh = None
+    if (ensemble_parallel and ensemble_parallel > 1) or ensemble_data_parallel > 1:
+        mesh = member_mesh(ensemble_parallel or None, n_data=ensemble_data_parallel)
+    runner, inputs, shared_data = prepare_run(
+        members, num_particles=num_particles, optimizer=optimizer, device=device,
+        reduce=data_reduce(mesh) if mesh is not None and mesh.size("data") > 1 else None, dispatch=dispatch)
+    if announce and launch.is_writer():
+        print(f"epoch dispatch: {runner.dispatch}", flush=True)
     if mesh is not None:
-        (states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult, refit_perms,
-         lr_sched) = shard_runner_inputs(
-            mesh, states=states, eval_seeds=eval_seed_list, train_splits=train_splits, val_stacks=val_stacks,
-            perms=perms, mask=mask, aux_mult=aux_mult, refit_perms=refit_perms, lr_sched=lr_sched,
-            shared_data=shared_data)
+        inputs = dict(zip(RUN_INPUTS, shard_runner_inputs(mesh, **inputs, shared_data=shared_data)))
         print(f"  ensemble sharded over {mesh.world} ranks ({dict(zip(mesh.axis_names, mesh.shape))})", flush=True)
-    E = perms.shape[1]
-    if chunk_epochs and chunk_epochs < E:
+    args = [inputs[k] for k in RUN_INPUTS[:7]]
+    if chunk_epochs and chunk_epochs < inputs["perms"].shape[1]:
         print(f"  chunked dispatch: {chunk_epochs} epochs/chunk", flush=True)
-        result = run_chunked(runner, states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult,
-                             chunk_epochs=chunk_epochs, lr_sched=lr_sched, refit_perms=refit_perms, verbose=True)
+        result = run_chunked(runner, *args, chunk_epochs=chunk_epochs, lr_sched=inputs["lr_sched"],
+                             refit_perms=inputs["refit_perms"], verbose=True)
     else:
-        result = runner.run(states, eval_seed_list, train_splits, val_stacks, perms, mask, aux_mult,
-                            refit_perms=refit_perms, lr_sched=lr_sched)
-    return result if mesh is None else gather_results(mesh, result, ts.device)
+        result = runner.run(*args, refit_perms=inputs["refit_perms"], lr_sched=inputs["lr_sched"])
+    return result if mesh is None else gather_results(mesh, result, torch.device(device))
 
 
 # ---------------------------------------------------------------------------

@@ -2,16 +2,21 @@
 together on one card (the JAX package's ``train/ensemble.py``).
 
 The JAX package runs ``vmap(scan(epochs, scan(batches)))`` over a leading
-member axis in one compiled program. PyTorch runs eagerly, so here the epoch
-and batch loops are Python loops, as in the sequential driver, and the member
-axis is ``torch.func.vmap`` inside each dual step
-(``svi.make_stacked_dual_step``): every operation of a step, the kernels K1-K3
-included, runs once for all S members, so S members cost one step's device
-operations at S times the width. On the adaptive ODE backends the members
-go one at a time instead (``svi.over_members``), in the dual step, the
-prior refit and the evaluation alike. Parameters and Adam slots are stacked along
-a leading member axis; the Adam step counts stay Python ints, shared, since
-members step in lockstep (for ``shared`` and for ``split``).
+member axis in one compiled program. Here the epoch and batch loops are
+Python loops, as in the sequential driver, and the member axis is
+``torch.func.vmap`` inside each dual step (``svi.make_stacked_dual_step``):
+every operation of a step, the kernels K1-K3 included, runs once for all S
+members, so S members cost one step's device operations at S times the
+width. On a CUDA device, where ``svi.epoch_dispatch`` allows, the stacked
+dual step replays a CUDA graph for each minibatch, and the members' val ELBO
+and the refit's update replay graphs of their own (``svi.stepped_epoch``,
+``svi.graphed_eval``; memoized here, so chunks and member groups of one size
+replay one capture), bit for bit the eager steps. On the adaptive ODE
+backends the members go one at a time instead (``svi.over_members``), in
+the dual step, the prior refit and the evaluation alike, eagerly. Parameters
+and Adam slots are stacked along a leading member axis; the Adam step counts
+stay Python ints, shared, since members step in lockstep (for ``shared`` and
+for ``split``).
 
 Member parity: each member reproduces the port's sequential CLI driver
 (``train/driver.py::run_training_epochs``) at its seed: the same host-shuffle
@@ -37,8 +42,8 @@ Selection policies (each dataset's reference behaviour):
 Differences from the JAX package: the prior refit's seed is
 ``fold_seed(eval_seed, 'refit')`` in both the sequential drivers and here, so
 a member's refit reproduces the sequential refit (the JAX package keys the
-two differently). The JAX ``BoundedMemo`` exists to avoid re-tracing under
-``jit`` and has no counterpart.
+two differently). Where the JAX package's ``BoundedMemo`` holds jitted
+programs, the memos here hold the captured graphs.
 
 Members over several ranks (:func:`member_mesh`, :func:`shard_member_inputs`,
 :func:`shard_runner_inputs`, :func:`gather_results`): the JAX package places
@@ -52,6 +57,7 @@ over the data ranks, whose stacked gradients and metric sums the runner's
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -66,20 +72,37 @@ from structured_latent_odes_tpu_torch.train.driver import epoch_aux_mult, epoch_
 from structured_latent_odes_tpu_torch.train.svi import (
     AdamSlots,
     SVIState,
+    _resolve_dispatch,
+    _ts_key,
+    advance_counts,
+    bias_corrections,
     eval_seeds,
+    graphed_eval,
     make_dual_optimizer,
     make_stacked_dual_step,
     over_members,
+    own_state,
+    own_tree,
     shared_adam_init,
     shared_adam_update,
     stacked_step_seeds,
     step_corrections,
+    stepped_epoch,
 )
+from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
 from structured_latent_odes_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
 
 POLICIES = ("cvs", "proc", "proc_heldout", "challenge")
+# the batch entries that every member shares (no member axis)
+SHARED_KEYS = ("mask", "aux_mult", "lr_scale")
+
+# the CUDA graphs of the stacked dual step, of the members' val ELBO and of
+# the refit's update, each keyed by its recipe, member count and shapes
+_STEP_GRAPHS = BoundedMemo()
+_VAL_GRAPHS = BoundedMemo()
+_REFIT_GRAPHS = BoundedMemo()
 
 
 class EnsembleRunner(NamedTuple):
@@ -90,6 +113,8 @@ class EnsembleRunner(NamedTuple):
     tail_ema: bool = False  # whether the epoch carry tracks a tail-phase EMA
     init_carry: Any = None  # (states, eval_seeds) -> the carry of the first chunk
     finish: Any = None      # (carry, history, splits, refit_perms, mask) -> EnsembleResult
+    dispatch: str = "eager"  # how the epochs run (svi.epoch_dispatch)
+    train_epoch: Any = None  # (state, batches, mask, fills) -> (state, metrics): one epoch's stacked steps
 
 
 class EnsembleResult(NamedTuple):
@@ -198,6 +223,11 @@ def _on(device, x):
     return x.to(device) if isinstance(x, Tensor) else torch.as_tensor(np.asarray(x), device=device)
 
 
+def _member_dims(batch):
+    """``over_members``' in_dims of a stacked step's batch."""
+    return {k: None if k in SHARED_KEYS else 0 for k in batch}
+
+
 def _epoch_batches(train_split, perms_e: Tensor, shared_data: bool):
     """One epoch's minibatches for every member, gathered on the device: a
     dict of (S, nb, B, ...) tensors, with ``sample_id``."""
@@ -210,7 +240,7 @@ def _epoch_batches(train_split, perms_e: Tensor, shared_data: bool):
     return out
 
 
-def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None):
+def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None, dispatch: Optional[str] = None):
     """The prior refit of S stacked members: R epochs of main-ELBO updates
     restricted to the 'priors' group, from the selected best params with
     fresh Adam slots. The posterior, decoder and aux heads are untouched, so
@@ -220,47 +250,69 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None):
     Returns ``refit(best_params, seeds, train_split, refit_perms, mask,
     shared_data=True)``: stacked params, the members' refit seeds (ints;
     refit step k draws at ``fold_seed(seed, k)``), the train split ((N, ...)
-    shared or (S, N, ...)), perms (S, R, nb, B) and the mask (nb, B).
-    ``reduce`` sums the gradients over the ranks holding slices of each
-    batch (:func:`member_mesh`'s data axis)."""
+    shared or (S, N, ...)), perms (S, R, nb, B) and the mask (nb, B); it
+    returns the refit params, the caller's own. ``reduce`` sums the
+    gradients over the ranks holding slices of each batch
+    (:func:`member_mesh`'s data axis).
+
+    Each step's Adam bias corrections are derived on the host for the whole
+    refit and reach ``update`` as a tensor row, as the dual step's do.
+    ``dispatch`` as for ``svi.make_train_step``: as a CUDA graph the update
+    is captured once for each recipe and batch shape and replayed for every
+    refit step (``refit.dispatch`` names the choice)."""
+    device = ts.device
+    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
+    key = (spec, _ts_key(ts), float(lr), str(device), dispatch, reduce) if dispatch in ("cuda graph", "plain") else None
 
     def loss(params, seed, batch, noise=None):
         return elbo_main(spec, params, seed, batch, ts, noise=noise)[0]
 
     grad = torch.func.grad(loss)
 
-    def update(params, slots, seeds: Tensor, batch, dims, noise=None):
+    def prior_only(params):
+        return {g: tree_map(lambda _: g == "priors", params[g]) for g in params}
+
+    def update(params, slots, seeds: Tensor, batch, dims, noise=None, corrections=None):
         """One refit step of the stacked members: the main-ELBO gradient of
         each (:func:`over_members`; ``dims`` as for the dual step, ``noise``
         None or member-stacked ``noise=`` draws), then Adam on the priors
-        alone."""
-        prior_only = {g: tree_map(lambda _: g == "priors", params[g]) for g in params}
+        alone (``corrections``: its ``bias_corrections`` as a tensor, None
+        to make them from ``slots``' counts)."""
         grads = over_members(spec, grad, (0, 0, dims, None if noise is None else 0))(params, seeds, batch, noise)
         if reduce is not None:
             grads = reduce(grads)
-        return shared_adam_update(grads, slots, params, prior_only, lr)
+        return shared_adam_update(grads, slots, params, prior_only(params), lr, corrections=corrections)
 
     def refit(best_params, seeds, train_split, refit_perms, mask, shared_data: bool = True):
-        device = ts.device
         split = {k: _on(device, v) for k, v in train_split.items()}
         perms = _on(device, refit_perms).long()
         mask = _on(device, mask)
         R, nb = perms.shape[1], perms.shape[2]
-        dims = {k: 0 for k in list(split) + ["sample_id"]}
-        dims.update(mask=None, aux_mult=None)
-        mult = torch.tensor(spec.aux_loss_multiplier, dtype=torch.float32, device=device)
-        params, slots = best_params, shared_adam_init(best_params)
+        state = SVIState(best_params, shared_adam_init(best_params), list(seeds), 0)
+        only, corrections, counts = prior_only(best_params), [], [state.opt.count]
+        for _ in range(R * nb):  # Adam's bias corrections and counts of every refit step, on the host
+            corrections.append(bias_corrections(counts[-1], only))
+            counts.append(advance_counts(counts[-1], only))
+        corrections = torch.as_tensor(np.stack(corrections), device=device)
+
+        def step(state, batch, seeds, corrections):
+            params, slots = update(state.params, state.opt, seeds, batch, _member_dims(batch),
+                                   corrections=corrections)
+            return SVIState(params, slots, state.seed, state.step + 1), {}
+
         for r in range(R):
             batches = _epoch_batches(split, perms[:, r], shared_data)
             step_seeds = seed_tensor([fold_seed(s, r * nb + i) for i in range(nb) for s in seeds],
                                      device).reshape(nb, len(seeds))
-            for i in range(nb):
-                batch = {k: v[:, i] for k, v in batches.items()}
-                batch.update(mask=mask[i], aux_mult=mult)
-                params, slots = update(params, slots, step_seeds[i], batch, dims)
-        return params
+            rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
+            state, _ = stepped_epoch(step, state, rows, step_seeds, corrections[r * nb:(r + 1) * nb],
+                                     dataclasses.replace(state.opt, count=counts[(r + 1) * nb]),
+                                     {"aux_mult": float(spec.aux_loss_multiplier)}, _REFIT_GRAPHS,
+                                     None if key is None else key + (len(seeds), shared_data), dispatch == "plain")
+        return state.params if key is None else own_tree(state.params)
 
     refit.update = update
+    refit.dispatch = dispatch
     return refit
 
 
@@ -292,6 +344,7 @@ def make_ensemble_runner(
     tail_ema_decay: float = 0.0,
     tail_ema_start: int = 0,
     reduce=None,
+    dispatch: Optional[str] = None,
 ) -> EnsembleRunner:
     """Build the multi-member runner on the device of ``ts``.
 
@@ -324,6 +377,19 @@ def make_ensemble_runner(
     that hold slices of every member's batches: the dual step's gradients
     and metric sums, the refit's gradients and the val ELBO's per-batch sums
     before their ratio.
+
+    ``dispatch`` as for ``svi.make_train_step``: None as
+    ``svi.epoch_dispatch`` says (a CUDA graph on a CUDA device where the
+    spec's solve can be captured and no ``reduce``), 'eager', or 'plain' (the
+    graphs' buffers run by their plain version; the CPU tests);
+    ``runner.dispatch`` names the choice. As CUDA graphs, the stacked dual
+    step is captured once for each recipe, member count and batch shape and
+    replayed for every minibatch, the members' val ELBO over the whole val
+    stack is one graph, and so is the refit's update (the JAX ensemble's
+    jitted ``run_chunk`` and refit); the graphs are memoized across runners,
+    so chunks and member groups of one size replay one capture. The
+    results a run returns are its own: copies where a graph's buffers would
+    be overwritten by its next replay.
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}; one of {POLICIES}")
@@ -334,9 +400,14 @@ def make_ensemble_runner(
     optim = make_dual_optimizer(spec, params_example, lr, optimizer, prior_lr_mult=prior_lr_mult)
     step = make_stacked_dual_step(spec, ts, optim, num_particles, reduce)
     needs_val = policy in ("cvs", "proc")
-    prior_refit_fn = make_prior_refit_fn(spec, ts, lr, reduce) if refit_epochs else None
+    prior_refit_fn = make_prior_refit_fn(spec, ts, lr, reduce, dispatch) if refit_epochs else None
     decay = float(np.float32(tail_ema_decay))
     keep = float(np.float32(1.0) - np.float32(tail_ema_decay))
+    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
+    plain = dispatch == "plain"
+    graphed = dispatch in ("cuda graph", "plain")
+    key = (spec, _ts_key(ts), str(device), dispatch, bool(shared_data), reduce) if graphed else None
+    own = own_tree if graphed else (lambda tree: tree)
 
     @torch.no_grad()
     def evaluate(params, seeds, batch):
@@ -344,10 +415,32 @@ def make_ensemble_runner(
         lm, _ = elbo_main(spec, params, seeds[0], batch, ts)
         return lm, elbo_aux(spec, params, seeds[1], batch)
 
+    def member_step(state, batch, seeds, corrections):
+        return step(state, batch, _member_dims(batch), seeds, corrections)
+
+    def train_epoch(state: SVIState, batches, mask: Tensor, fills):
+        """One epoch of stacked dual steps from ``state`` over ``batches``
+        (:func:`_epoch_batches`, (S, nb, B, ...)), the mask (nb, B) and
+        ``fills``, the shared 0-d batch entries (``aux_mult``, ``lr_scale``)
+        as host numbers: the state after it and the per-step metrics, each
+        (nb, S)."""
+        nb = mask.shape[0]
+        seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
+        corrections, opt = step_corrections(optim, state.opt, nb, device)
+        rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
+        return stepped_epoch(member_step, state, rows, seeds, corrections, opt, fills, _STEP_GRAPHS,
+                             None if key is None else key + (len(state.seed), int(num_particles), optimizer,
+                                                             float(lr), float(prior_lr_mult)), plain)
+
     def val_elbo_sums(params, seeds: Tensor, val_stack):
         """The val split's summed per-batch ELBOs (loss / n) per member, in
         batch order in float32 (the driver's eval_epoch), under eval seeds
         (S, 2)."""
+        if graphed:
+            return graphed_eval(_VAL_GRAPHS, key + (len(seeds),), val_body, params, seeds, val_stack, plain)
+        return val_body(params, seeds, val_stack)
+
+    def val_body(params, seeds: Tensor, val_stack):
         dims = {k: None if shared_data else 0 for k in val_stack}
         rows = []
         for i in range(val_stack["mask"].shape[0 if shared_data else 1]):
@@ -398,27 +491,13 @@ def make_ensemble_runner(
         mask = _on(device, mask)
         mults = _lockstep("aux_mult", aux_mult)
         scales = _lockstep("lr_sched", lr_sched) if use_lr_sched else None
-        nb = mask.shape[0]
-        dims = {k: 0 for k in list(split) + ["sample_id"]}
-        dims.update(mask=None, aux_mult=None)
-        if scales is not None:
-            dims["lr_scale"] = None
         hist = {"loss_main": [], "loss_aux": []}
         for j, epoch in enumerate(int(e) for e in epochs):
-            batches = _epoch_batches(split, perms[:, j], shared_data)
-            seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
-            corrections, _ = step_corrections(optim, state.opt, nb, device)
-            shared = {"aux_mult": torch.tensor(mults[j], device=device)}
+            fills = {"aux_mult": float(mults[j])}
             if scales is not None:
-                shared["lr_scale"] = torch.tensor(scales[j], device=device)
-            mets = []
-            for i in range(nb):
-                batch = {k: v[:, i] for k, v in batches.items()}
-                batch.update(shared, mask=mask[i])
-                state, m = step(state, batch, dims, seeds[i], corrections[i])
-                mets.append(torch.stack([m["loss_main"], m["loss_aux"]], dim=-1))  # (S, 2)
-            losses = torch.stack(mets, dim=1)  # (S, nb, 2)
-            back = [losses]
+                fills["lr_scale"] = float(scales[j])
+            state, mets = train_epoch(state, _epoch_batches(split, perms[:, j], shared_data), mask, fills)
+            back = [torch.stack([mets["loss_main"], mets["loss_aux"]], dim=-1).transpose(0, 1)]  # (S, nb, 2)
             if needs_val:
                 # the driver's val posterior seeds at this epoch, split as
                 # eval_epoch splits them: (losses -> main, aux)
@@ -430,7 +509,7 @@ def make_ensemble_runner(
             crit, rule, rec = criterion(host[0], host[1] if needs_val else None, epoch)
             improve = {"ties": best_c >= crit, "strict": crit < best_c, "always": np.ones(S, bool)}[rule]
             if improve.all():
-                best_p = state.params  # replaced, never updated in place, by each step
+                best_p = own(state.params)
             elif improve.any():
                 best_p = _where(torch.as_tensor(improve, device=device), state.params, best_p)
             best_c = np.where(improve, crit, best_c)
@@ -441,7 +520,7 @@ def make_ensemble_runner(
                 if epoch >= tail_ema_start:
                     ema = tree_map(lambda e, p: decay * e + keep * p, ema, state.params)
                 else:
-                    ema = state.params
+                    ema = own(state.params)
         hist = {k: np.stack(v, axis=1) for k, v in hist.items()}  # (S, E, nb)
         out = (state, eval_seed_list, best_p, best_c, best_e)
         return (out + (ema,) if use_ema else out), hist
@@ -472,14 +551,15 @@ def make_ensemble_runner(
             if refit_perms is None:
                 raise ValueError("refit_epochs > 0 requires refit_perms")
             bp = refit(bp, eval_seed_list, train_splits, refit_perms, mask)
-        return EnsembleResult(state, bp, bc, be, hist, carry[5] if use_ema else None)
+        return EnsembleResult(own_state(state) if graphed else state, bp, bc, be, hist,
+                              carry[5] if use_ema else None)
 
     def init_state(params, seed: int) -> SVIState:
         params = tree_map(lambda p: p.detach().clone(), params)
         return SVIState(params, optim.init(params), int(seed), 0)
 
     return EnsembleRunner(init_state, run, run_chunk, refit if refit_epochs else None, tail_ema=use_ema,
-                          init_carry=init_carry, finish=finish)
+                          init_carry=init_carry, finish=finish, dispatch=dispatch, train_epoch=train_epoch)
 
 
 def run_chunked(

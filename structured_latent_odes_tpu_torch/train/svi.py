@@ -21,7 +21,8 @@ counterpart of the JAX package's jitted ``lax.scan`` epochs. The graphs keep
 the state in buffers that each replay overwrites in place, as JAX's
 ``donate_argnums=0`` donates the state; they are memoized in a
 ``BoundedMemo`` (``utils/memo.py``), as the JAX package memoizes its jitted
-builders.
+builders. :func:`stepped_epoch` and :func:`graphed_eval` are those epochs'
+machinery, which the ensemble runner (``train/ensemble.py``) shares.
 
 Randomness: the state carries an integer seed and a step counter. Each step's
 main and aux draws are keyed by ``fold_seed(seed, step, 'main' | 'aux')``
@@ -376,14 +377,17 @@ def _tensors(state: SVIState):
     return tree_leaves(state.params) + [t for s in _slots(state.opt) for t in tree_leaves(s.mu) + tree_leaves(s.nu)]
 
 
+def own_tree(tree):
+    """A copy of a tree of tensors: what a caller keeps of a graph's
+    buffers."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
 def own_state(state: SVIState) -> SVIState:
     """A copy of the state's tensors, with its counts, seed and step: what a
     caller keeps of a state over a graph's buffers."""
-    def own(t):
-        return t.detach().clone()
-
-    opt = [AdamSlots(tree_map(own, s.mu), tree_map(own, s.nu), s.count) for s in _slots(state.opt)]
-    return SVIState(tree_map(own, state.params), opt[0] if isinstance(state.opt, AdamSlots) else tuple(opt),
+    opt = [AdamSlots(own_tree(s.mu), own_tree(s.nu), s.count) for s in _slots(state.opt)]
+    return SVIState(own_tree(state.params), opt[0] if isinstance(state.opt, AdamSlots) else tuple(opt),
                     state.seed, state.step)
 
 
@@ -400,9 +404,9 @@ def _copy_in(dst, src) -> None:
             d.copy_(s)
 
 
-def _signature(batches):
-    """A stacked epoch's per-step keys, shapes and dtypes."""
-    return tuple((k, tuple(v.shape[1:]), str(v.dtype)) for k, v in sorted(batches.items()))
+def _signature(batch):
+    """A batch's keys, shapes and dtypes."""
+    return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in sorted(batch.items()))
 
 
 def _ts_key(ts: Tensor):
@@ -442,46 +446,76 @@ def _resolve_dispatch(dispatch: Optional[str], spec: ModelSpec, device, reduce) 
 
 
 class _StepGraph:
-    """The dual step ``step`` over buffers of the state, of one minibatch and
-    of its :func:`epoch_scalars` row, run by a :class:`Graph`: the captured
-    step ends by writing the new params and moments into the state's
-    buffers, in place."""
+    """A step ``call(state, batch, seeds, corrections) -> (state, metrics)``
+    over buffers of the state, of one step's batch and of its seeds and
+    corrections, run by a :class:`Graph`: the captured step ends by writing
+    the new params and moments into the state's buffers, in place."""
 
-    def __init__(self, step, state: SVIState, batches, num_particles: int, plain: bool):
-        device = _device(state)
+    def __init__(self, call, state: SVIState, batch, seeds: Tensor, corrections: Tensor, plain: bool):
         self.state = own = own_state(state)
         self.buffers = buffers = _tensors(own)
-        self.batch = batch = {k: torch.empty_like(v[0]) for k, v in batches.items()}
-        self.seeds = seeds = torch.zeros((2, num_particles), dtype=torch.int64, device=device)
-        self.corrections = corrections = torch.ones((2, 2, len(tree_leaves(state.params))), dtype=torch.float32,
-                                                    device=device)
+        self.batch = batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.seeds = seeds = torch.zeros_like(seeds)
+        self.corrections = corrections = torch.ones_like(corrections)
 
         def body():  # refers to the buffers, not to self: an evicted graph is freed at once
-            new, metrics = step(own, batch, None, (seeds, corrections))
+            new, metrics = call(own, batch, seeds, corrections)
             for buf, t in zip(buffers, _tensors(new)):
                 buf.copy_(t)
             return metrics
 
-        self.run = Graph(body, device, plain=plain)
+        self.run = Graph(body, _device(state), plain=plain)
 
-    def epoch(self, state: SVIState, batches, seeds: Tensor, corrections: Tensor, opt):
-        """The epoch's steps from ``state`` (copied into the buffers unless it
-        is them); returns the state over the buffers with ``opt``'s counts,
-        and the metrics stacked."""
+    def epoch(self, state: SVIState, rows, seeds: Tensor, corrections: Tensor, opt, fills):
+        """The steps from ``state`` (copied into the buffers unless it is
+        them) over ``rows``; ``fills`` are filled into the batch once. Returns
+        the state over the buffers with ``opt``'s counts, and the metrics
+        stacked."""
         _copy_in(self.buffers, _tensors(state))
-        n = batches["mask"].shape[0]
+        for k, v in fills.items():
+            self.batch[k].fill_(v)
         mets = None
-        for i in range(n):
-            for k, buf in self.batch.items():
-                buf.copy_(batches[k][i])
+        for i, row in enumerate(rows):
+            for k, v in row.items():
+                self.batch[k].copy_(v)
             self.seeds.copy_(seeds[i])
             self.corrections.copy_(corrections[i])
             m = self.run()
             if mets is None:
-                mets = {k: v.new_empty((n,) + v.shape) for k, v in m.items()}
+                mets = {k: v.new_empty((len(rows),) + v.shape) for k, v in m.items()}
             for k, v in m.items():
                 mets[k][i].copy_(v)
-        return SVIState(self.state.params, _with_counts(self.state.opt, opt), state.seed, state.step + n), mets
+        return SVIState(self.state.params, _with_counts(self.state.opt, opt), state.seed, state.step + len(rows)), mets
+
+
+def stepped_epoch(call, state: SVIState, rows, seeds: Tensor, corrections: Tensor, opt, fills=None,
+                  graphs: Optional[BoundedMemo] = None, key=None, plain: bool = False):
+    """The steps ``call(state, batch, seeds, corrections) -> (state,
+    metrics)`` from ``state`` over ``rows`` (a list of batches, one a step),
+    step i fed row i of ``seeds`` and of ``corrections``; ``fills`` holds the
+    batch entries that are one host number for all the steps (float32 0-d).
+    Returns the state after the steps and each metric stacked over them.
+
+    With a ``key``, the step runs as a CUDA graph (``plain``: the graph's
+    plain version, ``utils/graphs.py``) captured once for ``key`` and the
+    batch's signature and memoized in ``graphs``; the state it returns is
+    over the graph's buffers, which the graph's next call overwrites, with
+    ``opt``'s step counts (the counts after the steps, derived on the host).
+    Without, the steps run eagerly and advance the counts themselves."""
+    fills = fills or {}
+    if key is None:
+        shared = {k: torch.tensor(v, dtype=torch.float32, device=_device(state)) for k, v in fills.items()}
+        mets = []
+        for i, row in enumerate(rows):
+            state, m = call(state, {**row, **shared}, seeds[i], corrections[i])
+            mets.append(m)
+        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+    example = {**rows[0], **{k: rows[0]["mask"].new_empty(()) for k in fills}}
+    graph_key = key + (_signature(example),)
+    graph = graphs.get(graph_key)
+    if graph is None:
+        graph = graphs[graph_key] = _StepGraph(call, state, example, seeds[0], corrections[0], plain)
+    return graph.epoch(state, rows, seeds, corrections, opt, fills)
 
 
 def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_particles: int = 1,
@@ -517,21 +551,15 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
 
     train_step = make_dual_step(spec, ts, optim, num_particles, reduce)
 
+    def step(state, batch, seeds, corrections):
+        return train_step(state, batch, None, (seeds, corrections))
+
     def train_epoch(state: SVIState, batches) -> Tuple[SVIState, Dict[str, Tensor]]:
         n = batches["mask"].shape[0]
         seeds, corrections, opt = epoch_scalars(optim, state, n, num_particles)
-        if graphed:
-            graph_key = key + (_signature(batches),)
-            graph = _TRAIN_GRAPHS.get(graph_key)
-            if graph is None:
-                graph = _TRAIN_GRAPHS[graph_key] = _StepGraph(train_step, state, batches, num_particles,
-                                                              plain=dispatch == "plain")
-            return graph.epoch(state, batches, seeds, corrections, opt)
-        mets = []
-        for i in range(n):
-            state, m = train_step(state, {k: v[i] for k, v in batches.items()}, scalars=(seeds[i], corrections[i]))
-            mets.append(m)
-        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
+        rows = [{k: v[i] for k, v in batches.items()} for i in range(n)]
+        return stepped_epoch(step, state, rows, seeds, corrections, opt, graphs=_TRAIN_GRAPHS, key=key,
+                             plain=dispatch == "plain")
 
     train_epoch.dispatch = dispatch
     return init_state, train_step, train_epoch
@@ -651,22 +679,34 @@ def make_eval_fns(spec: ModelSpec, ts: Tensor):
 
 
 class _EvalGraph:
-    """One split's eval epoch ``body(params, seeds, batches, is_post)`` over
-    buffers of the params, the stacked split and the eval seeds, run by a
-    :class:`Graph`."""
+    """An evaluation ``body(params, seeds, batches)`` over buffers of the
+    params, the stacked batches and the seeds, run by a :class:`Graph`."""
 
-    def __init__(self, body, params, batches, is_post: bool, plain: bool):
+    def __init__(self, body, params, seeds: Tensor, batches, plain: bool):
         device = tree_leaves(params)[0].device
-        self.params = own = tree_map(lambda t: t.detach().clone(), params)
+        self.params = own = own_tree(params)
         self.batches = stack = {k: v.clone() for k, v in batches.items()}
-        self.seeds = seeds = torch.zeros(3, dtype=torch.int64, device=device)
-        self.run = Graph(lambda: body(own, seeds, stack, is_post), device, plain=plain)  # no reference to self
+        self.seeds = buf = torch.zeros_like(seeds)
+        self.run = Graph(lambda: body(own, buf, stack), device, plain=plain)  # no reference to self
 
     def __call__(self, params, seeds: Tensor, batches):
         _copy_in(tree_leaves(self.params), tree_leaves(params))
         _copy_in([self.batches[k] for k in sorted(self.batches)], [batches[k] for k in sorted(batches)])
         self.seeds.copy_(seeds)
         return tree_map(torch.clone, self.run())
+
+
+def graphed_eval(graphs: BoundedMemo, key, body, params, seeds: Tensor, batches, plain: bool = False):
+    """``body(params, seeds, batches)``, a tree of tensors, as a CUDA graph
+    (``plain``: its plain version) captured once for ``key`` and the
+    batches' signature and memoized in ``graphs``: a call copies the params,
+    the seeds and the batches into the graph's buffers and replays it.
+    Returns the tree, copied out of the graph."""
+    graph_key = key + (_signature(batches),)
+    graph = graphs.get(graph_key)
+    if graph is None:
+        graph = graphs[graph_key] = _EvalGraph(body, params, seeds, batches, plain)
+    return graph(params, seeds, batches)
 
 
 def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = None, dispatch: Optional[str] = None):
@@ -726,12 +766,8 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
         seeds = seed_tensor(eval_seeds(seed), device)
         if not graphed:
             return body(params, seeds, batches, is_post)
-        graph_key = key + (tuple((k, tuple(v.shape), str(v.dtype)) for k, v in sorted(batches.items())),
-                           bool(is_post))
-        graph = _EVAL_GRAPHS.get(graph_key)
-        if graph is None:
-            graph = _EVAL_GRAPHS[graph_key] = _EvalGraph(body, params, batches, is_post, plain=dispatch == "plain")
-        return graph(params, seeds, batches)
+        return graphed_eval(_EVAL_GRAPHS, key + (bool(is_post),), lambda p, s, b: body(p, s, b, is_post), params,
+                            seeds, batches, plain=dispatch == "plain")
 
     eval_epoch.dispatch = dispatch
     return eval_epoch

@@ -189,7 +189,10 @@ def _eps(key, sids, dim):
 def test_prior_refit_step_matches_jax():
     """One refit update: JAX's main-ELBO gradient at key k, Adam on the
     priors group alone from fresh slots; the port's ``refit.update`` on a
-    stacked member of one, with JAX's draws as ``noise=``."""
+    stacked member of one, with JAX's draws as ``noise=``, its Adam bias
+    corrections made from the slots' counts and fed as a tensor row (as the
+    refit's steps, eager and replayed, take them): each within 3e-7 of JAX,
+    and the two bit for bit equal."""
     jspec, pspec = jax_cvs_spec(_config(1, jax_side=True), n_time=T), cvs_spec(_config(1), n_time=T)
     params = jax_init(jax.random.key(0), jspec)
     batch = {k: v[0] for k, v in stacked_minibatches(_splits()["train"], BS, shuffle=True,
@@ -214,9 +217,14 @@ def test_prior_refit_step_matches_jax():
     dims = {k: 0 for k in pb}
     dims.update(mask=None, aux_mult=None)
     refit = ens.make_prior_refit_fn(pspec, torch.from_numpy(ts), LR)
-    out, _ = refit.update(stacked, svi.shared_adam_init(stacked), seed_tensor([0]), pb, dims, noise)
+    slots = svi.shared_adam_init(stacked)
+    out, _ = refit.update(stacked, slots, seed_tensor([0]), pb, dims, noise)
+    row = torch.as_tensor(svi.bias_corrections(slots.count, {g: tree_map(lambda _: g == "priors", stacked[g])
+                                                             for g in stacked}))
+    fed, _ = refit.update(stacked, slots, seed_tensor([0]), pb, dims, noise, corrections=row)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(out), tree_leaves(fed)))
     for group in port:
-        for a, b, p0 in zip(tree_leaves(out[group]), tree_leaves(params_from_jax(
+        for a, b, p0 in zip(tree_leaves(fed[group]), tree_leaves(params_from_jax(
                 jax.tree.map(np.asarray, ref), device="cpu")[group]), tree_leaves(port[group])):
             np.testing.assert_allclose(a[0].numpy(), b.numpy(), rtol=0, atol=3e-7)
             if group != "priors":

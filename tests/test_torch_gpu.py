@@ -22,7 +22,8 @@ Beyond the kernels: a CVS run on semilinear_fused resumed from its
 checkpoint is bit for bit the uninterrupted run, and the profiler trace of
 an epoch names K2's and K3's kernels among its device events. The training
 and eval epochs replayed as CUDA graphs are bit for bit the eager ones, with
-the same launches; the trainers replay graphs; a capture that fails raises.
+the same launches, and so are a sweep's (the stacked step, the val ELBO,
+the prior refit); the trainers replay graphs; a capture that fails raises.
 """
 
 import json
@@ -836,6 +837,42 @@ def test_epochs_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
         for _ in range(2):
             got = graph_eval(s_e.params, 9, stack, is_post)
             assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
+
+
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_sweep_epochs_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend, capsys):
+    """Three members, two epochs and a refit epoch through
+    sweep.train_ensemble, replayed (the stacked dual step, the val ELBO and
+    the refit's update as CUDA graphs) and eager: every number of the
+    result bit for bit equal, the kernels' launches equal."""
+    from structured_latent_odes_tpu_torch import sweep
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    full_fp32(deterministic=True)
+    cfg = sweep.load_base_config("cvs")
+    cfg.data_path, cfg.mini_batch_size, cfg.num_epochs, cfg.ode_backend = tiny_cvs, 16, 1, backend
+    cfg.prior_refit_epochs = 1
+    members = [sweep.prepare_member("cvs", cfg, seed, cuda) for seed in (3, 4, 5)]
+    counts = [_counts()]
+    eager = sweep.train_ensemble(members, device=cuda, dispatch="eager")
+    counts.append(_counts())
+    replays = Graph.replays
+    got = sweep.train_ensemble(members, device=cuda)
+    torch.cuda.synchronize()
+    counts.append(_counts())
+    out = capsys.readouterr().out
+    assert out.count("epoch dispatch: eager\n") == out.count("epoch dispatch: cuda graph\n") == 1
+    assert Graph.replays > replays
+    assert [b - a for a, b in zip(counts[0], counts[1])] == [b - a for a, b in zip(counts[1], counts[2])]
+    assert [s.count for s in svi._slots(eager.state.opt)] == [s.count for s in svi._slots(got.state.opt)]
+    for a, b in zip(svi._tensors(eager.state) + tree_leaves(eager.best_params),
+                    svi._tensors(got.state) + tree_leaves(got.best_params)):
+        assert torch.equal(a, b)
+    assert np.array_equal(eager.best_crit, got.best_crit) and np.array_equal(eager.best_epoch, got.best_epoch)
+    assert all(np.array_equal(eager.history[k], got.history[k]) for k in eager.history)
 
 
 def test_trainer_replays_graphs_on_card(cuda, tiny_cvs, tmp_path, capsys):
