@@ -132,12 +132,17 @@ Phases, each fatal on any fault:
    share cuda:0 over gloo, since NCCL refuses two ranks on one GPU, and run
    every case; the parent computes the one-device references. (a) The
    data-parallel dual step through an NCCL group of one rank, bit for bit
-   the one-device step, launching K2 and K3. (b) The data-parallel dual
+   the one-device step, launching K2 and K3; then two training epochs of
+   four steps and the eval epochs (posterior and prior) through it,
+   replayed as CUDA graphs with the NCCL sums inside them, bit for bit one
+   device's eager epochs and its own eager ones, launches equal. (b) The
+   data-parallel dual
    step on both ranks, half the batch each, on semilinear_fused (K2, K3) and
    semilinear (K1, K1-bwd): loss rtol 1e-5, params rtol 1e-4 and atol 1e-5
    of the one-device step, the summed main and aux gradients that the
    step's updates took within 1e-5 of each leaf's largest (at least 1) of
-   the one-device step's, the ranks' params bit for bit equal. (c) The
+   the one-device step's, the ranks' params bit for bit equal; their
+   epoch dispatch names gloo's reason to stay eager. (c) The
    horizon over both ranks (semilinear_timepar): the solve's values, the
    main loss's gradients and a dual step against semilinear on one device,
    launching K1 and K1-bwd, and the recurrence of 4096 steps at the
@@ -163,16 +168,25 @@ Phases, each fatal on any fault:
    challenge 8) and, at CVS, over two of them, on semilinear_fused and
    semilinear, under phase 10's bounds with the ranks' params bit for bit
    equal; the median of five steps and, timed apart, the gradient sums'
-   share. (b) data 2 x time 2 and time 4 on semilinear_timepar at each
-   workload, and the recurrence of 4096 steps over the time ranks. (c) A
+   share; each rank's epoch dispatch a CUDA graph. (a') At CVS over four
+   cards and over two, on both kernel paths: two training epochs of four
+   steps and the eval epochs replayed as CUDA graphs (the NCCL sums
+   inside), each rank bit for bit eager or within the data-parallel params
+   bound of it (the ratio printed), the ranks bit for bit each other,
+   launches equal; a replayed step's time a rank beside one card's
+   replayed step, and the NCCL kernels' device time a step from one
+   traced replayed epoch. (b) data 2 x time 2 and time 4 on
+   semilinear_timepar at each workload, and the recurrence of 4096 steps
+   over the time ranks; their dispatch names semilinear_timepar's reason
+   to stay eager. (c) A
    CVS sweep of eight members and a proc sweep of four (seeds 12..15) over
    --ensemble-parallel 4 (bit for bit the unsharded sweep in member groups
    of a rank's size) and over --ensemble-parallel 2
    --ensemble-data-parallel 2 (phase 10's member-sharded bound), both
    within the stacked-member bound of all members, each rank under its own
-   results root (rank 0 alone must write); each rank of --ensemble-parallel
-   4 must replay CUDA graphs on its card and each of 2 x 2 none (its data
-   ranks sum over NCCL, eagerly); the gather's time. (d)
+   results root (rank 0 alone must write); each rank of both layouts
+   must replay CUDA graphs on its card (2 x 2's data ranks sum over NCCL
+   inside them); the gather's time. (d)
    training_cvs, training_proc and training_challenge --data-parallel 4
    spawned by the CLI and under torchrun (bit for bit each other, their
    artifacts elementwise within (a)'s params bound of one card) and the
@@ -211,6 +225,23 @@ Phases, each fatal on any fault:
    refit step; each graph's capture time and pool; a traced epoch each way
    (device busy time, idle share, host launching calls a step). Its
    numbers join the {"graphs": ...} line under "sweeps".
+14. serving's predict functions and the eval functions as CUDA graphs
+   (serve.make_predict_fns, svi.make_eval_fns), against eager: posterior
+   requests at CVS B = 100 and the tiled 16,411 on semilinear_fused (K2)
+   and semilinear (K1), the prior and the classifier at B = 100, and proc
+   (val fold, 78) and challenge (val fold, 7) requests on semilinear_fused,
+   each call of the graph (its eager first call, its capture and replay, a
+   replay) bit for bit the eager call, launches equal; serve.main at CVS,
+   proc and challenge (two checkpoints' ensemble mean with --classify,
+   posterior and prior) replayed bit for bit its eager run, printing
+   `predict dispatch: cuda graph` once; final_test_eval at CVS, proc's
+   200-draw sample bands (the six arrays bit for bit) and the selection
+   prior L1 of a two-member CVS sweep's members. Median of 5, host clock
+   to a synchronize, eager and replayed, and five calls traced each way
+   (device busy time, idle share a call; the bands once, at 20 draws a
+   mode); each
+   graph's capture time and pool. Its numbers join the {"graphs": ...}
+   line under "served".
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
 cuDNN runs its deterministic algorithms in training, sweeps and the timed
@@ -260,10 +291,10 @@ from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
 from structured_latent_odes_tpu_torch.parallel import launch, timepar
 from structured_latent_odes_tpu_torch.parallel import mesh as mesh_module
 from structured_latent_odes_tpu_torch.parallel import train as dp_train
-from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batch
+from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_stacked
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
-from structured_latent_odes_tpu_torch.train.driver import device_batch
+from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval
 from structured_latent_odes_tpu_torch.utils import graphs
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -1468,11 +1499,12 @@ def _check_trained(name: str, out, artifacts: dict):
 
 
 def phase_request_times(device, clock: Clock, ckpts, data_dir: str, rehearse: bool, smi: str):
-    """Host-clock time of one served posterior request, ending in a sync."""
+    """Host-clock time of one served posterior request, ending in a sync,
+    eager (phase 14 times it replayed)."""
     big_b = 64 if rehearse else BIG_B
     for backend in ("semilinear", "semilinear_fused", "semilinear_seq"):
         spec, params, times, splits = serve.load_model("cvs", ckpts[0], _config(data_dir, backend), device)
-        recon_fn, _ = serve.make_predict_fns(spec, times, device)
+        recon_fn, _ = serve.make_predict_fns(spec, times, device, dispatch="eager")  # replayed: phase 14
         test = splits["test"]
         for B in (test["observations"].shape[0], big_b):
             idx = np.arange(B) % test["observations"].shape[0]
@@ -1990,12 +2022,15 @@ def _median_ms(fn, n: int, device) -> float:
     return float(np.median(times))
 
 
-def _trace_epochs(fn, n: int, steps: int) -> dict:
+def _trace_epochs(fn, n: int, steps: int, tries: int = 2) -> dict:
     """torch.profiler over ``n`` calls of ``fn`` (an epoch of ``steps``
     dual steps): per step the wall time, the device's busy time (the union
     of its operations' intervals), the idle share, the operations' durations
-    summed (above the busy time where records overlap) and the host's
-    launching calls (LAUNCH_CALLS)."""
+    summed (above the busy time where records overlap), the host's
+    launching calls (LAUNCH_CALLS) and the NCCL kernels' own device time
+    (kernels named nccl...). A trace that recorded no device operation (a
+    traced request of a few ms came back so once on the card) is taken
+    again, ``tries`` times in all."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2005,6 +2040,9 @@ def _trace_epochs(fn, n: int, steps: int) -> dict:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / (n * steps)
     events = prof.events()
+    if tries > 1 and not any(e.device_type == DeviceType.CUDA for e in events):
+        print("the profiler recorded no device operation: tracing again", flush=True)
+        return _trace_epochs(fn, n, steps, tries - 1)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA)
     busy, end = 0, None
     for a, b in spans:
@@ -2015,9 +2053,11 @@ def _trace_epochs(fn, n: int, steps: int) -> dict:
     busy = busy / 1e3 / (n * steps)
     summed = sum(b - a for a, b in spans) / 1e3 / (n * steps)
     launches = sum(1 for e in events if e.device_type == DeviceType.CPU and e.name in LAUNCH_CALLS) / (n * steps)
+    nccl = sum(e.time_range.end - e.time_range.start for e in events
+               if e.device_type == DeviceType.CUDA and "nccl" in e.name.lower()) / 1e3 / (n * steps)
     check(busy > 0, "the profiler recorded no device operation")
     return {"wall_ms": wall, "device_busy_ms": busy, "device_idle_share": max(0.0, 1.0 - busy / wall),
-            "device_ops_summed_ms": summed, "host_launches": launches}
+            "device_ops_summed_ms": summed, "host_launches": launches, "nccl_kernels_ms": nccl}
 
 
 def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
@@ -2347,6 +2387,248 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
     return out
 
 
+# Phase 14: serving's predict functions and the eval functions replayed as
+# CUDA graphs (serve.make_predict_fns, svi.make_eval_fns), held against
+# eager: the backends of the served requests at CVS and their forward
+# kernels, and the workloads served through serve.main on semilinear_fused
+SERVE_GRAPH_BACKENDS = {"semilinear_fused": ("K2",), "semilinear": ("K1",)}
+BANDS = 200  # the config's draws a mode (proc's num_samples)
+BANDS_TRACED = 20  # draws a mode in the traced band dump
+
+
+@contextlib.contextmanager
+def forced_dispatch(dispatch):
+    """svi.epoch_dispatch answering ``dispatch`` (None: as it is), which
+    serve.main's predict functions take: its eager reference on the card,
+    and the graphs' plain version in a rehearsal."""
+    real = svi.epoch_dispatch
+    if dispatch is not None:
+        svi.epoch_dispatch = lambda spec, device, reduce=None: dispatch
+    try:
+        yield
+    finally:
+        svi.epoch_dispatch = real
+
+
+def _fn_graphs() -> list:
+    """The utils/graphs.py Graphs of the eval and predict functions' memo."""
+    return [g.run for g in svi._EVAL_FN_GRAPHS._d.values()]
+
+
+def _stats_equal(a, b) -> bool:
+    """Two driver.EvalStats (or pairs of them) bit for bit equal."""
+    if isinstance(a, tuple):
+        return all(_stats_equal(x, y) for x, y in zip(a, b))
+    return (a.elbo == b.elbo and a.l1 == b.l1 and a.label_metrics == b.label_metrics
+            and sorted(a.recon) == sorted(b.recon) and all(np.array_equal(a.recon[k], b.recon[k]) for k in a.recon))
+
+
+def _outputs_equal(a, b) -> bool:
+    """Two served outputs (dicts of arrays or tensors) bit for bit equal."""
+    def host(v):
+        return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+    return sorted(a) == sorted(b) and all(np.array_equal(host(a[k]), host(b[k])) for k in a)
+
+
+def _held_replays(paths: dict, name: str, kernels, rehearse: bool, eager_fn, graph_fn, same, calls: int = 3) -> int:
+    """``eager_fn()`` once and ``graph_fn()`` ``calls`` times (the graph's
+    eager warm-up, its capture and replay, replays), each counted: every
+    call's output bit for bit the eager one (``same``), its launches the
+    eager call's. Returns the replays."""
+    ref = counted(paths, f"{name} eager", kernels, rehearse, eager_fn)
+    replays = graphs.Graph.replays
+    for call in range(calls):
+        got = counted(paths, f"{name} replayed {call}", kernels, rehearse, graph_fn)
+        check(same(ref, got), f"{name} call {call}: the replayed output differs from eager")
+        check(paths[f"{name} eager"] == paths[f"{name} replayed {call}"], f"{name} call {call}: launches differ")
+    n = graphs.Graph.replays - replays
+    check(rehearse or n >= calls - 1, f"{name}: {n} CUDA graph replays in {calls} calls")
+    return n
+
+
+def _timed_both(device, rehearse: bool, eager_fn, graph_fn, trace_eager=None, trace_graph=None) -> dict:
+    """Median of GRAPH_REPEATS, host clock to a synchronize, eager and
+    replayed, and one torch.profiler trace each way of GRAPH_REPEATS calls,
+    or of one call of ``trace_eager`` and ``trace_graph`` where given (the
+    device's busy time and idle share a call; on the card)."""
+    n = 2 if rehearse else GRAPH_REPEATS
+    rec = {"eager_ms": _median_ms(eager_fn, n, device), "replayed_ms": _median_ms(graph_fn, n, device)}
+    if not rehearse:
+        traced = 1 if trace_eager else n  # the calls traced: a request is a few ms
+        rec["trace_eager"] = _trace_epochs(trace_eager or eager_fn, traced, 1)
+        rec["trace_replayed"] = _trace_epochs(trace_graph or graph_fn, traced, 1)
+    return rec
+
+
+def _capture_of(graph) -> dict:
+    return {"capture_ms": graph.capture_ms, "pool_bytes": graph.pool_bytes}
+
+
+def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bool, smi: str, paths: dict) -> dict:
+    """Phase 14 (module docstring): the served and eval paths replayed as
+    CUDA graphs against eager, each bit for bit with equal launches, then
+    timed eager and replayed. In a rehearsal the graphs' plain version runs."""
+    t_phase = time.perf_counter()
+    graphed = "plain" if rehearse else None
+    want = "plain" if rehearse else "cuda graph"
+    out = {}
+
+    # posterior requests at CVS B = 100 and the tiled B = 16,411 on K2 and
+    # K1; the prior and the classifier at B = 100
+    for backend, kernels in SERVE_GRAPH_BACKENDS.items():
+        spec, params, times, splits = serve.load_model("cvs", ckpts[0], _config(data_dir, backend), device)
+        eager = serve.make_predict_fns(spec, times, device, dispatch="eager")
+        replayed = serve.make_predict_fns(spec, times, device, dispatch=graphed)
+        check(replayed[0].dispatch == replayed[1].dispatch == want, f"predict dispatch {replayed[0].dispatch}")
+        test = splits["test"]
+        for B in (test["observations"].shape[0], 64 if rehearse else BIG_B):
+            case = f"served cvs {backend} B={B}"
+            idx = np.arange(B) % test["observations"].shape[0]
+            batch = {k: torch.as_tensor(v[idx], device=device) for k, v in test.items()}
+            batch["sample_id"] = torch.arange(B, device=device)
+            svi._EVAL_FN_GRAPHS.clear()  # fresh captures: their times and pools
+            rec = {"replays": _held_replays(paths, f"{case} posterior", kernels, rehearse,
+                                            lambda: eager[0](params, 3, batch, True),
+                                            lambda: replayed[0](params, 3, batch, True), _outputs_equal)}
+            rec.update(_capture_of(_fn_graphs()[0]))
+            if B == test["observations"].shape[0]:
+                _held_replays(paths, f"{case} prior", kernels, rehearse, lambda: eager[0](params, 4, batch, False),
+                              lambda: replayed[0](params, 4, batch, False), _outputs_equal)
+                obs = batch["observations"]
+                _held_replays(paths, f"{case} classify", (), rehearse, lambda: eager[1](params, 5, obs),
+                              lambda: replayed[1](params, 5, obs), _outputs_equal)
+            rec.update(_timed_both(device, rehearse, lambda: eager[0](params, 0, batch, True),
+                                   lambda: replayed[0](params, 0, batch, True)))
+            out[case] = rec
+            print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+
+    # serve.main, eager and replayed: CVS (test split, 100), proc (val fold,
+    # 78) and challenge (val fold, 7) on semilinear_fused, the ensemble mean
+    # of two checkpoints with --classify, posterior and prior
+    for wl in ("cvs", "proc", "challenge"):
+        cfg = _config(data_dir, "semilinear_fused") if wl == "cvs" else _workload_config(wl, "semilinear_fused")
+        if wl == "cvs":
+            members = ckpts
+        else:
+            spec = serve._build(wl, cfg, device)[0]
+            members = []
+            for seed in (0, 1):
+                members.append(os.path.join(workdir, f"served-graphs-{wl}-{seed}.npz"))
+                checkpoint.save(members[-1], params_to_jax(init_params(spec, seed, device=device)))
+        for prior in (False, True):
+            case = f"served main {wl} {'prior' if prior else 'posterior'}"
+            argv = ["--dataset", wl, "--checkpoint", *members, "--classify", "--device", str(device)]
+            argv += ["--prior"] if prior else []
+
+            def main_run(dispatch, tag):
+                with forced_dispatch(dispatch):
+                    return printed(lambda: serve.main(
+                        argv + ["--output", os.path.join(workdir, f"{case.replace(' ', '-')}-{tag}.npz")],
+                        config=cfg.copy()))
+
+            ref, text = counted(paths, f"{case} eager", ("K2",), rehearse, lambda: main_run("eager", "eager"))
+            check(text.count("predict dispatch: eager\n") == 1, f"{case} eager: printed {text!r}")
+            replays = graphs.Graph.replays
+            got, text = counted(paths, f"{case} replayed", ("K2",), rehearse, lambda: main_run(graphed, "replayed"))
+            check(text.count(f"predict dispatch: {want}\n") == 1, f"{case}: printed {text!r}")
+            check(rehearse or graphs.Graph.replays > replays, f"{case}: no CUDA graph replayed")
+            check(_outputs_equal(ref, got), f"{case}: serve.main replayed differs from eager")
+            check(paths[f"{case} eager"] == paths[f"{case} replayed"], f"{case}: launches differ from eager")
+            out[case] = {"replays": graphs.Graph.replays - replays, "mu_50": list(got["mu_50"].shape)}
+            print(f"== {case}: two checkpoints with --classify through serve.main, replayed bit for bit eager, "
+                  f"launches equal; {json.dumps(out[case])}", flush=True)
+        if wl != "cvs":  # a request at the workload's val fold, timed
+            spec, params, times, splits = serve.load_model(wl, members[0], cfg, device)
+            eager = serve.make_predict_fns(spec, times, device, dispatch="eager")
+            replayed = serve.make_predict_fns(spec, times, device, dispatch=graphed)
+            batch = {k: torch.as_tensor(v, device=device) for k, v in splits["val"].items()}
+            case = f"served {wl} semilinear_fused B={batch['observations'].shape[0]}"
+            svi._EVAL_FN_GRAPHS.clear()
+            rec = {"replays": _held_replays(paths, f"{case} posterior", ("K2",), rehearse,
+                                            lambda: eager[0](params, 3, batch, True),
+                                            lambda: replayed[0](params, 3, batch, True), _outputs_equal)}
+            rec.update(_capture_of(_fn_graphs()[0]))
+            rec.update(_timed_both(device, rehearse, lambda: eager[0](params, 0, batch, True),
+                                   lambda: replayed[0](params, 0, batch, True)))
+            out[case] = rec
+            print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+
+    # the final test evaluation at CVS (eval_split over the test split,
+    # posterior and prior) through the eval functions
+    cfg = _config(data_dir, "semilinear_fused")
+    spec, params, times, splits = serve.load_model("cvs", ckpts[0], cfg, device)
+    ts = torch.as_tensor(times, device=device)
+    eager_fns, graph_fns = svi.make_eval_fns(spec, ts, dispatch="eager"), svi.make_eval_fns(spec, ts, dispatch=graphed)
+    check({f.dispatch for f in graph_fns} == {want}, f"eval dispatch {graph_fns[0].dispatch}")
+    svi._EVAL_FN_GRAPHS.clear()
+    case = "final_test_eval cvs semilinear_fused"
+
+    def final(fns):
+        return final_test_eval(spec, params, 6, splits["test"], fns, cfg.mini_batch_size)
+
+    rec = {"replays": _held_replays(paths, case, ("K2",), rehearse, lambda: final(eager_fns),
+                                    lambda: final(graph_fns), _stats_equal)}
+    rec["captures"] = [_capture_of(g) for g in _fn_graphs()]
+    rec.update(_timed_both(device, rehearse, lambda: final(eager_fns), lambda: final(graph_fns)))
+    out[case] = rec
+    print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+
+    # proc's sample bands: BANDS draws a mode, posterior and prior
+    pcfg = _workload_config("proc", "semilinear_fused")
+    pspec, psplits, ptimes = serve._build("proc", pcfg, device)
+    pts = torch.as_tensor(np.asarray(ptimes, dtype=np.float32), device=device)
+    pparams = init_params(pspec, 0, device=device)
+    p_eager, p_graph = svi.make_eval_fns(pspec, pts, dispatch="eager"), svi.make_eval_fns(pspec, pts, dispatch=graphed)
+    draws = 2 if rehearse else BANDS
+    svi._EVAL_FN_GRAPHS.clear()
+    case = f"sample bands proc semilinear_fused x{draws}"
+    dirs = {}
+
+    def bands(fns, tag, n=draws):
+        dirs[tag] = os.path.join(workdir, f"bands-{tag}")
+        os.makedirs(dirs[tag], exist_ok=True)
+        training_challenge.dump_sample_bands(dirs[tag], fns[2], pparams, fold_seed(7, "samples"), psplits["val"], n,
+                                        device)
+
+    counted(paths, f"{case} eager", ("K2",), rehearse, lambda: bands(p_eager, "eager"))
+    replays = graphs.Graph.replays
+    counted(paths, f"{case} replayed", ("K2",), rehearse, lambda: bands(p_graph, "replayed"))
+    check(paths[f"{case} eager"] == paths[f"{case} replayed"], f"{case}: launches differ from eager")
+    rec = {"replays": graphs.Graph.replays - replays, "arrays": _bit_equal(dirs["eager"], dirs["replayed"], case)}
+    check(rehearse or rec["replays"] >= 2 * draws - 2, f"{case}: {rec['replays']} replays")
+    rec["captures"] = [_capture_of(g) for g in _fn_graphs()]
+    traced = 2 if rehearse else BANDS_TRACED
+    rec.update(_timed_both(device, rehearse, lambda: bands(p_eager, "eager"), lambda: bands(p_graph, "replayed"),
+                           lambda: bands(p_eager, "eager", traced), lambda: bands(p_graph, "replayed", traced)))
+    rec["traced_draws"] = traced
+    out[case] = rec
+    print(f"{case}: the bands replayed bit for bit eager ({rec['arrays']} arrays), launches equal; "
+          f"{json.dumps(rec)} ({smi})", flush=True)
+
+    # the sweep's selection prior L1 of a two-member CVS sweep
+    scfg = _sweep_config("cvs", data_dir, "semilinear_fused", 0)
+    members = [sweep.prepare_member("cvs", scfg, seed, device) for seed in (12, 13)]
+    mts = torch.as_tensor(members[0]["times"], device=device)
+    s_eager = svi.make_eval_fns(members[0]["spec"], mts, dispatch="eager")
+    s_graph = svi.make_eval_fns(members[0]["spec"], mts, dispatch=graphed)
+    svi._EVAL_FN_GRAPHS.clear()
+    case = "selection_prior_l1 cvs x2"
+
+    def selection(fns):
+        return [sweep.selection_prior_l1(m, m["params"], fns[2]) for m in members]
+
+    rec = {"replays": _held_replays(paths, case, ("K2",), rehearse, lambda: selection(s_eager),
+                                    lambda: selection(s_graph), lambda a, b: a == b)}
+    rec.update(_timed_both(device, rehearse, lambda: selection(s_eager), lambda: selection(s_graph)))
+    rec["l1"] = selection(s_graph)
+    out[case] = rec
+    print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
+    svi._EVAL_FN_GRAPHS.clear()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"== phase 14 took {out['wall_s']:.1f} s ({smi})", flush=True)
+    return out
+
 def phase_trace(device, workdir: str, data_dir: str, rehearse: bool, paths: dict):
     """A CVS run on semilinear_fused with --profile-dir: the trace of epoch 1
     parses, and its device events name K2's and K3's kernels."""
@@ -2543,6 +2825,7 @@ DP_GRAD_TOL = 1e-5
 ENS_RTOL, ENS_ATOL, ENS_CRIT_RTOL = 1e-5, 1e-7, 1e-6
 STACKED_RTOL, STACKED_ATOL = 2e-4, 1e-6
 RANK_STEPS = 5  # timed dual steps per case, after the counted one
+GRAPH_STEPS = 4  # minibatches a replayed data-parallel epoch
 # intra-op threads per rank, a limit on the host's load only (two ranks on
 # the machine's 8 cores): since init_params' QR runs at one thread (nn/init.py),
 # no result depends on it
@@ -2550,7 +2833,9 @@ RANK_THREADS = 4
 
 
 def _np_tree(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """A copy of a tree of tensors in numpy (on the CPU a tensor's numpy()
+    shares its memory, which a graph's next replay overwrites)."""
+    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
 def _sync(device) -> None:
@@ -2636,10 +2921,66 @@ def _rank_dp_step(c: dict):
     counts = read_counts()
     out = {"params": _np_tree(new.params), "loss_main": float(mets["loss_main"]),
            "loss_aux": float(mets["loss_aux"]), "counts": counts, "rows": int(batch["mask"].shape[0]),
+           "dispatch": svi.epoch_dispatch(spec, device, mesh_module.data_reduce(grid)),
            "grads": [_np_tree(seen[0]), _np_tree(seen[1][0])],
            "ms": _dual_step_ms(step, new, batch, c["steps"], device)}
     if c.get("time_reduce"):
         out["reduce_ms"] = _reduce_ms(step, new, batch, c["steps"], device)
+    return out
+
+
+def _rank_dp_graphs(c: dict):
+    """On each rank of the data-parallel grid over ranks ``c['ranks']``
+    (groups of ``c['group_backend']``, None: the world's), at workload
+    ``c['workload']`` on ``c['backend']``: two training epochs over this
+    rank's slice of the stacked epoch ``c['stack']`` from one state, then
+    the eval epoch (posterior and prior, twice) over its slice of
+    ``c['val']`` at their params, each way: eager, and as
+    ``svi.epoch_dispatch`` picks for the data group's reduce
+    (``c['graphed']``: 'plain' in a rehearsal), a CUDA graph over NCCL,
+    which replays 2 * GRAPH_STEPS - 1 steps and each eval epoch's second
+    call. Per way the params, Adam's moments, the per-step
+    metrics, the statistics, the launches and the replays; then the median
+    of ``c['steps']`` epochs each way a step (host clock to a synchronize)
+    and, with ``c['trace']``, one replayed epoch traced (the NCCL kernels'
+    device time a step among its numbers). A rank outside the grid returns
+    None."""
+    grid = make_mesh(len(c["ranks"]), 1, ranks=c["ranks"], backend=c["group_backend"])
+    if grid is None:
+        return None
+    device = resolve_device(c["device"])
+    full_fp32(deterministic=True)
+    spec = _rank_spec(c["workload"], c["data_dir"], c["backend"])
+    params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
+    ts = torch.as_tensor(c["times"], device=device)
+    reduce = mesh_module.data_reduce(grid)
+    stack = device_batch(shard_stacked(grid, c["stack"]), device)
+    val = device_batch(shard_stacked(grid, c["val"]), device)
+    steps = int(stack["mask"].shape[0])
+    out = {"rows": int(stack["mask"].shape[1]), "reduce": [reduce.backend, reduce.capturable]}
+    epochs = {}
+    for way, dispatch in (("eager", "eager"), ("replayed", c["graphed"])):
+        init_state, _, train_epoch = svi.make_train_step(spec, ts, c["lr"], params, reduce=reduce, dispatch=dispatch)
+        eval_epoch = svi.make_eval_epoch(spec, ts, reduce=reduce, dispatch=dispatch)
+        zero_counts()
+        replays = graphs.Graph.replays
+        state, mets = init_state(params, c["seed"]), []
+        for _ in range(2):
+            state, m = train_epoch(state, stack)
+            mets.append(_np_tree(m))
+        for _ in range(2):  # a graph's eager first call, then its capture and replay
+            stats = [_np_tree(eval_epoch(state.params, 7, val, is_post)) for is_post in (True, False)]
+        _sync(device)
+        out[way] = {"params": _np_tree(state.params), "moments": _np_tree([state.opt.mu, state.opt.nu]),
+                    "metrics": mets, "stats": stats, "counts": read_counts(), "replays": graphs.Graph.replays - replays,
+                    "dispatch": [train_epoch.dispatch, eval_epoch.dispatch]}
+        epochs[way] = train_epoch, state
+    (e_epoch, e_state), (g_epoch, g_state) = epochs["eager"], epochs["replayed"]
+    e_state = svi.own_state(e_state)
+    out["step_ms"] = {"eager": _median_ms(lambda: e_epoch(e_state, stack), c["steps"], device) / steps,
+                      "replayed": _median_ms(lambda: g_epoch(g_state, stack), c["steps"], device) / steps}
+    if c.get("trace"):
+        out["trace_replayed"] = _trace_epochs(lambda: g_epoch(g_state, stack), 1, steps)
     return out
 
 
@@ -2661,7 +3002,7 @@ def _rank_tp_case(c: dict):
     ts = torch.as_tensor(c["times"], device=device)
     batch = device_batch(c["batch"], device)
     rows = device_batch(shard_batch(grid, c["batch"]), device)
-    out = {}
+    out = {"dispatch": svi.epoch_dispatch(spec, device, mesh_module.data_reduce(grid))}
     with timepar.time_sharding(grid):
         zero_counts()
         with torch.no_grad():
@@ -2802,6 +3143,10 @@ class RankInputs:
         self.steps = 2 if rehearse else RANK_STEPS
         self.base = dict(params=_np_tree(params), batch=batch, times=times, seed=seed, lr=lr, data_dir=data_dir,
                          steps=self.steps, workload=wl)
+        # the replayed epochs' inputs: the first GRAPH_STEPS minibatches of the
+        # training split, and the val split, at B
+        self.stack = {k: v[:GRAPH_STEPS] for k, v in stacked_minibatches(splits["train"], B, shuffle=False).items()}
+        self.val = stacked_minibatches(splits["val"], B, shuffle=False)
         self.long_t = 256 if rehearse else LONG_T
         D = w["D"]
         gen = torch.Generator().manual_seed(10)
@@ -2819,6 +3164,79 @@ class RankInputs:
 
     def tp_case(self, pool_device: str, grid) -> dict:
         return dict(self.base, device=pool_device, grid=grid, z=self.z.numpy(), long=[t.numpy() for t in self.long])
+
+
+def _one_device_epochs(inp: RankInputs, backend: str, dispatch="eager") -> dict:
+    """What :func:`_rank_dp_graphs` returns of a way, on one device without
+    ranks: two training epochs over ``inp.stack`` and the eval epoch over
+    ``inp.val`` at ``dispatch`` (None: a CUDA graph on the card); and the
+    median of ``inp.steps`` epochs a step."""
+    spec = _rank_spec(inp.wl, inp.base["data_dir"], backend)
+    device = inp.ts.device
+    stack, val = device_batch(inp.stack, device), device_batch(inp.val, device)
+    init_state, _, epoch = svi.make_train_step(spec, inp.ts, inp.base["lr"], inp.params, dispatch=dispatch)
+    eval_epoch = svi.make_eval_epoch(spec, inp.ts, dispatch=dispatch)
+    state, mets = init_state(inp.params, inp.base["seed"]), []
+    for _ in range(2):
+        state, m = epoch(state, stack)
+        mets.append(_np_tree(m))
+    out = {"params": _np_tree(state.params), "moments": _np_tree([state.opt.mu, state.opt.nu]), "metrics": mets,
+           "stats": [_np_tree(eval_epoch(state.params, 7, val, is_post)) for is_post in (True, False)]}
+    steps = int(stack["mask"].shape[0])
+    out["step_ms"] = _median_ms(lambda: epoch(state, stack), inp.steps, device) / steps
+    return out
+
+
+def _np_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(np.array_equal(x, y) for x, y in zip(la, lb))
+
+
+def _hold_dp_graphs(name: str, outs, backend: str, paths: dict, rehearse: bool, ref=None) -> dict:
+    """:func:`_rank_dp_graphs` on every rank: the replayed way dispatched as
+    a CUDA graph and replaying, its launches the eager way's and
+    ``backend``'s; the ranks' replayed params, moments, metrics and
+    statistics bit for bit each other's; replay against eager bit for bit,
+    or else within the data-parallel step's params bound (the ratio is
+    returned); with ``ref`` (a group of one), bit for bit the one-device
+    epochs."""
+    want = "plain" if rehearse else "cuda graph"
+    keys = ("params", "moments", "metrics", "stats")
+    worst, bit = 0.0, True
+    for r, o in enumerate(outs):
+        e, g = o["eager"], o["replayed"]
+        check(e["dispatch"] == ["eager", "eager"] and g["dispatch"] == [want, want],
+              f"{name} rank {r}: dispatch {e['dispatch']}, {g['dispatch']}")
+        check(rehearse or g["replays"] == 2 * GRAPH_STEPS + 1,
+              f"{name} rank {r}: {g['replays']} CUDA graph replays, not {2 * GRAPH_STEPS + 1}")
+        check(e["counts"] == g["counts"], f"{name} rank {r}: launches {g['counts']} replayed, {e['counts']} eager")
+        _check_rank_counts(paths, f"ranks {name} rank{r}", g["counts"], TRAINING[backend], rehearse)
+        same = all(_np_equal(e[k], g[k]) for k in keys)
+        bit = bit and same
+        if not same:
+            worst = max(worst, max(ratio(torch.as_tensor(x), torch.as_tensor(y), DP_PARAM_ATOL, DP_PARAM_RTOL)
+                                   for x, y in zip(tree_leaves([g["params"], g["moments"]]),
+                                                   tree_leaves([e["params"], e["moments"]]))))
+        if ref is not None:
+            check(all(_np_equal(g[k], ref[k]) and _np_equal(e[k], ref[k]) for k in keys),
+                  f"{name} rank {r}: differs from the one-device epochs")
+    check(all(all(_np_equal(o["replayed"][k], outs[0]["replayed"][k]) for k in keys) for o in outs[1:]),
+          f"{name}: the ranks' replayed epochs differ")
+    check(worst <= 1.0, f"{name}: replay against eager {worst:.3e} of the params bound")
+    print(f"{name}: {len(outs)} rank(s), replayed ({[o['replayed']['replays'] for o in outs]} replays) "
+          f"{'bit for bit' if bit else f'within {worst:.3e} of the params bound of'} eager, the ranks bit for bit "
+          f"each other, launches equal", flush=True)
+    return {"bit_equal": bit, "params_bound_ratio": worst, "replays": [o["replayed"]["replays"] for o in outs],
+            "step_ms": [o["step_ms"] for o in outs],
+            **({"trace_replayed": [o["trace_replayed"] for o in outs]} if "trace_replayed" in outs[0] else {})}
+
+
+def _check_rank_dispatch(name: str, outs, reason: str, rehearse: bool) -> None:
+    """Each rank's epoch dispatch (``svi.epoch_dispatch`` for its data
+    group's reduce) begins with ``reason`` (on the card)."""
+    got = [o["dispatch"] for o in outs]
+    print(f"{name}: epoch dispatch {got[0]}", flush=True)
+    check(rehearse or all(d.startswith(reason) for d in got), f"{name}: epoch dispatch {got}, not {reason!r}")
 
 
 def _wl_tag(wl: str) -> str:
@@ -2944,6 +3362,15 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         _check_rank_counts(paths, "ranks nccl world 1 semilinear_fused", a["counts"], TRAINING["semilinear_fused"],
                            rehearse)
         res["nccl_world1"] = {"bit_equal": same, "ms": a["ms"]}
+        check(rehearse or a["dispatch"] == "cuda graph", f"(a) the NCCL group of one dispatches {a['dispatch']}")
+        # its training and eval epochs replayed, bit for bit one device's
+        outs = pool.run(_rank_dp_graphs, dict(base, ranks=[0], group_backend="gloo" if rehearse else "nccl",
+                                              backend="semilinear_fused", stack=inp.stack, val=inp.val,
+                                              graphed="plain" if rehearse else None))[:1]
+        one = _one_device_epochs(inp, "semilinear_fused")
+        res["nccl_world1"]["graphs"] = _hold_dp_graphs(
+            f"(a) two epochs of {GRAPH_STEPS} steps and the eval epochs through an NCCL group of one, bit for bit one "
+            "device", outs, "semilinear_fused", paths, rehearse, ref=one)
 
         # (b) two gloo ranks on the card, half the batch each, at each workload
         for wl, w_inp in inputs.items():
@@ -2952,6 +3379,7 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                 outs = pool.run(_rank_dp_step, dict(w_inp.base, device=pool_device, ranks=[0, 1],
                                                     group_backend="gloo", backend=backend))
                 worst = _hold_dp(f"(b) {tag}dp2 gloo {backend}", outs, w_inp, backend, paths, rehearse)
+                _check_rank_dispatch(f"(b) {tag}dp2 gloo {backend}", outs, "eager (ranks over gloo: ", rehearse)
                 print(f"(b) {tag}data-parallel 2 {backend} B={w_inp.B}: ranks' params bit for bit equal; median of "
                       f"{w_inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a rank, one device "
                       f"{w_inp.ref_ms[backend]:.3f} ms ({RANKS_LABEL}; {smi})", flush=True)
@@ -2962,6 +3390,7 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
             tag = _wl_tag(wl)
             outs = pool.run(_rank_tp_case, w_inp.tp_case(pool_device, (1, 2)))
             worst = _hold_tp(f"(c) {tag}tp2 gloo", outs, w_inp, paths, rehearse)
+            _check_rank_dispatch(f"(c) {tag}tp2 gloo", outs, "eager (ranks over gloo: ", rehearse)
             print(f"(c) {tag}time-parallel 2 B={w_inp.B}, {w_inp.ts.numel() - 1} steps: median of {w_inp.steps} dual "
                   f"steps {[round(o['ms'], 3) for o in outs]} ms a rank (one device on semilinear "
                   f"{w_inp.ref_ms['semilinear']:.3f} ms); recurrence of {w_inp.long_t} steps "
@@ -3195,6 +3624,7 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                     check(all(o is None for o in outs[n:]), "(a) a rank outside the grid returned a step")
                     outs = outs[:n]
                     worst = _hold_dp(f"(a) {tag}dp{n} {backend}", outs, inp, backend, paths, rehearse)
+                    _check_rank_dispatch(f"(a) {tag}dp{n} {backend}", outs, "plain" if rehearse else "cuda graph", rehearse)
                     print(f"(a) {tag}data-parallel {n} {backend} B={inp.B}: {inp.B // n} rows a rank, ranks' params "
                           f"bit for bit equal; median of {inp.steps} steps {[round(o['ms'], 3) for o in outs]} ms a "
                           f"rank, of which the gradient sums {[round(o['reduce_ms'], 3) for o in outs]} ms (timed "
@@ -3202,6 +3632,26 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                           flush=True)
                     rec[f"cards_{n}"] = {"ms": [o["ms"] for o in outs], "reduce_ms": [o["reduce_ms"] for o in outs],
                                          "worst": worst}
+
+        # (a') the data-parallel training and eval epochs replayed as CUDA
+        # graphs over four cards and over two, at CVS, against eager and
+        # beside one card's replayed epochs; one replayed epoch traced
+        inp = inputs["cvs"]
+        for backend in ("semilinear_fused", "semilinear"):
+            one = _one_device_epochs(inp, backend, "plain" if rehearse else None)
+            rec = res[f"dp_graphs_{backend}"] = {"one_card_replayed_step_ms": one["step_ms"]}
+            for n in (CARDS, 2):
+                outs = pool.run(_rank_dp_graphs, dict(inp.base, device=pool_device, ranks=list(range(n)),
+                                                      group_backend=None, backend=backend, stack=inp.stack,
+                                                      val=inp.val, graphed="plain" if rehearse else None,
+                                                      trace=not rehearse))[:n]
+                held = rec[f"cards_{n}"] = _hold_dp_graphs(f"(a') dp{n} {backend} replayed", outs, backend, paths,
+                                                           rehearse)
+                nccl = [t["nccl_kernels_ms"] for t in held.get("trace_replayed", [])]
+                print(f"(a') data-parallel {n} {backend} B={inp.B}: a replayed dual step "
+                      f"{[round(t['replayed'], 3) for t in held['step_ms']]} ms a rank, eager "
+                      f"{[round(t['eager'], 3) for t in held['step_ms']]} ms; one card replayed {one['step_ms']:.3f} "
+                      f"ms; the NCCL kernels' device time {nccl} ms a step (one trace) ({label}; {smi})", flush=True)
 
         # (b) the horizon over data 2 x time 2 and over time 4, at each
         # workload
@@ -3211,6 +3661,7 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                 name = f"(b) {tag}dp{grid[0]} tp{grid[1]}"
                 outs = pool.run(_rank_tp_case, inp.tp_case(pool_device, grid))
                 worst = _hold_tp(name, outs, inp, paths, rehearse)
+                _check_rank_dispatch(name, outs, "eager (semilinear_timepar: ", rehearse)
                 print(f"{name} B={inp.B}, {inp.ts.numel() - 1} steps: median of {inp.steps} dual steps "
                       f"{[round(o['ms'], 3) for o in outs]} ms a rank (one card on semilinear "
                       f"{inp.ref_ms['semilinear']:.3f} ms); recurrence of {inp.long_t} steps over {grid[1]} time "
@@ -3257,9 +3708,9 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
                         _check_rank_counts(paths, f"cards {name} run {i} rank{r}", o["counts"],
                                            SWEEP["semilinear_fused"] if r == 0 else STACKED["semilinear_fused"],
                                            rehearse)
-                        # member ranks alone capture on their cards; data ranks sum over NCCL, eagerly
-                        check(rehearse or (o["replays"] > 0) == (n_data == 1),
-                              f"{name} rank {r}: {o['replays']} CUDA graph replays")
+                        # every rank replays: the member ranks on their cards, the data ranks' sums
+                        # over NCCL inside the graphs
+                        check(rehearse or o["replays"] > 0, f"{name} rank {r}: {o['replays']} CUDA graph replays")
                     runs.append(outs)
                 held = _hold_sweep(f"{name}: {n_members} members", runs[0][0]["result"], grouped[n_members // ens],
                                    stack[0].result, bit_equal=n_data == 1)
@@ -3444,6 +3895,8 @@ def main(argv=None):
         phase("13: the sweeps' epochs as CUDA graphs")
         graphed["sweeps"] = phase_sweep_graphs(device, data_dir, args.rehearse, smi, paths)
         print(f"== phase 13 took {time.perf_counter() - t13:.1f} s ({smi})", flush=True)
+        phase("14: the predict and eval functions as CUDA graphs")
+        graphed["served"] = phase_served_graphs(device, workdir, data_dir, ckpts, args.rehearse, smi, paths)
         phase("done")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

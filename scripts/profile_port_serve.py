@@ -6,12 +6,16 @@
 Serves the CVS posterior request (the repo's full CVS model, random weights
 from seed 0) at B = 100 (the whole test split) and at B = 16,411 (the split
 tiled, distinct sample ids) on each ported ODE backend, and reads a
-torch.profiler trace of REPEATS requests after warm-up. Per request it
-reports the wall time (host clock, ending in a synchronize), the device busy
-time (the sum of the device operations on the one stream), the device idle
-share, the number of device operations, the kernels that take the most
-device time, and the device time of the port's own kernels (K1 to K3). Needs
-a CUDA card; imports nothing of JAX.
+torch.profiler trace of REPEATS requests after warm-up, eager and replayed
+as a CUDA graph (``serve.make_predict_fns``' default on the card; the
+warm-up runs the graph's eager first call, its capture and a replay). Per
+request it reports the wall time (host clock, ending in a synchronize), the
+device busy time (the sum of the device operations on the one stream), the
+device idle share, the number of device operations, the kernels and copies
+that take the most device time, and the device time of the port's own
+kernels (K1 to K3); and a replayed request taken apart: the copies into
+the graph's buffers, the replay, the copies out. Needs a CUDA card; imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,16 +41,19 @@ from structured_latent_odes_tpu_torch import serve  # noqa: E402
 from structured_latent_odes_tpu_torch.data.configs import load_cvs_config  # noqa: E402
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset  # noqa: E402
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params  # noqa: E402
+from structured_latent_odes_tpu_torch.train import svi  # noqa: E402
 from structured_latent_odes_tpu_torch.training_cvs import build_splits  # noqa: E402
 
 REPEATS = 5
+TOP = 8  # the device operations reported by name
 BACKENDS = ("semilinear", "semilinear_fused", "semilinear_seq")
 PORT_KERNELS = ("affine_scan_fwd_kernel", "affine_scan_bwd_kernel",
                 "fused_semilinear_fwd_kernel", "fused_semilinear_bwd_kernel")
 
 
 def profile_request(request, repeats: int):
-    request()
+    for _ in range(3):  # a graph's eager first call, its capture, a replay
+        request()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -66,7 +73,7 @@ def profile_request(request, repeats: int):
     if n_ops == 0:
         raise SystemExit("the profiler recorded no device operation")
     busy_ms = busy_us / 1e3 / repeats
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:5]
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:TOP]
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
@@ -78,6 +85,35 @@ def profile_request(request, repeats: int):
             for k in PORT_KERNELS
         },
     }
+
+
+def replay_parts(spec, recon_fn, params, batch, repeats: int):
+    """A replayed request taken apart (``train/svi.py::_EvalGraph``): the
+    copies of the params, the seed and the batch into the graph's buffers,
+    the replay, and the copies of the outputs; median host ms of each, a
+    synchronize after each part."""
+    recon_fn(params, 0, batch, True)
+    (graph,) = [g for k, g in svi._EVAL_FN_GRAPHS._d.items() if k[0] == spec and k[-2] == ("recon", True)
+                and k[-1] == svi._signature(batch)]
+    seed = svi.seed_tensor([0], batch["observations"].device)[0]
+    parts = {"copy_in_ms": [], "replay_ms": [], "copy_out_ms": []}
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svi._copy_in(svi.tree_leaves(graph.params), svi.tree_leaves(params))
+        svi._copy_in([graph.batches[k] for k in sorted(graph.batches)], [batch[k] for k in sorted(batch)])
+        graph.seeds.copy_(seed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = graph.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        svi.tree_map(torch.clone, out)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, (a, b) in zip(parts, ((t0, t1), (t1, t2), (t2, t3))):
+            parts[k].append((b - a) * 1e3)
+    return {k: float(np.median(v)) for k, v in parts.items()}
 
 
 def main(argv=None):
@@ -107,15 +143,18 @@ def main(argv=None):
             cfg.ode_backend = backend
             spec = cvs_spec(cfg)
             params = init_params(spec, 0, device=device)
-            recon_fn, _ = serve.make_predict_fns(spec, times, device)
-            for B in (test["observations"].shape[0], 16411):
-                idx = np.arange(B) % test["observations"].shape[0]
-                batch = {k: torch.as_tensor(v[idx], device=device) for k, v in test.items()}
-                batch["sample_id"] = torch.arange(B, device=device)
-                r = profile_request(lambda: recon_fn(params, 0, batch, True), REPEATS)
-                r.update(backend=backend, batch=B, card=card)
-                results.append(r)
-                print(json.dumps(r), flush=True)
+            for dispatch in ("eager", None):
+                recon_fn, _ = serve.make_predict_fns(spec, times, device, dispatch=dispatch)
+                for B in (test["observations"].shape[0], 16411):
+                    idx = np.arange(B) % test["observations"].shape[0]
+                    batch = {k: torch.as_tensor(v[idx], device=device) for k, v in test.items()}
+                    batch["sample_id"] = torch.arange(B, device=device)
+                    r = profile_request(lambda: recon_fn(params, 0, batch, True), REPEATS)
+                    if dispatch is None:
+                        r["replay_parts"] = replay_parts(spec, recon_fn, params, batch, REPEATS)
+                    r.update(backend=backend, batch=B, dispatch=recon_fn.dispatch, card=card)
+                    results.append(r)
+                    print(json.dumps(r), flush=True)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     if args.json:

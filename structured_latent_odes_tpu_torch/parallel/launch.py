@@ -33,6 +33,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from structured_latent_odes_tpu_torch.utils import memo
+
 # a collective waits at most this long for its peers
 DEFAULT_TIMEOUT_S = 600
 _TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
@@ -75,6 +77,18 @@ def _barrier() -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def _leave_group() -> None:
+    """Destroy this process's group, after dropping every captured CUDA
+    graph (``utils/memo.py::clear_all``): NCCL does not destroy a
+    communicator while a graph that captured its collectives is alive, and
+    on four H100s ranks that still held such graphs did not leave
+    ``destroy_process_group`` before their pool killed them."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    memo.clear_all()
+    dist.destroy_process_group()
 
 
 def _free_port() -> int:
@@ -133,7 +147,7 @@ def _rank_loop(rank: int, world: int, addr: str, backend: str, device: str, time
             except BaseException:  # noqa: BLE001 - reported to the parent, which raises
                 results.put((rank, False, traceback.format_exc()))
     finally:
-        dist.destroy_process_group()
+        _leave_group()
 
 
 class RankPool:
@@ -235,6 +249,6 @@ def run_ranks(fn: Callable, world: int, *, device, args=(), backend: Optional[st
         try:
             return fn(*args)
         finally:
-            dist.destroy_process_group()
+            _leave_group()
     with RankPool(world, device=device, backend=backend, timeout_s=timeout_s, quiet=True) as pool:
         return pool.run(fn, *args, timeout_s=None)[0]

@@ -178,8 +178,18 @@ def all_reduce_tree(tree, group):
 def data_reduce(grid: Optional[Grid]):
     """The sum over the grid's ``data`` group (:func:`all_reduce_tree`) as a
     one-argument function, or None where there is no grid: the ``reduce``
-    hook of ``train/svi.py``'s steps and eval epoch."""
+    hook of ``train/svi.py``'s steps and eval epoch. It names the group's
+    ``backend`` and says whether a CUDA graph can capture it
+    (``capturable``, read by ``svi.epoch_dispatch``): an NCCL sum is a kernel
+    on the card, which a graph records and replays; a gloo sum runs on the
+    host. Inside a capture the flat buffer comes from the graph's pool."""
     if grid is None:
         return None
     group = grid.group("data")
-    return lambda tree: all_reduce_tree(tree, group)
+
+    def reduce(tree):
+        return all_reduce_tree(tree, group)
+
+    reduce.backend = dist.get_backend(group)
+    reduce.capturable = reduce.backend == "nccl"
+    return reduce

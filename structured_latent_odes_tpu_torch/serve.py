@@ -35,15 +35,9 @@ from structured_latent_odes_tpu_torch import training_challenge, training_cvs
 from structured_latent_odes_tpu_torch.data import proc as proc_data
 from structured_latent_odes_tpu_torch.data.configs import LOADERS
 from structured_latent_odes_tpu_torch.interop import params_from_jax, params_to_jax
-from structured_latent_odes_tpu_torch.models import (
-    challenge_spec,
-    classifier,
-    cvs_spec,
-    init_params,
-    proc_spec,
-    recon,
-)
+from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
 from structured_latent_odes_tpu_torch.train import checkpoint
+from structured_latent_odes_tpu_torch.train.svi import make_eval_fns
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 
 
@@ -77,20 +71,25 @@ def load_model(dataset: str, checkpoint_path: str, config=None, device="cuda"):
     return spec, params, times, splits
 
 
-def make_predict_fns(spec, times, device="cuda"):
-    """(recon_fn, classify_fn) for serving, on tensors on ``device``. Each
-    takes the ``noise=`` of :func:`recon` and :func:`classifier`."""
+def make_predict_fns(spec, times, device="cuda", dispatch=None):
+    """(recon_fn, classify_fn) for serving, on tensors on ``device``:
+    ``recon_fn(params, seed, batch, is_post, noise=None)`` and
+    ``classify_fn(params, seed, obs, noise=None)``, with the ``noise=`` of
+    ``models.recon`` and ``models.classifier``. On a CUDA card, where the ODE
+    backend can be captured, each replays a CUDA graph (the JAX package's
+    jitted predict functions): ``train/svi.py::make_eval_fns``'s, one for
+    each ``is_post`` and batch signature, one for each observation shape,
+    the noise's signature joining either; the first call of each runs
+    eagerly. ``dispatch`` as for ``make_eval_fns``; ``recon_fn.dispatch``
+    and ``classify_fn.dispatch`` name the choice."""
     full_fp32()
     ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=resolve_device(device))
+    _, classify, recon_fn = make_eval_fns(spec, ts, dispatch)
 
-    @torch.inference_mode()
-    def recon_fn(params, seed, batch, is_post, noise=None):
-        return recon(spec, params, seed, batch, ts, is_post, noise=noise)
-
-    @torch.inference_mode()
     def classify_fn(params, seed, obs, noise=None):
-        return classifier(spec, params, seed, obs, noise=noise)
+        return classify(params, seed, {"observations": obs}, noise=noise)
 
+    classify_fn.dispatch = classify.dispatch
     return recon_fn, classify_fn
 
 
@@ -146,6 +145,7 @@ def main(argv=None, config=None):
     split = splits.get(args.split) or splits["val"]
     batch = {k: torch.as_tensor(v, device=device) for k, v in split.items()}
     recon_fn, classify_fn = make_predict_fns(spec, times, device)
+    print(f"predict dispatch: {recon_fn.dispatch}")
 
     rs = [_numpy(recon_fn(p, args.seed, batch, not args.prior)) for p in params_list]
     out = {k: np.mean([r[k] for r in rs], axis=0) for k in rs[0] if k != "l1"}

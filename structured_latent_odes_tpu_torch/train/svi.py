@@ -14,10 +14,12 @@ Adams, one per loss.
 The step is a Python function and an epoch a loop over the stacked
 minibatches on the device. Parameters are nested dicts of tensors, which the
 eager step replaces (it updates none in place). On a CUDA device, where the
-spec's solve can be captured and no ranks reduce (:func:`epoch_dispatch`),
-``train_epoch`` replays the dual step as a CUDA graph
-(``utils/graphs.py``), and ``eval_epoch`` a whole split as one graph: the
-counterpart of the JAX package's jitted ``lax.scan`` epochs. The graphs keep
+spec's solve can be captured and the ranks' sums, if any, too (NCCL's;
+:func:`epoch_dispatch`), ``train_epoch`` replays the dual step as a CUDA
+graph (``utils/graphs.py``), ``eval_epoch`` a whole split as one graph,
+and each of :func:`make_eval_fns`' functions (which serving's predict
+functions are) one call: the counterpart of the JAX package's jitted
+``lax.scan`` epochs and eval functions. The graphs keep
 the state in buffers that each replay overwrites in place, as JAX's
 ``donate_argnums=0`` donates the state; they are memoized in a
 ``BoundedMemo`` (``utils/memo.py``), as the JAX package memoizes its jitted
@@ -399,9 +401,12 @@ def _with_counts(opt, counts_of):
 
 
 def _copy_in(dst, src) -> None:
-    for d, s in zip(dst, src):
-        if d is not s:
-            d.copy_(s)
+    """Each ``src`` tensor into its ``dst`` buffer (skipping a buffer given
+    itself) as one multi-tensor copy: a graph's params are some 40 small
+    leaves, and a launch for each cost the host more than the replay."""
+    pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
 
 
 def _signature(batch):
@@ -419,17 +424,22 @@ _EVAL_GRAPHS = BoundedMemo()
 
 
 def epoch_dispatch(spec: ModelSpec, device, reduce: Optional[Callable] = None) -> str:
-    """How ``train_epoch`` and ``eval_epoch`` run: 'cuda graph' on a CUDA
-    device when the spec's solve can be captured
-    (``nn/ode_model.py::solve_is_capturable``) and no ranks reduce, else
-    'eager (<reason>)'. The sums over ranks (gloo, and NCCL here) are not
-    captured."""
+    """How ``train_epoch``, ``eval_epoch`` and the eval functions run: 'cuda
+    graph' on a CUDA device when the spec's solve can be captured
+    (``nn/ode_model.py::solve_is_capturable``) and, where ranks reduce, the
+    reduce can be captured too, else 'eager (<reason>)'. A reduce says so in
+    its ``capturable`` attribute (``parallel/mesh.py::data_reduce``: an NCCL
+    sum is a kernel on the card, which a graph records; a gloo sum runs on
+    the host, which it cannot), and names its ``backend``."""
     device = torch.device(device)
     backend = spec.decoder.ode.backend
     if device.type != "cuda":
         return f"eager (on {device.type}: a CUDA graph needs a CUDA device)"
-    if reduce is not None:
-        return "eager (ranks: the sums over ranks are not captured)"
+    if reduce is not None and not getattr(reduce, "capturable", False):
+        over = getattr(reduce, "backend", None)
+        if over is None:
+            return "eager (ranks: the reduce is not marked capturable)"
+        return f"eager (ranks over {over}: a {over} sum runs on the host, which a CUDA graph cannot capture)"
     if not solve_is_capturable(spec.decoder.ode):
         return f"eager ({backend}: {NOT_CAPTURABLE[backend]})"
     return "cuda graph"
@@ -543,7 +553,7 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
     dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
     graphed = dispatch in ("cuda graph", "plain")
     key = (spec, _ts_key(ts), int(num_particles), optimizer, float(lr), float(prior_lr_mult), str(device),
-           dispatch) if graphed else None
+           dispatch, reduce) if graphed else None
 
     def init_state(params, seed: int) -> SVIState:
         params = tree_map(lambda p: p.detach().clone(), params)
@@ -658,23 +668,102 @@ def eval_seeds(seed: int):
     return fold_seed(seed, "losses"), fold_seed(seed, "recon"), fold_seed(seed, "classifier")
 
 
-def make_eval_fns(spec: ModelSpec, ts: Tensor):
+_NOISE = "noise/"
+
+
+def _with_noise(inputs, noise):
+    """A function's tensor inputs and its draws (``noise=``, a dict of
+    tensors or of dicts of them) as one flat dict: what a graph copies into
+    its buffers, and whose signature keys it."""
+    if noise is None:
+        return inputs
+    flat = {}
+    for k, v in noise.items():
+        if isinstance(v, dict):
+            flat.update({f"{_NOISE}{k}/{name}": t for name, t in v.items()})
+        else:
+            flat[_NOISE + k] = v
+    return {**inputs, **flat}
+
+
+def _without_noise(inputs):
+    """The inverse of :func:`_with_noise`: (inputs, noise or None)."""
+    noise = {}
+    for k, v in inputs.items():
+        if k.startswith(_NOISE):
+            *outer, name = k[len(_NOISE):].split("/")
+            (noise.setdefault(outer[0], {}) if outer else noise)[name] = v
+    return {k: v for k, v in inputs.items() if not k.startswith(_NOISE)}, noise or None
+
+
+_EVAL_FN_GRAPHS = BoundedMemo()
+
+
+def make_eval_fns(spec: ModelSpec, ts: Tensor, dispatch: Optional[str] = None):
     """Eval-only functions: per-loss ELBO (SVI.evaluate_loss), classifier
-    predictions, posterior/prior reconstruction."""
+    predictions, posterior/prior reconstruction. ``evaluate_losses(params,
+    seed, batch, noise=None)``, ``classify(params, seed, batch, noise=None)``
+    (it reads the batch's observations and sample ids) and
+    ``reconstruct(params, seed, batch, is_post, noise=None)``; ``noise``
+    holds the draws, as ``models.classifier`` and ``models.recon`` take
+    them (``{"main": ..., "aux": ...}`` for the two ELBOs).
+
+    ``dispatch`` as for :func:`make_train_step`; each function's
+    ``dispatch`` names the choice. As a CUDA graph (the JAX package's jitted
+    eval functions, memoized on (spec, ts)) each function is captured once
+    for each ``is_post`` and signature of its inputs (the noise's included)
+    and memoized: a call copies the params, the seed (a host int becomes a
+    0-d int64 tensor, whose draws are the int's) and the inputs into the
+    graph's buffers, replays it and returns copies of its outputs. The
+    first call of each graph runs eagerly (``utils/graphs.py``)."""
+    device = ts.device
+    dispatch = _resolve_dispatch(dispatch, spec, device, None)
+    graphed = dispatch in ("cuda graph", "plain")
+    key = (spec, _ts_key(ts), str(device), dispatch) if graphed else None
+
+    def losses(params, seed, inputs):
+        batch, noise = _without_noise(inputs)
+        noise = noise or {}
+        loss_m, _ = elbo_main(spec, params, fold_seed(seed, "main"), batch, ts, noise=noise.get("main"))
+        return loss_m, elbo_aux(spec, params, fold_seed(seed, "aux"), batch, noise=noise.get("aux"))
+
+    def labels(params, seed, inputs):
+        batch, noise = _without_noise(inputs)
+        return classifier(spec, params, seed, batch["observations"], batch.get("sample_id"), noise=noise)
+
+    def recons(is_post: bool):
+        def body(params, seed, inputs):
+            batch, noise = _without_noise(inputs)
+            return recon(spec, params, seed, batch, ts, is_post, noise=noise)
+        return body
+
+    bodies = {"losses": losses, "classify": labels, ("recon", True): recons(True), ("recon", False): recons(False)}
+
+    def run(name, params, seed, inputs):
+        if not graphed:
+            return bodies[name](params, seed, inputs)
+        if not isinstance(seed, Tensor):
+            seed = seed_tensor([seed], device)[0]
+        # the buffers are plain tensors even where the caller runs in inference mode
+        with torch.inference_mode(False):
+            return graphed_eval(_EVAL_FN_GRAPHS, key + (name,), bodies[name], params, seed, inputs,
+                                plain=dispatch == "plain")
 
     @torch.no_grad()
-    def evaluate_losses(params, seed, batch):
-        loss_m, _ = elbo_main(spec, params, fold_seed(seed, "main"), batch, ts)
-        return loss_m, elbo_aux(spec, params, fold_seed(seed, "aux"), batch)
+    def evaluate_losses(params, seed, batch, noise=None):
+        return tuple(run("losses", params, seed, _with_noise(batch, noise)))
 
     @torch.no_grad()
-    def classify(params, seed, batch):
-        return classifier(spec, params, seed, batch["observations"], batch.get("sample_id"))
+    def classify(params, seed, batch, noise=None):
+        inputs = {k: batch[k] for k in ("observations", "sample_id") if k in batch}
+        return run("classify", params, seed, _with_noise(inputs, noise))
 
     @torch.no_grad()
-    def reconstruct(params, seed, batch, is_post: bool):
-        return recon(spec, params, seed, batch, ts, is_post)
+    def reconstruct(params, seed, batch, is_post: bool, noise=None):
+        return run(("recon", bool(is_post)), params, seed, _with_noise(batch, noise))
 
+    for fn in (evaluate_losses, classify, reconstruct):
+        fn.dispatch = dispatch
     return evaluate_losses, classify, reconstruct
 
 
@@ -728,12 +817,12 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
     params, the split and the seeds into the graph's buffers and replays
     the whole split in one launch (the JAX package's one dispatch per split
     and mode)."""
-    evaluate_losses, classify, reconstruct = make_eval_fns(spec, ts)
+    evaluate_losses, classify, reconstruct = make_eval_fns(spec, ts, dispatch="eager")  # inside this graph
     device = ts.device
     dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
     reduce = reduce or _same
     graphed = dispatch in ("cuda graph", "plain")
-    key = (spec, _ts_key(ts), str(device), dispatch) if graphed else None
+    key = (spec, _ts_key(ts), str(device), dispatch, reduce) if graphed else None
 
     @torch.no_grad()
     def body(params, seeds: Tensor, batches, is_post: bool):

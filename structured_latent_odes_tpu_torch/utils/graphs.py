@@ -4,7 +4,8 @@ PyTorch launches every operation from the host, and a dual step of the
 port's models is some 1,600 small operations: the host, not the card, sets
 its pace. A CUDA graph records the operations once and launches them all in
 one call, the counterpart of the JAX package's ``jax.jit``. ``train/svi.py``
-captures the training step and the eval epochs with :class:`Graph`.
+captures the training step, the eval epochs and the eval functions (which
+serving's predict functions are) with :class:`Graph`.
 
 A captured body must read and write only tensors that outlive it (static
 buffers that the caller fills before each call) and must not read a value on

@@ -14,8 +14,11 @@ graph, and with it its pool, once nothing else holds it.
 
 from __future__ import annotations
 
+import weakref
 from collections import OrderedDict
 from typing import Any, Hashable
+
+_MEMOS: "weakref.WeakSet[BoundedMemo]" = weakref.WeakSet()
 
 
 class BoundedMemo:
@@ -24,6 +27,7 @@ class BoundedMemo:
     def __init__(self, maxsize: int = 8):
         self.maxsize = int(maxsize)
         self._d: OrderedDict = OrderedDict()
+        _MEMOS.add(self)
 
     def get(self, key: Hashable, default: Any = None) -> Any:
         try:
@@ -46,3 +50,11 @@ class BoundedMemo:
 
     def clear(self) -> None:
         self._d.clear()
+
+
+def clear_all() -> None:
+    """Empty every memo, dropping the graphs they hold: a process group
+    whose collectives a graph captured is destroyed only after the graph
+    (``parallel/launch.py``)."""
+    for memo in list(_MEMOS):
+        memo.clear()

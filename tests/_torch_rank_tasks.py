@@ -1,9 +1,10 @@
 """What the ranks of the parallel tests run (tests/test_torch_parallel.py,
-test_torch_timepar.py, test_torch_ensemble_sharded.py): module-level
-functions of one argument, which ``parallel.launch.RankPool`` sends to every
-rank by name. This module imports torch and the port only, so that a
-spawned rank never imports JAX; the tests hold what the ranks return against
-the JAX package in the parent.
+test_torch_timepar.py, test_torch_ensemble_sharded.py,
+test_torch_graph_ranks.py): module-level functions of one argument, which
+``parallel.launch.RankPool`` sends to every rank by name. This module
+imports torch and the port only, so that a spawned rank never imports JAX;
+the tests hold what the ranks return against the JAX package in the
+parent.
 
 A task whose grid covers only some of the ranks (``c["ranks"]``) returns None
 on the others; every rank still calls the grid's constructor, which creates
@@ -20,7 +21,7 @@ from structured_latent_odes_tpu_torch.parallel import timepar
 from structured_latent_odes_tpu_torch.parallel.mesh import data_reduce, make_mesh, shard_batch, shard_stacked
 from structured_latent_odes_tpu_torch.parallel.train import make_dp_eval_step, make_dp_train_step
 from structured_latent_odes_tpu_torch.train.driver import device_batch
-from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch
+from structured_latent_odes_tpu_torch.train.svi import epoch_dispatch, make_eval_epoch, make_train_step
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 
@@ -108,6 +109,37 @@ def dp_eval(c):
             "losses": [float(x) for x in losses]}
 
 
+def dp_graph_epochs(c):
+    """Two data-parallel training epochs over the world's data group, then
+    the eval epoch (posterior and prior) at their params, for each dispatch
+    of ``c["dispatches"]`` ('eager', and 'plain': the graph path's buffers
+    with the graph's plain version): per dispatch the params, the Adam
+    moments, the per-step metrics and the eval statistics; with the
+    dispatch that ``svi.epoch_dispatch`` names for this group's reduce on a
+    CUDA device, and the reduce's marks."""
+    grid = make_mesh(world(), 1)
+    spec, ts = c["spec"], torch.as_tensor(c["ts"])
+    params = params_from_jax(c["params"], "cpu")
+    reduce = data_reduce(grid)
+    stack = device_batch(shard_stacked(grid, c["stack"]), "cpu")
+    val = device_batch(shard_stacked(grid, c["val"]), "cpu")
+    out = {"dispatch": epoch_dispatch(spec, "cuda", reduce), "backend": reduce.backend,
+           "capturable": reduce.capturable}
+    for dispatch in c["dispatches"]:
+        init_state, _, train_epoch = make_train_step(spec, ts, c["lr"], params, reduce=reduce, dispatch=dispatch)
+        eval_epoch = make_eval_epoch(spec, ts, reduce=reduce, dispatch=dispatch)
+        state, mets = init_state(params, 3), []
+        for _ in range(2):
+            state, m = train_epoch(state, stack)
+            mets.append({k: v.clone() for k, v in m.items()})
+        stats = [eval_epoch(state.params, 7, val, is_post) for is_post in (True, False)]
+        out[dispatch] = {"params": [t.clone() for t in tree_leaves(state.params)],
+                         "moments": [t.clone() for t in tree_leaves([state.opt.mu, state.opt.nu])],
+                         "metrics": mets, "stats": stats, "step": state.step,
+                         "dispatches": (train_epoch.dispatch, eval_epoch.dispatch)}
+    return out
+
+
 def _time_grid(c):
     return make_mesh(1, c["n_model"], ranks=c.get("ranks"))
 
@@ -165,7 +197,7 @@ def sweep_ensemble(c):
 
     members = [sweep.prepare_member(c["dataset"], c["config"], s, "cpu") for s in c["seeds"]]
     return sweep.train_ensemble(members, ensemble_parallel=c["ens"], ensemble_data_parallel=c["data"],
-                                device="cpu")
+                                device="cpu", dispatch=c.get("dispatch"))
 
 
 def member_slices(c):

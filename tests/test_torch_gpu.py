@@ -24,6 +24,8 @@ an epoch names K2's and K3's kernels among its device events. The training
 and eval epochs replayed as CUDA graphs are bit for bit the eager ones, with
 the same launches, and so are a sweep's (the stacked step, the val ELBO,
 the prior refit); the trainers replay graphs; a capture that fails raises.
+Serving's predict functions and the eval functions (the final test
+evaluation, the sample bands) replayed are bit for bit the eager ones.
 """
 
 import json
@@ -902,3 +904,76 @@ def test_failed_capture_raises_on_card(cuda):
         graph()
     assert graph.graph is None
     torch.cuda.synchronize()
+
+
+# Serving's predict functions and the eval functions as CUDA graphs
+# (serve.make_predict_fns, svi.make_eval_fns; chip_smoke.py phase 14 at full
+# width): at CVS widths on the same 60 trajectories.
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_predict_fns_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
+    """Posterior, prior and classifier requests, replayed (the first call
+    warms up, the second captures) and eager, bit for bit equal with the
+    kernels' launches equal; the first request made in inference mode, a
+    second on other params at another seed."""
+    from structured_latent_odes_tpu_torch import serve, training_cvs
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    cfg = load_cvs_config()
+    cfg.data_path, cfg.ode_backend = tiny_cvs, backend
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    times = np.arange(86.0, dtype=np.float32)
+    eager = serve.make_predict_fns(spec, times, cuda, dispatch="eager")
+    graphed = serve.make_predict_fns(spec, times, cuda)
+    assert [f.dispatch for f in graphed] == ["cuda graph", "cuda graph"]
+    batch = {k: torch.as_tensor(v, device=cuda) for k, v in splits["test"].items()}
+    replays = Graph.replays
+    for i, (seed, params) in enumerate([(3, init_params(spec, 0, device=cuda))] * 3
+                                       + [(8, init_params(spec, 1, device=cuda))]):
+        for is_post in (True, False):
+            c0 = _counts()
+            ref = eager[0](params, seed, batch, is_post)
+            c1 = _counts()
+            if i == 0:
+                with torch.inference_mode():
+                    got = graphed[0](params, seed, batch, is_post)
+            else:
+                got = graphed[0](params, seed, batch, is_post)
+            torch.cuda.synchronize()
+            assert [b - a for a, b in zip(c0, c1)] == [b - a for a, b in zip(c1, _counts())]
+            assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
+        ref, got = eager[1](params, seed, batch["observations"]), graphed[1](params, seed, batch["observations"])
+        assert all(torch.equal(ref[k], got[k]) for k in ref)
+    assert Graph.replays - replays == 3 * 3  # three graphs, each replayed from its second call on
+
+
+@pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])
+def test_eval_fns_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
+    """The final test evaluation (eval_split posterior and prior) and the
+    sample bands' draws through the replayed eval functions, bit for bit
+    what the eager functions give."""
+    from structured_latent_odes_tpu_torch import training_challenge, training_cvs
+    from structured_latent_odes_tpu_torch.train import driver, svi
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    cfg = load_cvs_config()
+    cfg.data_path, cfg.ode_backend = tiny_cvs, backend
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    ts = torch.arange(86.0, device=cuda)
+    eager, graphed = svi.make_eval_fns(spec, ts, dispatch="eager"), svi.make_eval_fns(spec, ts)
+    assert {f.dispatch for f in graphed} == {"cuda graph"}
+    params = init_params(spec, 0, device=cuda)
+    replays = Graph.replays
+    ref = driver.final_test_eval(spec, params, 4, splits["train"], eager, 16)
+    got = driver.final_test_eval(spec, params, 4, splits["train"], graphed, 16)
+    assert Graph.replays > replays
+    for a, b in zip(ref, got):
+        assert a.elbo == b.elbo and a.l1 == b.l1 and a.label_metrics == b.label_metrics
+        assert all(np.array_equal(a.recon[k], b.recon[k]) for k in a.recon)
+    batch = driver.device_batch(splits["test"], cuda)
+    for is_post in (True, False):
+        ref = training_challenge.multiple_samples(eager[2], params, 5, batch, 4, is_post)
+        got = training_challenge.multiple_samples(graphed[2], params, 5, batch, 4, is_post)
+        assert all(np.array_equal(ref[k], got[k]) for k in ref)

@@ -242,8 +242,10 @@ def test_evicted_graphs_are_freed_at_once():
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_epoch_dispatch_predicate(backend):
     """A CUDA graph for every fixed-step backend on a CUDA device without
-    ranks; eager, with its reason, on the CPU, with ranks, and on the
-    adaptive backends and semilinear_timepar."""
+    ranks; eager, with its reason, on the CPU, with ranks whose reduce is
+    not marked capturable, and on the adaptive backends and
+    semilinear_timepar (ranks over NCCL and gloo:
+    tests/test_torch_graph_ranks.py)."""
     cfg = load_cvs_config()
     cfg.ode_backend = backend
     spec = cvs_spec(cfg, n_time=T)
@@ -255,7 +257,7 @@ def test_epoch_dispatch_predicate(backend):
     assert svi.epoch_dispatch(spec, "cuda:1") == svi.epoch_dispatch(spec, cuda)
     assert svi.epoch_dispatch(spec, cpu) == "eager (on cpu: a CUDA graph needs a CUDA device)"
     assert svi.epoch_dispatch(spec, cuda, reduce=lambda tree: tree) == \
-        "eager (ranks: the sums over ranks are not captured)"
+        "eager (ranks: the reduce is not marked capturable)"
 
 
 def test_capture_on_the_cpu_raises():

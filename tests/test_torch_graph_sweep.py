@@ -140,8 +140,9 @@ def test_member_groups_plain_match_eager(capsys):
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_runner_dispatch(backend, monkeypatch):
     """The runner's and its refit's dispatch: a CUDA graph on a CUDA device
-    for every capturable backend without a data reduce; eager, with
-    svi.epoch_dispatch's reason, on the CPU, with a reduce, and on the
+    for every capturable backend without a data reduce or with one marked
+    capturable (NCCL's); eager, with svi.epoch_dispatch's reason, on the
+    CPU, with a reduce not marked capturable or over gloo, and on the
     adaptive backends and semilinear_timepar; 'eager' and 'plain' as asked."""
     cfg = load_cvs_config()
     cfg.seq_len, cfg.ode_backend = T, backend
@@ -167,6 +168,10 @@ def test_runner_dispatch(backend, monkeypatch):
     assert dispatch(cpu_ts) == dispatch(cpu_ts, reduce=reduce) == "eager (on cpu: a CUDA graph needs a CUDA device)"
     assert dispatch(cuda_ts) == ("cuda graph" if backend not in NOT_CAPTURED else
                                  f"eager ({backend}: {svi.NOT_CAPTURABLE[backend]})")
-    assert dispatch(cuda_ts, reduce=reduce) == "eager (ranks: the sums over ranks are not captured)"
+    assert dispatch(cuda_ts, reduce=reduce) == "eager (ranks: the reduce is not marked capturable)"
+    reduce.backend, reduce.capturable = "nccl", True  # as parallel/mesh.py::data_reduce marks an NCCL sum
+    assert dispatch(cuda_ts, reduce=reduce) == dispatch(cuda_ts)
+    reduce.backend, reduce.capturable = "gloo", False
+    assert dispatch(cuda_ts, reduce=reduce).startswith("eager (ranks over gloo: ")
     with pytest.raises(ValueError, match="dispatch"):
         dispatch(cpu_ts, dispatch="graph")

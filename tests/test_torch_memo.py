@@ -2,7 +2,8 @@
 holds the captured graphs of ``train/svi.py``) against the JAX package's
 ``utils/memo.py::BoundedMemo``: the same sequences of get, set, contains,
 len and clear give the same answers and leave the same keys in the same
-order, so eviction drops the same entries (least recently used first)."""
+order, so eviction drops the same entries (least recently used first).
+Leaving a process group first empties every memo."""
 
 import pytest
 
@@ -52,3 +53,20 @@ def test_bounded_memo_matches_jax(name):
         assert _apply(port, op) == _apply(ref, op), (name, i, op)
         assert list(port._d.items()) == list(ref._d.items()), (name, i, op)  # eviction order
     assert len(port) == len(ref) <= maxsize
+
+
+def test_leaving_a_group_first_drops_every_memo(monkeypatch):
+    """``parallel/launch.py::_leave_group`` empties every BoundedMemo (each
+    graph they hold, whose collectives may use the group) before it
+    destroys the process group."""
+    from structured_latent_odes_tpu_torch.parallel import launch
+    from structured_latent_odes_tpu_torch.train import svi
+
+    mine = BoundedMemo()
+    mine["step"] = object()
+    svi._EVAL_FN_GRAPHS["fn"] = object()
+    seen = []
+    monkeypatch.setattr(launch.dist, "destroy_process_group",
+                        lambda: seen.append((len(mine), len(svi._EVAL_FN_GRAPHS))))
+    launch._leave_group()
+    assert seen == [(0, 0)]
