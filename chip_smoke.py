@@ -205,9 +205,9 @@ Phases, each fatal on any fault:
    clock to a synchronize: a dual step (an epoch over its steps), a val eval
    epoch and, at CVS, a whole epoch as the driver runs it (training and the
    four eval epochs), eager and replayed; the host time of a fresh capture
-   of the step and of the val eval epoch; each graph's private pool (bytes
-   reserved); a traced epoch each way (device busy time, idle share, the
-   host's launching calls a step). Prints a {"graphs": ...} line (with
+   of the step and of the val eval epoch (its graph.capture span); a traced
+   epoch each way (device busy time, idle share, the host's launching calls
+   a step). Prints a {"graphs": ...} line (with
    phase 8's menu epochs). The training runs of phases 5, 6 and 9
    replay graphs too: each prints its replays (and the CLI its "epoch
    dispatch: cuda graph" line), and a run that replayed none fails.
@@ -222,7 +222,7 @@ Phases, each fatal on any fault:
    5, host clock to a synchronize, eager and replayed: the stacked dual
    step (an epoch of it over its steps) at the case's S and at CVS at S =
    1, a sweep epoch (the steps, the val ELBO, the host's selection) and a
-   refit step; each graph's capture time and pool; a traced epoch each way
+   refit step; each capture's time (graph.capture spans); a traced epoch each way
    (device busy time, idle share, host launching calls a step). Its
    numbers join the {"graphs": ...} line under "sweeps".
 14. serving's predict functions and the eval functions as CUDA graphs
@@ -240,7 +240,7 @@ Phases, each fatal on any fault:
    to a synchronize, eager and replayed, and five calls traced each way
    (device busy time, idle share a call; the bands once, at 20 draws a
    mode); each
-   graph's capture time and pool. Its numbers join the {"graphs": ...}
+   capture's time (graph.capture spans). Its numbers join the {"graphs": ...}
    line under "served".
 
 TF32 stays off for matrix products and cuDNN convolutions throughout;
@@ -295,7 +295,7 @@ from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batc
 from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval
-from structured_latent_odes_tpu_torch.utils import graphs
+from structured_latent_odes_tpu_torch.utils import graphs, profiling
 from structured_latent_odes_tpu_torch.utils.device import full_fp32, resolve_device
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -2097,7 +2097,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
             _, _, graph_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=graphed)
             eager_eval = svi.make_eval_epoch(spec, ts, dispatch="eager")
             graph_eval = svi.make_eval_epoch(spec, ts, dispatch=graphed)
-            svi._TRAIN_GRAPHS.clear()  # fresh captures: their times and pools
+            svi._TRAIN_GRAPHS.clear()  # fresh captures: their times
             svi._EVAL_GRAPHS.clear()
             s_eager, s_graph = init_state(params, 5), init_state(params, 5)
             for epoch in range(2):
@@ -2112,7 +2112,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                 check(_trees_equal(m_eager, m_graph), f"{case} epoch {epoch}: the replayed metrics differ from eager")
                 check(paths[f"{case} epoch {epoch} eager"] == paths[f"{case} epoch {epoch} graph"],
                       f"{case} epoch {epoch}: launches differ from eager")
-            (train_graph,) = _graphs_of(svi._TRAIN_GRAPHS)
+            check(len(_graphs_of(svi._TRAIN_GRAPHS)) == 1, f"{case}: one step graph")
             params_now = svi.own_state(s_eager).params
             for name in ("val", "train"):
                 for is_post in (True, False):
@@ -2125,7 +2125,6 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                                       lambda: graph_eval(params_now, seed, stacks[name], is_post))
                         check(_trees_equal(ref, got), f"{tag} call {call}: the replayed statistics differ from eager")
                         check(paths[f"{tag} eager"] == paths[f"{tag} graph {call}"], f"{tag}: launches differ")
-            eval_graphs = _graphs_of(svi._EVAL_GRAPHS)
             print(f"== {case}: two epochs of {steps} steps and four eval epochs, replayed bit for bit eager, "
                   f"launches equal", flush=True)
 
@@ -2148,18 +2147,19 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                     return run
                 rec["cvs_epoch_eager_ms"] = _median_ms(whole(eager_epoch, eager_eval), n, device)
                 rec["cvs_epoch_replayed_ms"] = _median_ms(whole(graph_epoch, graph_eval), n, device)
-            rec["pool_bytes"] = {"train": train_graph.pool_bytes, "eval": [g.pool_bytes for g in eval_graphs]}
             # capture times: fresh graphs of the step (two steps: a warm-up, then the capture) and of the val eval
             two = {k: torch.cat([v[:1], v[:1]]) for k, v in batches.items()}
             captures = {"train": [], "eval": []}
             for _ in range(n):
                 svi._TRAIN_GRAPHS.clear()
                 svi._EVAL_GRAPHS.clear()
+                t0_ns = time.perf_counter_ns()
                 graph_epoch(svi.own_state(s_eager), two)
+                captures["train"] += _captures_since(t0_ns)
+                t0_ns = time.perf_counter_ns()
                 graph_eval(params_now, 3, stacks["val"], True)
                 graph_eval(params_now, 3, stacks["val"], True)
-                captures["train"] += [g.capture_ms for g in _graphs_of(svi._TRAIN_GRAPHS)]
-                captures["eval"] += [g.capture_ms for g in _graphs_of(svi._EVAL_GRAPHS)]
+                captures["eval"] += _captures_since(t0_ns)
             rec["capture_ms"] = {k: float(np.median(v)) for k, v in captures.items()}
             s_g = graph_epoch(s_g, batches)[0]  # over the last capture's buffers: the traced epoch copies no state in
             if not rehearse:
@@ -2307,7 +2307,7 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
         members = [sweep.prepare_member(dataset, cfg, seed, device) for seed in seeds]
         S, kernels = len(members), STACKED[backend]
         for memo in SWEEP_MEMOS.values():
-            memo.clear()  # fresh captures: their times and pools
+            memo.clear()  # fresh captures: their times
 
         def train(name, **kw):
             return counted(paths, f"{case} {name}", kernels, rehearse, lambda: printed(
@@ -2315,14 +2315,13 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
 
         eager, text = train("eager", dispatch="eager")
         check_dispatch(f"{case} eager", text, "eager")
-        replays = graphs.Graph.replays
+        replays, t0_ns = graphs.Graph.replays, time.perf_counter_ns()
         got, text = train("replayed", dispatch=graphed)
         check_dispatch(f"{case} replayed", text, "plain" if rehearse else "cuda graph")
         check(rehearse or graphs.Graph.replays > replays, f"{case}: no CUDA graph replayed")
         rec = {"S": S, "steps": int(members[0]["mask"].shape[0]), "epochs": int(members[0]["perms"].shape[0]),
                "refit_epochs": refit, "replays": graphs.Graph.replays - replays,
-               "capture_ms": {k: [g.capture_ms for g in _graphs_of(m)] for k, m in SWEEP_MEMOS.items()},
-               "pool_mib": {k: [g.pool_bytes / 2**20 for g in _graphs_of(m)] for k, m in SWEEP_MEMOS.items()}}
+               "capture_ms": _captures_since(t0_ns)}
         checks = [("replayed", eager, got)]
         checks.append(("1-epoch chunks", eager, train("replayed chunks", dispatch=graphed, chunk_epochs=1)[0]))
         if S > SWEEP_GROUP and S % SWEEP_GROUP == 0:
@@ -2410,11 +2409,6 @@ def forced_dispatch(dispatch):
         svi.epoch_dispatch = real
 
 
-def _fn_graphs() -> list:
-    """The utils/graphs.py Graphs of the eval and predict functions' memo."""
-    return [g.run for g in svi._EVAL_FN_GRAPHS._d.values()]
-
-
 def _stats_equal(a, b) -> bool:
     """Two driver.EvalStats (or pairs of them) bit for bit equal."""
     if isinstance(a, tuple):
@@ -2461,8 +2455,11 @@ def _timed_both(device, rehearse: bool, eager_fn, graph_fn, trace_eager=None, tr
     return rec
 
 
-def _capture_of(graph) -> dict:
-    return {"capture_ms": graph.capture_ms, "pool_bytes": graph.pool_bytes}
+def _captures_since(t0_ns: int) -> list:
+    """The host time of each CUDA graph capture since ``t0_ns``
+    (``time.perf_counter_ns``), in ms: its ``graph.capture`` span."""
+    return [(end - start) / 1e6 for name, start, end, _, _ in profiling.SPANS
+            if name == "graph.capture" and end >= t0_ns]
 
 
 def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bool, smi: str, paths: dict) -> dict:
@@ -2487,11 +2484,12 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
             idx = np.arange(B) % test["observations"].shape[0]
             batch = {k: torch.as_tensor(v[idx], device=device) for k, v in test.items()}
             batch["sample_id"] = torch.arange(B, device=device)
-            svi._EVAL_FN_GRAPHS.clear()  # fresh captures: their times and pools
+            svi._EVAL_FN_GRAPHS.clear()  # fresh captures: their times
+            t0_ns = time.perf_counter_ns()
             rec = {"replays": _held_replays(paths, f"{case} posterior", kernels, rehearse,
                                             lambda: eager[0](params, 3, batch, True),
                                             lambda: replayed[0](params, 3, batch, True), _outputs_equal)}
-            rec.update(_capture_of(_fn_graphs()[0]))
+            rec["capture_ms"] = _captures_since(t0_ns)
             if B == test["observations"].shape[0]:
                 _held_replays(paths, f"{case} prior", kernels, rehearse, lambda: eager[0](params, 4, batch, False),
                               lambda: replayed[0](params, 4, batch, False), _outputs_equal)
@@ -2545,10 +2543,11 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
             batch = {k: torch.as_tensor(v, device=device) for k, v in splits["val"].items()}
             case = f"served {wl} semilinear_fused B={batch['observations'].shape[0]}"
             svi._EVAL_FN_GRAPHS.clear()
+            t0_ns = time.perf_counter_ns()
             rec = {"replays": _held_replays(paths, f"{case} posterior", ("K2",), rehearse,
                                             lambda: eager[0](params, 3, batch, True),
                                             lambda: replayed[0](params, 3, batch, True), _outputs_equal)}
-            rec.update(_capture_of(_fn_graphs()[0]))
+            rec["capture_ms"] = _captures_since(t0_ns)
             rec.update(_timed_both(device, rehearse, lambda: eager[0](params, 0, batch, True),
                                    lambda: replayed[0](params, 0, batch, True)))
             out[case] = rec
@@ -2567,9 +2566,10 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     def final(fns):
         return final_test_eval(spec, params, 6, splits["test"], fns, cfg.mini_batch_size)
 
+    t0_ns = time.perf_counter_ns()
     rec = {"replays": _held_replays(paths, case, ("K2",), rehearse, lambda: final(eager_fns),
                                     lambda: final(graph_fns), _stats_equal)}
-    rec["captures"] = [_capture_of(g) for g in _fn_graphs()]
+    rec["capture_ms"] = _captures_since(t0_ns)
     rec.update(_timed_both(device, rehearse, lambda: final(eager_fns), lambda: final(graph_fns)))
     out[case] = rec
     print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
@@ -2592,12 +2592,12 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
                                         device)
 
     counted(paths, f"{case} eager", ("K2",), rehearse, lambda: bands(p_eager, "eager"))
-    replays = graphs.Graph.replays
+    replays, t0_ns = graphs.Graph.replays, time.perf_counter_ns()
     counted(paths, f"{case} replayed", ("K2",), rehearse, lambda: bands(p_graph, "replayed"))
     check(paths[f"{case} eager"] == paths[f"{case} replayed"], f"{case}: launches differ from eager")
     rec = {"replays": graphs.Graph.replays - replays, "arrays": _bit_equal(dirs["eager"], dirs["replayed"], case)}
     check(rehearse or rec["replays"] >= 2 * draws - 2, f"{case}: {rec['replays']} replays")
-    rec["captures"] = [_capture_of(g) for g in _fn_graphs()]
+    rec["capture_ms"] = _captures_since(t0_ns)
     traced = 2 if rehearse else BANDS_TRACED
     rec.update(_timed_both(device, rehearse, lambda: bands(p_eager, "eager"), lambda: bands(p_graph, "replayed"),
                            lambda: bands(p_eager, "eager", traced), lambda: bands(p_graph, "replayed", traced)))

@@ -27,6 +27,7 @@ from structured_latent_odes_tpu_torch.prob import fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint as ckpt
 from structured_latent_odes_tpu_torch.train import metrics as M
 from structured_latent_odes_tpu_torch.train.svi import SVIState, eval_seeds, own_state
+from structured_latent_odes_tpu_torch.utils.profiling import span, trace
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map
 
 log = logging.getLogger("slode")
@@ -158,15 +159,16 @@ def plots_due(config, epoch: int) -> bool:
 
 def _stats_from_fused(spec: ModelSpec, fused) -> EvalStats:
     """EvalStats (without recon payloads) from an ``eval_epoch`` result."""
-    n = max(float(fused["n"]), 1.0)
-    return EvalStats(
-        elbo=[float(fused["elbo_main"]), float(fused["elbo_aux"])],
-        l1=float(fused["l1"]) / n,
-        label_metrics={k: float(v) / n for k, v in fused["labels"].items()},
-        recon={},
-        labels={},
-        observations=np.zeros(0),
-    )
+    with span("wait.eval"):
+        n = max(float(fused["n"]), 1.0)
+        return EvalStats(
+            elbo=[float(fused["elbo_main"]), float(fused["elbo_aux"])],
+            l1=float(fused["l1"]) / n,
+            label_metrics={k: float(v) / n for k, v in fused["labels"].items()},
+            recon={},
+            labels={},
+            observations=np.zeros(0),
+        )
 
 
 def run_training_epochs(
@@ -218,7 +220,17 @@ def run_training_epochs(
     leaves ``rng`` where that run would.
 
     With ``profile_dir``, epoch ``min(start + 1, config.num_epochs)`` (the
-    second epoch run, or the only one) is traced (``utils/profiling.trace``).
+    second epoch run, or the only one) is traced (``utils/profiling.trace``),
+    the whole of it, with its phases' spans.
+
+    Each epoch is a span, ``entry.epoch`` (``utils/profiling.py``), and so
+    is each of its phases: ``entry.batches`` (the shuffle and stacking),
+    ``entry.put``, ``dispatch.train`` (``train_epoch``), ``wait.losses``
+    (the losses' copy to the host), per eval epoch ``dispatch.eval`` and
+    ``wait.eval`` (its statistics' reads), ``entry.plot``,
+    ``entry.select`` (the policy and the best params' copy),
+    ``entry.checkpoint`` and ``entry.log`` (the epoch line and
+    ``on_epoch``).
 
     On the ranks of a data- or time-parallel run (``train/backend.py``)
     every rank computes every step and statistic (``put_batch`` keeps its
@@ -259,18 +271,9 @@ def run_training_epochs(
             eval_stacks[name] = put(stacked_minibatches(splits[name], batch_size, shuffle=False))
         return _stats_from_fused(spec, eval_epoch(params, seed, eval_stacks[name], is_post))
 
-    trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir and writer else None
-    if writer and getattr(train_epoch, "dispatch", None):
-        print(f"epoch dispatch: {train_epoch.dispatch}")
-    for epoch in range(start_epoch, config.num_epochs + 1):
-        aux_mult = epoch_aux_mult(config, epoch)
-        if epoch == trace_epoch:
-            from structured_latent_odes_tpu_torch.utils.profiling import trace
-
-            profile_ctx = trace(profile_dir)
-        else:
-            profile_ctx = contextlib.nullcontext()
-        with profile_ctx as traced:
+    def one_epoch(epoch: int, state: SVIState, best: Dict):
+        with span("entry.batches"):
+            aux_mult = epoch_aux_mult(config, epoch)
             batches = stacked_minibatches(splits["train"], batch_size, shuffle=True, rng=rng)
             n_batches = batches["mask"].shape[0]
             if aux_mult is not None:
@@ -278,20 +281,22 @@ def run_training_epochs(
             lr_sc = epoch_lr_scale(config, epoch)
             if lr_sc is not None:
                 batches["lr_scale"] = np.full((n_batches,), lr_sc, np.float32)
-            state, mets = train_epoch(state, put(batches))
+        with span("entry.put"):
+            batches = put(batches)
+        state, mets = train_epoch(state, batches)
+        with span("wait.losses"):
             epoch_losses = torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1).cpu().tolist()
-        if epoch == trace_epoch:
-            print(f"profiler trace of epoch {epoch}: {traced.path}")
 
         if eval_every > 1 and epoch % eval_every and epoch != config.num_epochs:
-            epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
-            line = "[Epoch %d/%d] loss= %.4f  [%.1fs]" % (
-                epoch, config.num_epochs, epoch_mean_loss, time.time() - t_start
-            )
-            if writer:
-                print(line)
-                log.debug(line)
-            continue
+            with span("entry.log"):
+                epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
+                line = "[Epoch %d/%d] loss= %.4f  [%.1fs]" % (
+                    epoch, config.num_epochs, epoch_mean_loss, time.time() - t_start
+                )
+                if writer:
+                    print(line)
+                    log.debug(line)
+            return state, best
 
         k1, k2, k3, k4 = (fold_seed(eval_seed, epoch, name) for name in
                           ("val_post", "val_prior", "train_post", "train_prior"))
@@ -306,51 +311,67 @@ def run_training_epochs(
         if on_epoch is not None and plots_due(config, epoch):
             # the recon payloads the plots draw, with the seeds of the
             # statistics above; selection never reads them
-            plot_post = eval_split(spec, state.params, k1, splits["val"], eval_fns, batch_size, is_post=True)
-            plot_prior = eval_split(spec, state.params, k2, splits["val"], eval_fns, batch_size, is_post=False)
+            with span("entry.plot"):
+                plot_post = eval_split(spec, state.params, k1, splits["val"], eval_fns, batch_size, is_post=True)
+                plot_prior = eval_split(spec, state.params, k2, splits["val"], eval_fns, batch_size, is_post=False)
 
-        prev_best = best
-        best = select_best(
-            epoch,
-            {"post": val_post, "prior": val_prior},
-            {"post": train_post, "prior": train_prior},
-            best,
-            state.params,
-            epoch_losses,
-        )
-        improved = "*" if best is not prev_best else ""
-        if improved:
-            # a graph's next epoch overwrites state.params in place
-            best = dict(best, params=_copy(best["params"]))
+        with span("entry.select"):
+            prev_best = best
+            best = select_best(
+                epoch,
+                {"post": val_post, "prior": val_prior},
+                {"post": train_post, "prior": train_prior},
+                best,
+                state.params,
+                epoch_losses,
+            )
+            improved = "*" if best is not prev_best else ""
+            if improved:
+                # a graph's next epoch overwrites state.params in place
+                best = dict(best, params=_copy(best["params"]))
 
         if writer and checkpoint_path and checkpoint_every and epoch % checkpoint_every == 0:
-            ckpt.save(
-                checkpoint_path,
-                {"state": state.to_tree(), "best_params": params_to_jax(best["params"]),
-                 "host_rng": ckpt.host_rng_tree(rng)},
-                metadata={"epoch": epoch, "best_epoch": int(best["epoch"]), "criterion": float(best["criterion"])},
-            )
+            with span("entry.checkpoint"):
+                ckpt.save(
+                    checkpoint_path,
+                    {"state": state.to_tree(), "best_params": params_to_jax(best["params"]),
+                     "host_rng": ckpt.host_rng_tree(rng)},
+                    metadata={"epoch": epoch, "best_epoch": int(best["epoch"]),
+                              "criterion": float(best["criterion"])},
+                )
 
-        epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
-        metric_str = " ".join(
-            "%s=(%.4f,%.4f)" % (name, train_post.label_metrics[name], val_post.label_metrics[name])
-            for name in train_post.label_metrics
-        )
-        line = "[Epoch %d/%d] loss= %.4f  %s l1=(%.6f,%.6f) %s  [%.1fs]" % (
-            epoch,
-            config.num_epochs,
-            epoch_mean_loss,
-            metric_str,
-            train_post.l1,
-            val_post.l1,
-            improved,
-            time.time() - t_start,
-        )
-        if writer:
-            print(line)
-            log.debug(line)
-            if on_epoch is not None:
-                on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
+        with span("entry.log"):
+            epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
+            metric_str = " ".join(
+                "%s=(%.4f,%.4f)" % (name, train_post.label_metrics[name], val_post.label_metrics[name])
+                for name in train_post.label_metrics
+            )
+            line = "[Epoch %d/%d] loss= %.4f  %s l1=(%.6f,%.6f) %s  [%.1fs]" % (
+                epoch,
+                config.num_epochs,
+                epoch_mean_loss,
+                metric_str,
+                train_post.l1,
+                val_post.l1,
+                improved,
+                time.time() - t_start,
+            )
+            if writer:
+                print(line)
+                log.debug(line)
+                if on_epoch is not None:
+                    on_epoch(epoch, state, plot_post, plot_prior, train_post, train_prior)
+        return state, best
+
+    trace_epoch = min(start_epoch + 1, config.num_epochs) if profile_dir and writer else None
+    if writer and getattr(train_epoch, "dispatch", None):
+        print(f"epoch dispatch: {train_epoch.dispatch}")
+    for epoch in range(start_epoch, config.num_epochs + 1):
+        profiling = trace(profile_dir) if epoch == trace_epoch else contextlib.nullcontext()
+        with profiling as traced, span("entry.epoch"):
+            state, best = one_epoch(epoch, state, best)
+        if epoch == trace_epoch:
+            print(f"profiler trace of epoch {epoch}: {traced.path}")
 
     return own_state(state), best
 

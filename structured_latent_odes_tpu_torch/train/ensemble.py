@@ -90,6 +90,7 @@ from structured_latent_odes_tpu_torch.train.svi import (
     stepped_epoch,
 )
 from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
+from structured_latent_odes_tpu_torch.utils.profiling import span
 from structured_latent_odes_tpu_torch.utils.tree import tree_map
 
 Tensor = torch.Tensor
@@ -305,10 +306,12 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None, dis
             step_seeds = seed_tensor([fold_seed(s, r * nb + i) for i in range(nb) for s in seeds],
                                      device).reshape(nb, len(seeds))
             rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
-            state, _ = stepped_epoch(step, state, rows, step_seeds, corrections[r * nb:(r + 1) * nb],
-                                     dataclasses.replace(state.opt, count=counts[(r + 1) * nb]),
-                                     {"aux_mult": float(spec.aux_loss_multiplier)}, _REFIT_GRAPHS,
-                                     None if key is None else key + (len(seeds), shared_data), dispatch == "plain")
+            with span("dispatch.train"):
+                state, _ = stepped_epoch(step, state, rows, step_seeds, corrections[r * nb:(r + 1) * nb],
+                                         dataclasses.replace(state.opt, count=counts[(r + 1) * nb]),
+                                         {"aux_mult": float(spec.aux_loss_multiplier)}, _REFIT_GRAPHS,
+                                         None if key is None else key + (len(seeds), shared_data),
+                                         dispatch == "plain")
         return state.params if key is None else own_tree(state.params)
 
     refit.update = update
@@ -424,21 +427,23 @@ def make_ensemble_runner(
         ``fills``, the shared 0-d batch entries (``aux_mult``, ``lr_scale``)
         as host numbers: the state after it and the per-step metrics, each
         (nb, S)."""
-        nb = mask.shape[0]
-        seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
-        corrections, opt = step_corrections(optim, state.opt, nb, device)
-        rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
-        return stepped_epoch(member_step, state, rows, seeds, corrections, opt, fills, _STEP_GRAPHS,
-                             None if key is None else key + (len(state.seed), int(num_particles), optimizer,
-                                                             float(lr), float(prior_lr_mult)), plain)
+        with span("dispatch.train"):
+            nb = mask.shape[0]
+            seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
+            corrections, opt = step_corrections(optim, state.opt, nb, device)
+            rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
+            return stepped_epoch(member_step, state, rows, seeds, corrections, opt, fills, _STEP_GRAPHS,
+                                 None if key is None else key + (len(state.seed), int(num_particles), optimizer,
+                                                                 float(lr), float(prior_lr_mult)), plain)
 
     def val_elbo_sums(params, seeds: Tensor, val_stack):
         """The val split's summed per-batch ELBOs (loss / n) per member, in
         batch order in float32 (the driver's eval_epoch), under eval seeds
         (S, 2)."""
-        if graphed:
-            return graphed_eval(_VAL_GRAPHS, key + (len(seeds),), val_body, params, seeds, val_stack, plain)
-        return val_body(params, seeds, val_stack)
+        with span("dispatch.eval"):
+            if graphed:
+                return graphed_eval(_VAL_GRAPHS, key + (len(seeds),), val_body, params, seeds, val_stack, plain)
+            return val_body(params, seeds, val_stack)
 
     def val_body(params, seeds: Tensor, val_stack):
         dims = {k: None if shared_data else 0 for k in val_stack}
@@ -478,52 +483,67 @@ def make_ensemble_runner(
         and ``lr_sched`` hold just those) for all members. ``carry`` is
         ``(states, eval_seeds, best_p, best_c, best_e[, ema])``, as
         :func:`run_chunked` starts it; returns the carry after the chunk and
-        the chunk's history."""
+        the chunk's history. The chunk is a span, ``entry.chunk``
+        (``utils/profiling.py``), and each epoch one inside it,
+        ``entry.epoch``, with ``entry.batches``, ``dispatch.train``,
+        ``entry.seeds`` (the val seeds, on the host), ``wait.seeds`` (their
+        copy to the device, which waits for the epoch's steps),
+        ``dispatch.eval``, ``wait.epoch`` (the epoch's losses and val ELBO
+        to the host) and ``entry.select``."""
         if needs_val and val_stacks is None:
             raise ValueError(f"policy {policy!r} requires val_stacks")
-        state, eval_seed_list, best_p, best_c, best_e = carry[:5]
-        ema = carry[5] if use_ema else None
-        best_c, best_e = np.array(best_c, dtype=np.float64), np.array(best_e, dtype=np.int64)
-        S = len(state.seed)
-        split = {k: _on(device, v) for k, v in train_splits.items()}
-        val = {k: _on(device, v) for k, v in val_stacks.items()} if needs_val else None
-        perms = _on(device, perms).long()
-        mask = _on(device, mask)
-        mults = _lockstep("aux_mult", aux_mult)
-        scales = _lockstep("lr_sched", lr_sched) if use_lr_sched else None
-        hist = {"loss_main": [], "loss_aux": []}
-        for j, epoch in enumerate(int(e) for e in epochs):
-            fills = {"aux_mult": float(mults[j])}
-            if scales is not None:
-                fills["lr_scale"] = float(scales[j])
-            state, mets = train_epoch(state, _epoch_batches(split, perms[:, j], shared_data), mask, fills)
-            back = [torch.stack([mets["loss_main"], mets["loss_aux"]], dim=-1).transpose(0, 1)]  # (S, nb, 2)
-            if needs_val:
-                # the driver's val posterior seeds at this epoch, split as
-                # eval_epoch splits them: (losses -> main, aux)
-                s_loss = [eval_seeds(fold_seed(e, epoch, "val_post"))[0] for e in eval_seed_list]
-                vseeds = seed_tensor([fold_seed(s, w) for s in s_loss for w in ("main", "aux")],
-                                     device).reshape(S, 2)
-                back.append(torch.stack(val_elbo_sums(state.params, vseeds, val), dim=-1))  # (S, 2)
-            host = [t.cpu().numpy() for t in back]  # the epoch's one sync
-            crit, rule, rec = criterion(host[0], host[1] if needs_val else None, epoch)
-            improve = {"ties": best_c >= crit, "strict": crit < best_c, "always": np.ones(S, bool)}[rule]
-            if improve.all():
-                best_p = own(state.params)
-            elif improve.any():
-                best_p = _where(torch.as_tensor(improve, device=device), state.params, best_p)
-            best_c = np.where(improve, crit, best_c)
-            best_e = np.where(improve, rec, best_e)
-            hist["loss_main"].append(host[0][:, :, 0])
-            hist["loss_aux"].append(host[0][:, :, 1])
-            if use_ema:
-                if epoch >= tail_ema_start:
-                    ema = tree_map(lambda e, p: decay * e + keep * p, ema, state.params)
-                else:
-                    ema = own(state.params)
-        hist = {k: np.stack(v, axis=1) for k, v in hist.items()}  # (S, E, nb)
-        out = (state, eval_seed_list, best_p, best_c, best_e)
-        return (out + (ema,) if use_ema else out), hist
+        with span("entry.chunk"):
+            state, eval_seed_list, best_p, best_c, best_e = carry[:5]
+            ema = carry[5] if use_ema else None
+            best_c, best_e = np.array(best_c, dtype=np.float64), np.array(best_e, dtype=np.int64)
+            S = len(state.seed)
+            split = {k: _on(device, v) for k, v in train_splits.items()}
+            val = {k: _on(device, v) for k, v in val_stacks.items()} if needs_val else None
+            perms = _on(device, perms).long()
+            mask = _on(device, mask)
+            mults = _lockstep("aux_mult", aux_mult)
+            scales = _lockstep("lr_sched", lr_sched) if use_lr_sched else None
+            hist = {"loss_main": [], "loss_aux": []}
+            for j, epoch in enumerate(int(e) for e in epochs):
+                with span("entry.epoch"):
+                    fills = {"aux_mult": float(mults[j])}
+                    if scales is not None:
+                        fills["lr_scale"] = float(scales[j])
+                    with span("entry.batches"):
+                        batches = _epoch_batches(split, perms[:, j], shared_data)
+                    state, mets = train_epoch(state, batches, mask, fills)
+                    back = [torch.stack([mets["loss_main"], mets["loss_aux"]], dim=-1).transpose(0, 1)]  # (S, nb, 2)
+                    if needs_val:
+                        # the driver's val posterior seeds at this epoch, split as
+                        # eval_epoch splits them: (losses -> main, aux)
+                        with span("entry.seeds"):
+                            s_loss = [eval_seeds(fold_seed(e, epoch, "val_post"))[0] for e in eval_seed_list]
+                            words = [fold_seed(s, w) for s in s_loss for w in ("main", "aux")]
+                        # a copy from the host that waits for the steps queued before it
+                        with span("wait.seeds"):
+                            vseeds = seed_tensor(words, device).reshape(S, 2)
+                        back.append(torch.stack(val_elbo_sums(state.params, vseeds, val), dim=-1))  # (S, 2)
+                    with span("wait.epoch"):
+                        host = [t.cpu().numpy() for t in back]  # the losses and val ELBO to the host
+                    with span("entry.select"):
+                        crit, rule, rec = criterion(host[0], host[1] if needs_val else None, epoch)
+                        improve = {"ties": best_c >= crit, "strict": crit < best_c, "always": np.ones(S, bool)}[rule]
+                        if improve.all():
+                            best_p = own(state.params)
+                        elif improve.any():
+                            best_p = _where(torch.as_tensor(improve, device=device), state.params, best_p)
+                        best_c = np.where(improve, crit, best_c)
+                        best_e = np.where(improve, rec, best_e)
+                        hist["loss_main"].append(host[0][:, :, 0])
+                        hist["loss_aux"].append(host[0][:, :, 1])
+                        if use_ema:
+                            if epoch >= tail_ema_start:
+                                ema = tree_map(lambda e, p: decay * e + keep * p, ema, state.params)
+                            else:
+                                ema = own(state.params)
+            hist = {k: np.stack(v, axis=1) for k, v in hist.items()}  # (S, E, nb)
+            out = (state, eval_seed_list, best_p, best_c, best_e)
+            return (out + (ema,) if use_ema else out), hist
 
     def refit(best_params, eval_seed_list, train_splits, refit_perms, mask):
         """The members' prior refit, member s at ``fold_seed(eval seed,

@@ -56,6 +56,7 @@ from structured_latent_odes_tpu_torch.nn.ode_model import NOT_CAPTURABLE, solve_
 from structured_latent_odes_tpu_torch.prob import fold_seed, l1_of_parts, seed_tensor
 from structured_latent_odes_tpu_torch.utils.graphs import Graph
 from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
+from structured_latent_odes_tpu_torch.utils.profiling import span
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 Tensor = torch.Tensor
@@ -565,11 +566,12 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
         return train_step(state, batch, None, (seeds, corrections))
 
     def train_epoch(state: SVIState, batches) -> Tuple[SVIState, Dict[str, Tensor]]:
-        n = batches["mask"].shape[0]
-        seeds, corrections, opt = epoch_scalars(optim, state, n, num_particles)
-        rows = [{k: v[i] for k, v in batches.items()} for i in range(n)]
-        return stepped_epoch(step, state, rows, seeds, corrections, opt, graphs=_TRAIN_GRAPHS, key=key,
-                             plain=dispatch == "plain")
+        with span("dispatch.train"):
+            n = batches["mask"].shape[0]
+            seeds, corrections, opt = epoch_scalars(optim, state, n, num_particles)
+            rows = [{k: v[i] for k, v in batches.items()} for i in range(n)]
+            return stepped_epoch(step, state, rows, seeds, corrections, opt, graphs=_TRAIN_GRAPHS, key=key,
+                                 plain=dispatch == "plain")
 
     train_epoch.dispatch = dispatch
     return init_state, train_step, train_epoch
@@ -852,11 +854,12 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
         return sums
 
     def eval_epoch(params, seed, batches, is_post: bool):
-        seeds = seed_tensor(eval_seeds(seed), device)
-        if not graphed:
-            return body(params, seeds, batches, is_post)
-        return graphed_eval(_EVAL_GRAPHS, key + (bool(is_post),), lambda p, s, b: body(p, s, b, is_post), params,
-                            seeds, batches, plain=dispatch == "plain")
+        with span("dispatch.eval"):
+            seeds = seed_tensor(eval_seeds(seed), device)
+            if not graphed:
+                return body(params, seeds, batches, is_post)
+            return graphed_eval(_EVAL_GRAPHS, key + (bool(is_post),), lambda p, s, b: body(p, s, b, is_post),
+                                params, seeds, batches, plain=dispatch == "plain")
 
     eval_epoch.dispatch = dispatch
     return eval_epoch

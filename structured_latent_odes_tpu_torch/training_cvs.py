@@ -15,7 +15,8 @@ off for matrix products and cuDNN convolutions.
 ``results_<Model>/train_state.npz`` every N epochs, and ``--resume``
 continues from it batch-exactly: the resumed run ends where the
 uninterrupted one would, bit for bit. ``--profile-dir DIR`` writes a
-``torch.profiler`` trace of the second epoch into DIR. Unless ``--no-plot``
+``torch.profiler`` trace of the second epoch into DIR, the program's phases
+in it as named ranges (``utils/profiling.py::span``). Unless ``--no-plot``
 is given, the validation grids and latent t-SNE of every ``plot_epoch``-th
 epoch and the test-split grids are drawn into the results directory; that
 needs matplotlib and scikit-learn, and the run fails before it starts when
@@ -275,7 +276,9 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0,
                    help="persist full training state every N epochs")
     p.add_argument("--profile-dir", default=None,
-                   help="write a torch.profiler trace of one epoch into this directory")
+                   help="write a torch.profiler trace of one epoch into this directory, with the program's "
+                        "phases (the driver's, the epoch dispatch's, the graphs' and the waits on the device) "
+                        "as named ranges")
     p.add_argument("--resume", action="store_true",
                    help="resume from results_<Model>/train_state.npz")
     p.add_argument("--no-eval-train", action="store_true",

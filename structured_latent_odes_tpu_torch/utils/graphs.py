@@ -19,11 +19,11 @@ from __future__ import annotations
 
 import collections
 import gc
-import time
 from typing import Callable
 
 import torch
 
+from structured_latent_odes_tpu_torch.utils.profiling import span
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 
@@ -65,10 +65,11 @@ class Graph:
     on the same buffers, on any device (the CPU tests). Without it the
     device must be a CUDA device.
 
-    ``pool_bytes``: the device memory that the capture reserved, its private
-    pool (``torch.cuda.memory_reserved`` around the capture); ``capture_ms``
-    the capture's host time. ``Graph.replays`` counts the replays of every
-    graph, as the kernel wrappers count their launches."""
+    Each eager first call, the capture and each replay is a span
+    (``utils/profiling.py``): ``graph.warm``, ``graph.capture``,
+    ``graph.replay``; the plain version records none. ``Graph.replays``
+    counts the replays of every graph, as the kernel wrappers count their
+    launches."""
 
     replays = 0
 
@@ -78,47 +79,45 @@ class Graph:
             raise ValueError(f"a CUDA graph captures work on a CUDA device, not {device}")
         self.body, self.device, self.warm, self.plain = body, device, warm, plain
         self.graph = self.out = self.captured = None
-        self.pool_bytes, self.capture_ms = 0, 0.0
 
     def __call__(self):
         if self.plain:
             return self.body()
         if self.graph is not None:
-            self.graph.replay()
-            _add(self.captured)
-            Graph.replays += 1
-            return self.out
+            with span("graph.replay"):
+                self.graph.replay()
+                _add(self.captured)
+                Graph.replays += 1
+                return self.out
         if self.warm > 0:
-            self.warm -= 1
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                out = self.body()
-            main.wait_stream(side)
-            for t in tree_leaves(out):
-                if t is not None:
-                    t.record_stream(main)  # read on the main stream, freed on the side one
-            return out
-        before = _counts()
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()  # as the capture does first: what stays reserved after it is the pool
-        reserved, t0 = torch.cuda.memory_reserved(self.device), time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        collecting = gc.isenabled()
-        # no garbage collection inside the capture: a dead cycle that holds a
-        # graph would destroy it there, which a capture forbids
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                out = self.body()
-        finally:
-            if collecting:
-                gc.enable()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        after = _counts()
-        self.captured = [(n - n0, v - v0) for (n, v), (n0, v0) in zip(after, before)]
-        _add(self.captured, -1)  # nothing ran
-        self.graph, self.out = graph, out
+            with span("graph.warm"):
+                self.warm -= 1
+                main = torch.cuda.current_stream(self.device)
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(main)
+                with torch.cuda.stream(side):
+                    out = self.body()
+                main.wait_stream(side)
+                for t in tree_leaves(out):
+                    if t is not None:
+                        t.record_stream(main)  # read on the main stream, freed on the side one
+                return out
+        with span("graph.capture"):
+            before = _counts()
+            torch.cuda.synchronize(self.device)
+            graph = torch.cuda.CUDAGraph()
+            collecting = gc.isenabled()
+            # no garbage collection inside the capture: a dead cycle that holds a
+            # graph would destroy it there, which a capture forbids
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph):
+                    out = self.body()
+            finally:
+                if collecting:
+                    gc.enable()
+            after = _counts()
+            self.captured = [(n - n0, v - v0) for (n, v), (n0, v0) in zip(after, before)]
+            _add(self.captured, -1)  # nothing ran
+            self.graph, self.out = graph, out
         return self()

@@ -23,7 +23,8 @@ checkpoint is bit for bit the uninterrupted run, and the profiler trace of
 an epoch names K2's and K3's kernels among its device events. The training
 and eval epochs replayed as CUDA graphs are bit for bit the eager ones, with
 the same launches, and so are a sweep's (the stacked step, the val ELBO,
-the prior refit); the trainers replay graphs; a capture that fails raises.
+the prior refit); the trainers replay graphs; a capture that fails raises;
+a graph's eager first call, its capture and its replays are spans.
 Serving's predict functions and the eval functions (the final test
 evaluation, the sample bands) replayed are bit for bit the eager ones.
 """
@@ -904,6 +905,31 @@ def test_failed_capture_raises_on_card(cuda):
         graph()
     assert graph.graph is None
     torch.cuda.synchronize()
+
+
+def test_graph_records_warm_capture_then_replays_on_card(cuda):
+    """A graph's first call is one ``graph.warm`` span, its second one
+    ``graph.capture`` (with the replay that follows it), and every later
+    call one ``graph.replay`` alone (``utils/profiling.py``)."""
+    import time
+
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+    from structured_latent_odes_tpu_torch.utils.profiling import SPANS
+
+    buf = torch.zeros(4, device=cuda)
+
+    def body():
+        buf.add_(1.0)
+        return {"sum": buf.sum()}
+
+    graph = Graph(body, cuda)
+    calls = []
+    for _ in range(5):
+        t0 = time.perf_counter_ns()
+        out = graph()
+        calls.append([s[0] for s in SPANS if s[2] >= t0])
+    assert calls == [["graph.warm"], ["graph.capture", "graph.replay"]] + [["graph.replay"]] * 3
+    assert float(out["sum"]) == 4 * 5.0  # the warm call and four replays: the capture ran nothing
 
 
 # Serving's predict functions and the eval functions as CUDA graphs
