@@ -11,10 +11,11 @@ Phases, each fatal on any fault:
 
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source and width pair, all
-   started together: K2 and K3 (single-member and member-batched launches
-   share a library) at CVS's and challenge's (H, D) = (25, 5), proc's
-   (25, 8) and the wide (40, 17) and (128, 32); prints nvcc's -Xptxas -v
-   report and each kernel's registers and spills per method.
+   started together: K1, the conv encoder's pair (one library for every
+   shape), and K2 and K3 (single-member and member-batched launches share a
+   library) at CVS's and challenge's (H, D) = (25, 5), proc's (25, 8) and
+   the wide (40, 17) and (128, 32); prints nvcc's -Xptxas -v report and each
+   kernel's registers and spills per method.
 3. kernels: K1 (affine scan), K1-bwd (its reverse sweep), K2 (fused
    semilinear solve) and K3 (its reverse sweep) against their plain PyTorch
    versions on the card: K1 and K1-bwd bit for bit at the edges of their
@@ -40,6 +41,14 @@ Phases, each fatal on any fault:
    sweep's (S = 5, B = 36, (25, 8)), midpoint: each member bit for bit a
    single-member launch, within K2's and K3's tolerances of the plain
    versions, timed beside them, the bound at S*B and S single-member calls.
+   Then the conv encoder's forward and weight-gradient kernels (conv1d,
+   bias, average pool and flatten; csrc/conv_encoder.cu) at CVS's, proc's
+   and challenge's encoders and training batches and at ten members of the
+   CVS and proc sweeps: against their plain versions in float64, a second
+   launch bit for bit the first, each member bit for bit a single-member
+   launch (with its own observations and with one set shared by all), each
+   timed beside its plain version, its bound and cuDNN's way of the same
+   work.
 4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
@@ -47,7 +56,8 @@ Phases, each fatal on any fault:
    (K1), semilinear_pallas (K1), semilinear_fused (K2) and semilinear_seq
    (plain), plus one Gauss-model request. Launch counts are zeroed just before
    each backend's requests and read just after: each backend must launch its
-   own forward kernel and no other. Outputs are checked for shape,
+   own forward kernel and no other K1-K3 kernel, and the conv encoder's
+   forward. Outputs are checked for shape,
    finiteness and agreement across backends. Then a served request is timed at B = 100 and
    B = 16,411 per backend.
 5. training path: training_cvs.main at full width (--num-epochs 1: epochs 0
@@ -56,7 +66,8 @@ Phases, each fatal on any fault:
    semilinear_fused (K2, K3) and semilinear_seq (plain), plus one Gauss-model
    run. Launch counts are zeroed just before each run and read just after:
    each run must launch its backend's forward and backward kernels and no
-   other (semilinear_seq none). Every logged loss must be finite, the
+   other (semilinear_seq none), and the conv encoder's forward and weight
+   gradient on every backend. Every logged loss must be finite, the
    artifacts must have the JAX package's shapes, and the trained checkpoint
    is served through serve.main. Then the first dual step's losses and
    gradients are compared across the three backends from one set of params
@@ -78,7 +89,8 @@ Phases, each fatal on any fault:
    at S = 1, 2 and 10, its time at S = 1 and 10 and ten sequential dual
    steps beside it; then sweep.run at full width: CVS over seeds 12..21 on
    semilinear and semilinear_fused, proc over seeds 12..16 on
-   semilinear_fused, one epoch beyond epoch 0, launches counted per sweep;
+   semilinear_fused, one epoch beyond epoch 0, launches counted per sweep
+   (each launches the member-batched conv encoder's pair);
    each sweep must print "epoch dispatch: cuda graph" and replay graphs.
    Every member's artifacts exist and are finite, sweep.json parses,
    deploy_mean/ is written, and members 0 and S-1 match the port's
@@ -243,10 +255,10 @@ Phases, each fatal on any fault:
    capture's time (graph.capture spans). Its numbers join the {"graphs": ...}
    line under "served".
 
-TF32 stays off for matrix products and cuDNN convolutions throughout;
-cuDNN runs its deterministic algorithms in training, sweeps and the timed
-dual steps, as the trainers ask, and its fastest ones in serving
-(utils/device.py::full_fp32).
+TF32 stays off for matrix products throughout (utils/device.py::full_fp32).
+The port runs no cuDNN operation: the encoder's conv runs in its own
+kernels. Only phase 3's timing of cuDNN's way of the conv runs cuDNN, with
+its deterministic algorithms and TF32 off.
 
 Prints a {"ranks": ...} line, a {"cards": ...} line where phase 11 ran, a
 {"graphs": ...} line, a {"kernels": [...]} line, then the nvidia-smi line, then the last line
@@ -287,7 +299,7 @@ from structured_latent_odes_tpu_torch.nn.ode_model import (
     solve_ode,
 )
 from structured_latent_odes_tpu_torch.ode import solvers
-from structured_latent_odes_tpu_torch.ops import _build, fused_step, recurrence
+from structured_latent_odes_tpu_torch.ops import _build, conv_encoder, fused_step, recurrence
 from structured_latent_odes_tpu_torch.parallel import launch, timepar
 from structured_latent_odes_tpu_torch.parallel import mesh as mesh_module
 from structured_latent_odes_tpu_torch.parallel import train as dp_train
@@ -352,6 +364,20 @@ TOLERANCE_RULES = {
 # launch, and against the plain versions under K2's and K3's rules
 TOLERANCE_RULES["K2-members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["K2"]}
 TOLERANCE_RULES["K3-members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["K3"]}
+# the conv encoder's kernels against their plain versions in float64 on the
+# host (the card's F.conv1d is cuDNN's, another float32 order): the forward,
+# K * W products and a pool's means an output, elementwise as K2; each
+# weight-gradient leaf, a sum of B * n_conv products, against its largest
+# value as K3's. A second launch on the same inputs is bit for bit the
+# first: the weight gradient sums its blocks in a fixed order, no atomics.
+CONV_FWD_RULE = f"|out - ref| <= {ATOL:g} + {RTOL:g}*|ref|, elementwise, ref in float64"
+CONV_WGRAD_RULE = f"max|out - ref| <= {WGRAD_RTOL:g}*max|ref| of the leaf, ref in float64"
+REPEAT_RULE = "torch.equal(a second launch, the first): bit for bit"
+TOLERANCE_RULES["conv_pool_fwd"] = {"y": CONV_FWD_RULE, "repeat": REPEAT_RULE}
+TOLERANCE_RULES["conv_pool_wgrad"] = {"dw": CONV_WGRAD_RULE, "db": CONV_WGRAD_RULE, "repeat": REPEAT_RULE}
+TOLERANCE_RULES["conv_pool_fwd_members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["conv_pool_fwd"]}
+TOLERANCE_RULES["conv_pool_wgrad_members"] = {"single-member launch": MEMBER_RULE,
+                                              **TOLERANCE_RULES["conv_pool_wgrad"]}
 # first-step gradients across the three backends: max|g - g_seq| /
 # max(max|g_seq|, 1) over every leaf, the JAX package's own fused-vs-autodiff
 # bound (tests/test_fused_step.py): float32 accumulation order
@@ -384,6 +410,9 @@ K1_REPLACES = "structured_latent_odes_tpu/ops/recurrence.py:39"
 K1_BWD_REPLACES = "structured_latent_odes_tpu/ops/recurrence.py:87"
 K2_REPLACES = "structured_latent_odes_tpu/ops/fused_step.py:143"
 K3_REPLACES = "structured_latent_odes_tpu/ops/fused_step.py:171"
+CONV_SOURCE = "structured_latent_odes_tpu_torch/csrc/conv_encoder.cu"
+# no TPU kernel: the JAX package's conv and pool are XLA's
+CONV_REPLACES = "none: structured_latent_odes_tpu/nn/layers.py:188 (lax.conv_general_dilated and the pool)"
 KERNELS = {  # key: wrapper, which counts its launches
     "K1": recurrence.affine_scan_fwd,
     "K1-bwd": recurrence.affine_scan_bwd,
@@ -393,7 +422,24 @@ KERNELS = {  # key: wrapper, which counts its launches
     # on blockIdx.y), through their own wrappers and counts
     "K2-members": fused_step.fused_semilinear_fwd_members,
     "K3-members": fused_step.fused_semilinear_bwd_members,
+    # the conv encoder's front end (conv1d, bias, average pool, flatten):
+    # forward and weight gradient, for one model and member-batched
+    "conv_pool_fwd": conv_encoder.conv_pool_fwd,
+    "conv_pool_wgrad": conv_encoder.conv_pool_wgrad,
+    "conv_pool_fwd_members": conv_encoder.conv_pool_fwd_members,
+    "conv_pool_wgrad_members": conv_encoder.conv_pool_wgrad_members,
 }
+CONV_KEYS = ("conv_pool_fwd", "conv_pool_wgrad", "conv_pool_fwd_members", "conv_pool_wgrad_members")
+# the conv kernels a path runs: a served model's encoder, a trained one's,
+# and a sweep's members' (the stacked steps, under torch.func.vmap)
+ENCODE = ("conv_pool_fwd",)
+ENCODE_TRAIN = ("conv_pool_fwd", "conv_pool_wgrad")
+ENCODE_MEMBERS = ("conv_pool_fwd_members", "conv_pool_wgrad_members")
+# the conv encoder at each workload's training batch, (members, B) with 0
+# members for one model, and at the sweeps' stacked steps, ten members; the
+# channels, horizon and filters are the workload's encoder's
+CONV_SHAPES = {"cvs": (0, TRAIN_B), "proc": (0, 36), "challenge": (0, 32), "cvs_S10": (10, TRAIN_B),
+               "proc_S10": (10, 36)}
 # the sweeps' member-batched launches: (S, B, T) of the CVS sweep (ten
 # members, the training batch, (H, D) = (25, 5)) and the proc sweep (five
 # members, its training batch 36, (25, 8))
@@ -575,9 +621,10 @@ def phase_device(rehearse: bool):
 
 
 def phase_build(widths):
-    """K1's library, and K2's and K3's at each (H, D) of ``widths``."""
+    """K1's library, the conv encoder's, and K2's and K3's at each (H, D) of
+    ``widths``."""
     t0 = time.perf_counter()
-    targets = [("affine_scan", ())]
+    targets = [("affine_scan", ()), ("conv_encoder", ())]
     for H, D in widths:
         defines = (("SLODE_H", H), ("SLODE_D", D))
         targets += [("fused_semilinear_fwd", defines), ("fused_semilinear_bwd", defines)]
@@ -616,7 +663,8 @@ def ptxas_table(log: str) -> dict:
         if m:
             name = m.group(1)
             k = re.search(r"(fused_semilinear_(?:fwd|bwd)_kernel)ILi(\d+)E", name)
-            plain = re.search(r"(affine_scan_(?:fwd|bwd)_kernel|reduce_partials)", name)
+            plain = re.search(r"(affine_scan_(?:fwd|bwd)_kernel|reduce_partials|conv_pool_(?:fwd|wgrad)_kernel"
+                              r"|conv_pool_wgrad_sum)", name)
             current = ((k.group(1), fused_step.METHODS[int(k.group(2))]) if k
                        else (plain.group(1) if plain else name, ""))
             spills = (0, 0)
@@ -986,6 +1034,120 @@ def phase_members(device, clock: Clock, rehearse: bool, smi: str, res: dict):
                       f"{res[key][wl]['wrapper_ms']:.4f} ms ({smi})", flush=True)
 
 
+def conv_bound_ms(S: int, B: int, enc):
+    """(forward, weight gradient) bounds of the conv encoder's calls at ``S``
+    members (0: one model) of ``B`` trajectories through encoder ``enc``:
+    each input read and each output written once; the forward's products,
+    bias and pool sums, the weight gradient's pool backward, products and
+    bias sums."""
+    traj = max(S, 1) * B
+    K, T, Fn, W, P = enc.n_channels, enc.n_time, enc.n_filters, enc.filter_size, enc.pool_size
+    params = max(S, 1) * (Fn * K * W + Fn)
+    products = 2 * Fn * K * W * enc.n_conv
+    fwd = bound(4 * (traj * K * T + params + traj * Fn * enc.n_pool),
+                traj * (products + Fn * enc.n_conv + Fn * enc.n_pool * P))
+    wgrad = bound(4 * (traj * K * T + traj * Fn * enc.n_pool + params),
+                  traj * (products + Fn * enc.n_conv + Fn * enc.n_conv * P))
+    return fwd, wgrad
+
+
+def _conv_library(x, w, b, g, pool: int, members: bool):
+    """cuDNN's way of the conv kernels' work, as the port ran the encoder
+    before them: the forward (F.conv1d, F.avg_pool1d, flatten; for members
+    under torch.func.vmap, a grouped convolution), and from its autograd
+    graph the weight and bias gradients (the pool's backward and cuDNN's
+    weight gradient), as callables."""
+    def fwd(x, w, b):
+        return conv_encoder.conv_pool_fwd_plain(x, w, b, pool)
+
+    forward = torch.func.vmap(fwd) if members else fwd
+    w, b = w.detach().requires_grad_(), b.detach().requires_grad_()
+    y = forward(x, w, b)
+    return (lambda: forward(x, w, b)), (lambda: torch.autograd.grad(y, (w, b), g, retain_graph=True))
+
+
+def phase_conv(device, clock: Clock, rehearse: bool, smi: str, res: dict):
+    """The conv encoder's kernels at each workload's encoder (CONV_SHAPES):
+    the forward and the weight gradient against their plain versions in
+    float64 on the host, a second launch bit for bit the first, and each
+    member of the member-batched launches bit for bit a single-member launch
+    on its slices, with its own observations and with one set for all
+    members passed as an expand (the val ELBO's); then each timed beside
+    its plain version, its bound and cuDNN's way of the same work
+    (deterministic, TF32 off, as the port trained before these kernels)."""
+    encs = {"cvs": cvs_spec(load_cvs_config()).encoder,
+            **{wl: w["spec"](LOADERS[wl](), n_time=w["T"]).encoder for wl, w in WORKLOADS.items()}}
+    for label, (S, B) in CONV_SHAPES.items():
+        enc = encs[label.split("_")[0]]
+        if rehearse:
+            S, B = min(S, 2), 4
+        K, T, Fn, W, P = enc.n_channels, enc.n_time, enc.n_filters, enc.filter_size, enc.pool_size
+        fwd_key, wgrad_key = ("conv_pool_fwd_members", "conv_pool_wgrad_members") if S else ENCODE_TRAIN
+        fwd, wgrad = KERNELS[fwd_key], KERNELS[wgrad_key]
+        fwd_plain, wgrad_plain = getattr(conv_encoder, fwd_key + "_plain"), getattr(conv_encoder, wgrad_key + "_plain")
+        gen = torch.Generator().manual_seed(1000 * S + B)
+        lead = (S,) if S else ()
+        x = torch.rand(lead + (B, K, T), generator=gen)
+        w = (torch.rand(lead + (Fn, K, W), generator=gen) - 0.5) * 0.4
+        b = torch.rand(lead + (Fn,), generator=gen) - 0.5
+        g = torch.randn(lead + (B, Fn * enc.n_pool), generator=gen)
+        refs = {"y": fwd_plain(x.double(), w.double(), b.double(), P)}
+        refs["dw"], refs["db"] = wgrad_plain(x.double(), g.double(), W, P)
+        x, w, b, g = (t.to(device) for t in (x, w, b, g))
+        with torch.inference_mode():
+            outs = {"y": fwd(x, w, b, P)}
+            outs["dw"], outs["db"] = wgrad(x, g, W, P)
+            again = {"y": fwd(x, w, b, P)}
+            again["dw"], again["db"] = wgrad(x, g, W, P)
+            clock.sync()
+            worst = {}
+            for name, out in outs.items():
+                key, ref = (fwd_key if name == "y" else wgrad_key), refs[name]
+                out = out.cpu().double()
+                tol = (ATOL, RTOL) if name == "y" else (max(WGRAD_RTOL * float(ref.abs().max()), 1e-30), 0.0)
+                worst[name] = ratio(out, ref, *tol)
+                res[key]["err"] = max(res[key]["err"], float((out - ref).abs().max()))
+                res[key]["worst"][name] = max(res[key]["worst"][name], worst[name])
+            repeat = {fwd_key: torch.equal(outs["y"], again["y"]),
+                      wgrad_key: all(torch.equal(outs[n], again[n]) for n in ("dw", "db"))}
+            singles = {fwd_key: True, wgrad_key: True}
+            for shared in ((False, True) if S else ()):
+                xs = x[0].expand(x.shape) if shared else x
+                y = fwd(xs, w, b, P)
+                dw, db = wgrad(xs, g, W, P)
+                for s in range(S):
+                    one_dw, one_db = conv_encoder.conv_pool_wgrad(xs[s], g[s], W, P)
+                    singles[fwd_key] &= torch.equal(y[s], conv_encoder.conv_pool_fwd(xs[s], w[s], b[s], P))
+                    singles[wgrad_key] &= torch.equal(dw[s], one_dw) and torch.equal(db[s], one_db)
+            for key in (fwd_key, wgrad_key):
+                res[key]["worst"]["repeat"] = max(res[key]["worst"]["repeat"], 0.0 if repeat[key] else math.inf)
+                if S:
+                    res[key]["worst"]["single-member launch"] = max(res[key]["worst"]["single-member launch"],
+                                                                    0.0 if singles[key] else math.inf)
+        shape = f"S={S} B={B} K={K} T={T} F={Fn} W={W} pool={P}"
+        print(f"conv encoder {label} {shape}: worst error / tolerance vs plain (float64) " +
+              ", ".join(f"{k} {v:.3f}" for k, v in worst.items()) + f"; a second launch bit for bit {repeat}" +
+              (f"; every member bit for bit its single-member launch (own and shared observations) {singles}"
+               if S else ""), flush=True)
+        check(max(worst.values()) <= 1.0, f"conv encoder {label}: disagrees with its plain version: {worst}")
+        check(all(repeat.values()), f"conv encoder {label}: a second launch differs from the first: {repeat}")
+        check(all(singles.values()), f"conv encoder {label}: a member differs from its single-member launch")
+        fwd_bound, wgrad_bound = conv_bound_ms(S, B, enc)
+        plain_iters = 1 if S else 3
+        res[fwd_key][label] = _time(clock, rehearse, fwd_key, lambda: fwd(x, w, b, P),
+                                    lambda: fwd_plain(x, w, b, P), fwd_bound, shape, plain_iters=plain_iters)
+        res[wgrad_key][label] = _time(clock, rehearse, wgrad_key, lambda: wgrad(x, g, W, P),
+                                      lambda: wgrad_plain(x, g, W, P), wgrad_bound, shape, plain_iters=plain_iters)
+        full_fp32(deterministic=True)
+        lib_fwd, lib_wgrad = _conv_library(x, w, b, g, P, bool(S))
+        res[fwd_key][label]["library_ms"] = clock.ms(lib_fwd, iters=20)
+        res[wgrad_key][label]["library_ms"] = clock.ms(lib_wgrad, iters=20)
+        full_fp32()
+        print(f"time conv encoder {label} {shape}: cuDNN's way (deterministic, TF32 off) forward "
+              f"{res[fwd_key][label]['library_ms']:.4f} ms, weight and bias gradients "
+              f"{res[wgrad_key][label]['library_ms']:.4f} ms ({smi})", flush=True)
+
+
 def _width_ode(device, H: int, D: int, L: int = 15):
     """Random ODE weights at (H, D) (the port's init, seed H + D)."""
     spec = OdeModelSpec(latent_dim=L, ode_state_dim=D, ode_hidden_dim=H)
@@ -1239,7 +1401,6 @@ def phase_stacked_step(device, clock: Clock, data_dir: str, rehearse: bool, smi:
     and device operations at S = 1, 2 and 10, its time at S = 1 and 10, and
     ten sequential dual steps (one per member) beside it. Each kernel must
     launch as often at S = 10 as at S = 1."""
-    full_fp32(deterministic=True)  # the sweep's cuDNN settings
     cfg = _config(data_dir, "semilinear")
     train = training_cvs.build_splits(cfg, device=device)[0]["train"]
     ts = torch.arange(86.0, device=device)
@@ -1298,7 +1459,7 @@ def phase_stacked_step(device, clock: Clock, data_dir: str, rehearse: bool, smi:
               f"S=10 {step_ms[10]:.3f} ms, ten sequential dual steps {step_ms['10 sequential']:.3f} ms ({smi})",
               flush=True)
         check(launches[1] == launches[10], f"stacked step {backend}: launches differ at S=1 and S=10: {launches}")
-        check(rehearse or all(launches[10][key] > 0 for key in STACKED[backend]),
+        check(rehearse or all(launches[10][key] > 0 for key in STACKED[backend] + ENCODE_MEMBERS),
               f"stacked step {backend}: {launches[10]}")
 
 
@@ -1321,9 +1482,9 @@ def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, 
         common = ["--num-epochs", "1", "--ode-backend", backend, "--device", str(device)]
         extra = ["--data-path", data_dir] if dataset == "cvs" else ["--data-seed", "12", "--num-samples", n_samples]
         t0 = time.perf_counter()
-        run, text = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend], rehearse, lambda: printed(
-            lambda: sweep.run(sweep.parse_args([dataset, "--seeds", seeds, "--results-root", root] + common + extra))),
-            replayed=True)
+        argv = [dataset, "--seeds", seeds, "--results-root", root] + common + extra
+        run, text = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend] + ENCODE_MEMBERS, rehearse,
+                            lambda: printed(lambda: sweep.run(sweep.parse_args(argv))), replayed=True)
         wall = time.perf_counter() - t0
         check_dispatch(f"sweep {dataset} {backend}", text, "eager (on cpu" if rehearse else "cuda graph")
         with open(os.path.join(root, "sweep.json")) as f:
@@ -1341,7 +1502,8 @@ def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, 
         members = sweep.parse_seeds(seeds)
         for i in (0, len(members) - 1):
             seed = members[i]
-            out = counted(paths, f"sequential {dataset} {backend} seed {seed}", TRAINING[backend], rehearse,
+            out = counted(paths, f"sequential {dataset} {backend} seed {seed}", TRAINING[backend] + ENCODE_TRAIN,
+                          rehearse,
                           lambda: driver.main(["--seed", str(seed), "--no-plot", "--no-eval-train", "--results-root",
                                                os.path.join(root, f"sequential{seed}")] + common + extra))
             worst = 0.0
@@ -1393,11 +1555,21 @@ def counted(paths: dict, name: str, expected, rehearse: bool, fn, replayed: bool
     paths[name] = counts = read_counts()
     VARIANT_PATHS[name] = {key: collections.Counter(w.variants) for key, w in KERNELS.items() if hasattr(w, "variants")}
     print(f"launches {name}: {counts}", flush=True)
+    hold_counts(name, counts, expected, rehearse)
+    return out
+
+
+def hold_counts(name: str, counts: dict, expected, rehearse: bool) -> None:
+    """Each kernel of ``expected`` launched on the card, and no other K1-K3
+    kernel. The conv encoder's kernels run wherever a path encodes on the
+    card, whatever its ODE backend: the ones ``expected`` names must have
+    launched, the others are recorded. In a rehearsal none launches."""
     for key, n in counts.items():
         want = key in expected and not rehearse
+        if key in CONV_KEYS and not want and not rehearse:
+            continue
         check(n > 0 if want else n == 0,
               f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
-    return out
 
 
 def _config(data_dir: str, backend: str, model: str = "Mechanistic"):
@@ -1443,11 +1615,11 @@ def phase_serving(device, workdir: str, rehearse: bool, paths: dict):
             )
 
     for backend, expected in FORWARD.items():
-        counted(paths, f"serve {backend}", expected, rehearse, lambda: serve_all(backend))
+        counted(paths, f"serve {backend}", expected + ENCODE, rehearse, lambda: serve_all(backend))
     gauss_cfg = _config(data_dir, "semilinear", "MechanisticGauss")
     gauss_ckpt = os.path.join(workdir, "gauss.npz")
     checkpoint.save(gauss_ckpt, params_to_jax(init_params(cvs_spec(gauss_cfg), 2, device=device)))
-    gauss = counted(paths, "serve semilinear Gauss", FORWARD["semilinear"], rehearse, lambda: serve.main(
+    gauss = counted(paths, "serve semilinear Gauss", FORWARD["semilinear"] + ENCODE, rehearse, lambda: serve.main(
         ["--dataset", "cvs", "--checkpoint", gauss_ckpt, "--device", str(device),
          "--output", os.path.join(workdir, "gauss-posterior.npz")],
         config=gauss_cfg,
@@ -1544,7 +1716,8 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
         root = os.path.join(workdir, f"train-{backend}-{model}")
         t0 = time.perf_counter()
         name = f"train {backend}" + (" Gauss" if model == "MechanisticGauss" else "")
-        results[backend, model] = counted(paths, name, TRAINING[backend], rehearse, lambda: training_cvs.main([
+        results[backend, model] = counted(paths, name, TRAINING[backend] + ENCODE_TRAIN, rehearse,
+                                          lambda: training_cvs.main([
             "--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
             "--data-path", data_dir, "--results-root", root, "--device", str(device),
         ]), replayed=True)
@@ -1585,7 +1758,6 @@ def first_step_and_times(clock: Clock, rehearse: bool, smi: str, paths: dict, pr
     backend into ``paths``, as ``first step {prefix}{backend}``), then one
     dual step timed per backend. ``spec_of(backend)`` is the model's spec on
     that ODE backend."""
-    full_fp32(deterministic=True)  # the trainers' cuDNN settings
     first = {b: counted(paths, f"first step {prefix}{b}", TRAINING[b], rehearse,
                         lambda: _first_step(spec_of(b), params, batch, ts, lr))
              for b in TRAINING}
@@ -1671,11 +1843,12 @@ def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str
                 )
 
         for backend in TRAINING:
-            counted(paths, f"serve {wl} {backend}", FORWARD[backend], rehearse, lambda: serve_all(backend))
+            counted(paths, f"serve {wl} {backend}", FORWARD[backend] + ENCODE, rehearse, lambda: serve_all(backend))
         gauss_cfg = _workload_config(wl, "semilinear", "MechanisticGauss")
         gauss_ckpt = os.path.join(workdir, f"{wl}-gauss.npz")
         checkpoint.save(gauss_ckpt, params_to_jax(init_params(w["spec"](gauss_cfg, n_time=T), 2, device=device)))
-        outs["Gauss", "posterior"] = counted(paths, f"serve {wl} semilinear Gauss", FORWARD["semilinear"], rehearse,
+        outs["Gauss", "posterior"] = counted(paths, f"serve {wl} semilinear Gauss", FORWARD["semilinear"] + ENCODE,
+                                             rehearse,
                                              lambda: serve.main(
             ["--dataset", wl, "--checkpoint", gauss_ckpt, "--split", "val", "--device", str(device),
              "--output", os.path.join(workdir, f"{wl}-gauss-posterior.npz")], config=gauss_cfg))
@@ -1699,7 +1872,7 @@ def phase_workloads(device, clock: Clock, workdir: str, rehearse: bool, smi: str
                     "--num-samples", str(n_samples), "--device", str(device),
                     "--results-root", os.path.join(workdir, f"train-{wl}-{backend}-{model}")]
             t0 = time.perf_counter()
-            out = results[backend, model] = counted(paths, name, TRAINING[backend], rehearse,
+            out = results[backend, model] = counted(paths, name, TRAINING[backend] + ENCODE_TRAIN, rehearse,
                                                     lambda: w["driver"].main(argv), replayed=True)
             losses = _check_trained(name, out, artifacts)
             print(f"== {name}: 2 epochs, test and {n_samples}-draw bands in {time.perf_counter() - t0:.2f} s; "
@@ -1811,14 +1984,12 @@ def phase_menu(device, clock: Clock, data_dir: str, rehearse: bool, smi: str, pa
         check(all(torch.isfinite(v).all() for v in served[name].values()), f"menu {name}: non-finite served output")
         if name not in MENU:  # the references serve only
             continue
-        full_fp32(deterministic=True)  # the trainers' cuDNN settings
         t0, before = time.perf_counter(), _trips()
         first[name], state, mets = counted(paths, f"menu train {name}", expected(backend, True), rehearse,
                                            lambda: _two_dual_steps(spec, params, train, ts, cfg.learning_rate))
         clock.sync()
         step_ms = (time.perf_counter() - t0) * 1e3 / 2
         step_trips = _per_solve(before, _trips())
-        full_fp32()
         check(math.isfinite(float(mets["loss_main"])) and all(torch.isfinite(p).all()
                                                               for p in tree_leaves(state.params)),
               f"menu {name}: non-finite training step")
@@ -2074,7 +2245,6 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
     epoch; each graph's pool; and a traced epoch each way (device idle
     share, host launches a step). In a rehearsal the graphs' plain version
     runs."""
-    full_fp32(deterministic=True)
     graphed = "plain" if rehearse else None
     out = {}
     for wl in RANK_WORKLOADS:
@@ -2182,7 +2352,6 @@ def phase_graph_menu(device, data_dir: str, rehearse: bool, paths: dict) -> dict
     the eager epoch, launching no kernel of the port; then one more epoch
     replayed throughout, timed beside the eager one (one each, host clock to
     a synchronize)."""
-    full_fp32(deterministic=True)
     graphed = "plain" if rehearse else None
     cfg = _config(data_dir, "semilinear")
     _, splits, times = serve._build("cvs", cfg, device)
@@ -2296,7 +2465,6 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
     and pool; and a traced epoch of stacked steps each way (device busy
     time, idle share, host launching calls a step). In a rehearsal the
     graphs' plain version runs."""
-    full_fp32(deterministic=True)
     graphed = "plain" if rehearse else None
     n = 2 if rehearse else GRAPH_REPEATS
     out = {}
@@ -2903,7 +3071,7 @@ def _rank_dp_step(c: dict):
     if grid is None:
         return None
     device = resolve_device(c["device"])
-    full_fp32(deterministic=True)
+    full_fp32()
     spec = _rank_spec(c["workload"], c["data_dir"], c["backend"])
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
@@ -2949,7 +3117,7 @@ def _rank_dp_graphs(c: dict):
     if grid is None:
         return None
     device = resolve_device(c["device"])
-    full_fp32(deterministic=True)
+    full_fp32()
     spec = _rank_spec(c["workload"], c["data_dir"], c["backend"])
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
@@ -2996,7 +3164,7 @@ def _rank_tp_case(c: dict):
     n_data, n_model = c["grid"]
     grid = make_mesh(n_data, n_model)
     device = resolve_device(c["device"])
-    full_fp32(deterministic=True)
+    full_fp32()
     spec = _rank_spec(c["workload"], c["data_dir"], "semilinear", n_model)
     params = tree_map(lambda a: torch.as_tensor(a, device=device), c["params"])
     ts = torch.as_tensor(c["times"], device=device)
@@ -3100,9 +3268,7 @@ def _hold_step(name: str, out: dict, ref_state, ref_mets, loss_rtol: float, rtol
 def _check_rank_counts(paths: dict, name: str, counts: dict, expected, rehearse: bool) -> None:
     paths[name] = counts
     print(f"launches {name}: {counts}", flush=True)
-    for key, n in counts.items():
-        want = key in expected and not rehearse
-        check(n > 0 if want else n == 0, f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
+    hold_counts(name, counts, expected, rehearse)
 
 
 # the workloads of phases 10 and 11: CVS at its training batch and horizon,
@@ -3333,7 +3499,6 @@ def phase_ranks(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
     sweep; (e) the CLI with --data-parallel 2 on one card raises before any
     launch, naming the card count. Launches are counted per rank and case."""
     t_phase = time.perf_counter()
-    full_fp32(deterministic=True)
     inputs = {wl: RankInputs(device, data_dir, rehearse, wl) for wl in RANK_WORKLOADS}
     inp = inputs["cvs"]
     B, ref_ms = inp.B, inp.ref_ms
@@ -3473,13 +3638,16 @@ _COUNT_HOOK = '''
 import atexit, importlib.machinery, importlib.util, json, os, sys
 
 def _dump():
-    mods = [sys.modules.get("structured_latent_odes_tpu_torch.ops." + m) for m in ("recurrence", "fused_step")]
+    mods = [sys.modules.get("structured_latent_odes_tpu_torch.ops." + m)
+            for m in ("recurrence", "fused_step", "conv_encoder")]
     if None in mods:
         return
-    rec, fs = mods
+    rec, fs, ce = mods
     wrappers = {"K1": rec.affine_scan_fwd, "K1-bwd": rec.affine_scan_bwd, "K2": fs.fused_semilinear_fwd,
                 "K3": fs.fused_semilinear_bwd, "K2-members": fs.fused_semilinear_fwd_members,
-                "K3-members": fs.fused_semilinear_bwd_members}
+                "K3-members": fs.fused_semilinear_bwd_members,
+                **{k: getattr(ce, k) for k in ("conv_pool_fwd", "conv_pool_wgrad", "conv_pool_fwd_members",
+                                               "conv_pool_wgrad_members")}}
     counts = {k: w.launches for k, w in wrappers.items()}
     if not any(counts.values()):  # the parent of spawned ranks
         return
@@ -3594,7 +3762,6 @@ def phase_cards(device, workdir: str, data_dir: str, rehearse: bool, smi: str, p
         print(f"== phase 11 needs {CARDS} cards and found {n_cards}: not run", flush=True)
         return None
     t_phase = time.perf_counter()
-    full_fp32(deterministic=True)
     inputs = {wl: RankInputs(device, data_dir, rehearse, wl) for wl in RANK_WORKLOADS}
     pool_device = "cpu" if rehearse else "cuda"
     label = "rehearsal: four gloo ranks on the CPU" if rehearse else CARDS_LABEL
@@ -3842,6 +4009,8 @@ def main(argv=None):
     phase_long_horizon(device, clock, args.rehearse, smi, res, paths)
     phase("3: member-batched K2 and K3")
     phase_members(device, clock, args.rehearse, smi, res)
+    phase("3: the conv encoder's kernels")
+    phase_conv(device, clock, args.rehearse, smi, res)
     phase("3: C2, K2 and K3 at dopri5 and at wide widths")
     c2 = phase_c2(device, clock, args.rehearse, smi, odes)
 
@@ -3929,6 +4098,26 @@ def main(argv=None):
             **{other: res[key][other] for other in ("serve", "big", "affine_scan_call", "proc_train",
                                                      "challenge_train", "c1_D5", "c1_D8", "proc")
                if other in res[key]},
+        })
+    # the conv encoder's kernels: one model's at CVS's training batch (main
+    # path: CVS training on semilinear_fused), the member-batched at the proc
+    # sweep's ten members (main path: the proc sweep); their other shapes
+    # beside them, and cuDNN's way of the same work as library_ms
+    for key, main_path, label in (("conv_pool_fwd", "train semilinear_fused", "cvs"),
+                                  ("conv_pool_wgrad", "train semilinear_fused", "cvs"),
+                                  ("conv_pool_fwd_members", "sweep proc semilinear_fused", "proc_S10"),
+                                  ("conv_pool_wgrad_members", "sweep proc semilinear_fused", "proc_S10")):
+        t = res[key][label]
+        kernels.append({
+            "name": key, "route": "cuda", "source": CONV_SOURCE, "replaces": CONV_REPLACES,
+            "launches": paths[main_path][key], "main_path": main_path,
+            "launches_by_path": {path: counts.get(key) for path, counts in paths.items()},
+            "max_abs_err": res[key]["err"],
+            "tolerance": {out: {"rule": rule, "worst_error_over_tolerance": res[key]["worst"][out]}
+                          for out, rule in TOLERANCE_RULES[key].items()},
+            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
+            **{other: res[key][other] for other in CONV_SHAPES if other != label and other in res[key]},
         })
     # C2's kernels: K2 and K3 at dopri5 and at the wide widths, each with
     # the launches of its variant (method, H, D) on the path that runs it

@@ -19,6 +19,7 @@ from structured_latent_odes_tpu_torch.nn.init import (
     torch_linear_default,
     uniform,
 )
+from structured_latent_odes_tpu_torch.ops.conv_encoder import conv_pool
 
 Tensor = torch.Tensor
 
@@ -154,11 +155,10 @@ def conv_encoder_apply(spec: ConvEncoderSpec, params, x: Tensor) -> Tuple[Tensor
     """x: (B, K, T) observations -> (z_loc, z_scale), each (B, latent_dim).
 
     conv1d (VALID) -> avgpool (stride 1) -> filter-major flatten -> linear ->
-    tanh -> loc head and clipped-exp scale head.
+    tanh -> loc head and clipped-exp scale head. The first three are one op,
+    ``ops/conv_encoder.py::conv_pool`` (its kernels on the card).
     """
-    y = F.conv1d(x, params["conv_W"], params["conv_b"])
-    y = F.avg_pool1d(y, kernel_size=spec.pool_size, stride=1)
-    y = y.reshape(y.shape[0], -1)
+    y = conv_pool(x, params["conv_W"], params["conv_b"], spec.pool_size)
     h = torch.tanh(linear_apply(params["lin"], y))
     z_loc = linear_apply(params["z_loc"], h)
     z_scale = torch.exp(torch.clamp(linear_apply(params["z_scale"], h), -30.0, 15.0))

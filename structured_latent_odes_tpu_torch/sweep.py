@@ -662,7 +662,7 @@ def run(args) -> SweepRun:
     if n_ens * n_data > 1 and not dist.is_initialized():
         return launch.run_ranks(run, n_ens * n_data, device=args.device, args=(args,))
     device = resolve_device(args.device)
-    full_fp32(deterministic=True)
+    full_fp32()
 
     os.makedirs(args.results_root, exist_ok=True)
     print(f"sweep: {args.dataset} x {len(seeds)} seeds {seeds}")

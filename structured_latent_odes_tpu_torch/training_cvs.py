@@ -115,7 +115,7 @@ def train(config, device="cuda"):
     open_model_log(config)
     device = resolve_device(device)
     writer = is_writer()
-    full_fp32(deterministic=True)
+    full_fp32()
     print(config.to_json())
     log.debug(config.to_json())
     seed = set_seed(config.seed)

@@ -25,16 +25,15 @@ def resolve_device(device) -> torch.device:
 
 
 def full_fp32(deterministic: bool = False) -> None:
-    """Full float32 on the card: cuDNN runs float32 convolutions in TF32 by
-    default, which would change the encoder's result.
+    """Full float32 on the card: matrix products, and cuDNN's float32
+    convolutions, which run in TF32 by default.
 
-    ``deterministic`` also asks cuDNN for convolution algorithms whose sums
-    come out in the same order from run to run. Training needs it: under Adam
-    a gradient element that sums to nearly zero turns that roundoff into a
-    visible difference, and a sweep member would no longer reproduce the
-    sequential run of its seed within tests/test_ensemble.py's bound (rtol
-    2e-4, atol 1e-6). Serving does not, and keeps cuDNN's fastest
-    algorithms."""
+    The port itself runs no cuDNN operation: the encoder's conv runs in its
+    own kernels (ops/conv_encoder.py), float32 and summed in a fixed order.
+    The cuDNN settings hold for a caller that runs a convolution beside the
+    port, such as the benchmark's plain reference (port_bench/reference/),
+    which trains through ``F.conv1d``: ``deterministic`` asks cuDNN for
+    algorithms whose sums come out in the same order from run to run."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = deterministic

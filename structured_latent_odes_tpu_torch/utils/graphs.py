@@ -29,15 +29,17 @@ from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 def _counted():
     """The kernel wrappers, whose launch counters (``launches``, and
-    ``variants`` by (method, H, D) where a wrapper keeps them) a graph keeps
-    true: a wrapper's Python runs once, at the capture, so each replay adds
-    what the capture counted. (Imported here: the solvers, which the ops
-    import, replay graphs of their own.)"""
-    from structured_latent_odes_tpu_torch.ops import fused_step, recurrence
+    ``variants`` by (method, H, D) or, for the conv encoder's, by shape,
+    where a wrapper keeps them) a graph keeps true: a wrapper's Python runs
+    once, at the capture, so each replay adds what the capture counted.
+    (Imported here: the solvers, which the ops import, replay graphs of
+    their own.)"""
+    from structured_latent_odes_tpu_torch.ops import conv_encoder, fused_step, recurrence
 
     return (recurrence.affine_scan_fwd, recurrence.affine_scan_bwd, fused_step.fused_semilinear_fwd,
             fused_step.fused_semilinear_fwd_members, fused_step.fused_semilinear_bwd,
-            fused_step.fused_semilinear_bwd_members)
+            fused_step.fused_semilinear_bwd_members, conv_encoder.conv_pool_fwd,
+            conv_encoder.conv_pool_fwd_members, conv_encoder.conv_pool_wgrad, conv_encoder.conv_pool_wgrad_members)
 
 
 def _counts():

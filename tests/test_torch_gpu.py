@@ -1,5 +1,5 @@
-"""Kernels K1, K1-bwd, K2 and K3 of the PyTorch port against their plain
-PyTorch versions, on a CUDA card. Marked ``gpu``; each test skips when no
+"""Kernels K1, K1-bwd, K2 and K3 and the conv encoder's pair of the PyTorch
+port against their plain PyTorch versions, on a CUDA card. Marked ``gpu``; each test skips when no
 card is present.
 
 This file imports no JAX: the machine with the card has none. Run it there
@@ -608,7 +608,13 @@ def test_dp_step_through_an_nccl_group_of_one_is_the_one_device_step(cuda, rank_
     assert out["counts"]["K2"] > 0 and out["counts"]["K3"] > 0
 
 
-@pytest.mark.parametrize("backend,kernels", [("semilinear_fused", ("K2", "K3")), ("semilinear", ("K1", "K1-bwd"))])
+# the kernels a rank's dual step launches, and no other: its backend's and
+# its encoder's conv pair (main and aux)
+DP_STEP_KERNELS = [("semilinear_fused", ("K2", "K3", "conv_pool_fwd", "conv_pool_wgrad")),
+                   ("semilinear", ("K1", "K1-bwd", "conv_pool_fwd", "conv_pool_wgrad"))]
+
+
+@pytest.mark.parametrize("backend,kernels", DP_STEP_KERNELS)
 def test_dp_step_on_two_ranks_sharing_the_card(cuda, rank_pool, backend, kernels):
     import chip_smoke
 
@@ -731,7 +737,7 @@ def test_ranks_take_a_card_each(card_pool):
     assert [c.split()[0] for c in card_pool.run(chip_smoke._rank_card)] == [f"cuda:{r}" for r in range(4)]
 
 
-@pytest.mark.parametrize("backend,kernels", [("semilinear_fused", ("K2", "K3")), ("semilinear", ("K1", "K1-bwd"))])
+@pytest.mark.parametrize("backend,kernels", DP_STEP_KERNELS)
 def test_dp_step_over_four_cards(cuda, card_pool, backend, kernels):
     import chip_smoke
 
@@ -1003,3 +1009,129 @@ def test_eval_fns_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
         ref = training_challenge.multiple_samples(eager[2], params, 5, batch, 4, is_post)
         got = training_challenge.multiple_samples(graphed[2], params, 5, batch, 4, is_post)
         assert all(np.array_equal(ref[k], got[k]) for k in ref)
+
+
+# The conv encoder's front end (csrc/conv_encoder.cu): the forward and the
+# weight-gradient kernels at the three workloads' encoders, (B, K, T) of the
+# training batch with 10 filters of width 10 and a pool of 5, and proc's
+# stacked step, 10 members x 36. Against the plain versions in float64 on the
+# CPU (the card's F.conv1d would be cuDNN's, in TF32 unless told otherwise):
+# the forward elementwise within 1e-5 + 1e-5 * |ref| (40 products and 5 means
+# an output, in another order); each weight-gradient leaf, a sum of B * n_conv
+# products, within 1e-5 of its largest value, as K3's.
+CONV_SHAPES = {"cvs": (0, 128, 3, 86), "proc": (0, 36, 4, 100), "challenge": (0, 32, 4, 142),
+               "proc-S10": (10, 36, 4, 100)}
+
+
+def _conv_args(cuda, S, B, K, T, seed=0):
+    from structured_latent_odes_tpu_torch.ops import conv_encoder
+
+    gen = torch.Generator().manual_seed(seed)
+    lead = (S,) if S else ()
+    x = torch.rand(lead + (B, K, T), generator=gen)
+    w = (torch.rand(lead + (10, K, 10), generator=gen) - 0.5) * 0.4
+    b = torch.rand(lead + (10,), generator=gen) - 0.5
+    g = torch.randn(lead + (B, 10 * (T - 13)), generator=gen)
+    return conv_encoder, tuple(t.to(cuda) for t in (x, w, b, g))
+
+
+def _conv_launch(ce, S, x, w, b, g):
+    if S:
+        return ce.conv_pool_fwd_members(x, w, b, 5), ce.conv_pool_wgrad_members(x, g, 10, 5)
+    return ce.conv_pool_fwd(x, w, b, 5), ce.conv_pool_wgrad(x, g, 10, 5)
+
+
+@pytest.mark.parametrize("name", sorted(CONV_SHAPES))
+def test_conv_encoder_kernels_match_plain(cuda, name):
+    S = CONV_SHAPES[name][0]
+    ce, (x, w, b, g) = _conv_args(cuda, *CONV_SHAPES[name])
+    counters = (ce.conv_pool_fwd_members, ce.conv_pool_wgrad_members) if S else (ce.conv_pool_fwd, ce.conv_pool_wgrad)
+    before = [c.launches for c in counters]
+    y, (dw, db) = _conv_launch(ce, S, x, w, b, g)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + 1 for n in before]
+    x64, w64, b64, g64 = (t.cpu().double() for t in (x, w, b, g))
+    if S:
+        ref_y = ce.conv_pool_fwd_members_plain(x64, w64, b64, 5)
+        ref_dw, ref_db = ce.conv_pool_wgrad_members_plain(x64, g64, 10, 5)
+    else:
+        ref_y = ce.conv_pool_fwd_plain(x64, w64, b64, 5)
+        ref_dw, ref_db = ce.conv_pool_wgrad_plain(x64, g64, 10, 5)
+    torch.testing.assert_close(y.cpu().double(), ref_y, rtol=1e-5, atol=1e-5)
+    for out, ref in ((dw, ref_dw), (db, ref_db)):
+        assert float((out.cpu().double() - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("name", sorted(CONV_SHAPES))
+def test_conv_encoder_kernels_repeat_bit_for_bit(cuda, name):
+    S = CONV_SHAPES[name][0]
+    ce, args = _conv_args(cuda, *CONV_SHAPES[name])
+    first, second = _conv_launch(ce, S, *args), _conv_launch(ce, S, *args)
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, c) for a, c in zip(first[1], second[1]))
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["batched_x", "shared_x"])
+def test_conv_encoder_members_are_single_launches(cuda, shared):
+    """Each of ten members' outputs, member-batched, bit for bit a
+    single-member launch on its slices; with one batch for all members (the
+    val ELBO's), passed as an expand."""
+    ce, (x, w, b, g) = _conv_args(cuda, *CONV_SHAPES["proc-S10"])
+    if shared:
+        x = x[0].expand(x.shape)
+    y, (dw, db) = _conv_launch(ce, 10, x, w, b, g)
+    for s in range(10):
+        assert torch.equal(y[s], ce.conv_pool_fwd(x[s], w[s], b[s], 5))
+        one_dw, one_db = ce.conv_pool_wgrad(x[s], g[s], 10, 5)
+        assert torch.equal(dw[s], one_dw) and torch.equal(db[s], one_db)
+
+
+def test_conv_encoder_refuses_past_shared_memory(cuda):
+    """A horizon whose block passes 227 KB raises a ValueError naming the
+    limit, before any launch."""
+    ce, (x, w, b, _) = _conv_args(cuda, 0, 2, 4, 6000)
+    before = ce.conv_pool_fwd.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        ce.conv_pool_fwd(x, w, b, 5)
+    assert ce.conv_pool_fwd.launches == before
+
+
+def test_conv_encoder_kernels_run_in_replayed_steps(cuda, tiny_cvs):
+    """A replayed CVS dual step launches the single-model kernels, and a
+    replayed proc sweep epoch (two members, their stacked steps and val ELBO)
+    the member-batched ones, each counted under its workload's shape."""
+    from structured_latent_odes_tpu_torch import sweep, training_cvs
+    from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+    from structured_latent_odes_tpu_torch.ops import conv_encoder as ce
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    full_fp32(deterministic=True)
+    cfg = load_cvs_config()
+    cfg.data_path = tiny_cvs
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    params = init_params(spec, 0, device=cuda)
+    batches = device_batch(stacked_minibatches(splits["train"], 16, shuffle=True, rng=np.random.RandomState(0)), cuda)
+    init_state, _, graphed = svi.make_train_step(spec, torch.arange(86.0, device=cuda), cfg.learning_rate, params)
+    state = init_state(params, 5)
+    state, _ = graphed(state, batches)  # warms up and captures
+    single, members = (ce.conv_pool_fwd, ce.conv_pool_wgrad), (ce.conv_pool_fwd_members, ce.conv_pool_wgrad_members)
+    before, replays = [c.launches for c in single], Graph.replays
+    cvs_shape = ce.conv_pool_wgrad.variants[3, 86, 10, 10, 5]
+    graphed(state, batches)
+    torch.cuda.synchronize()
+    assert Graph.replays > replays and all(c.launches > n for c, n in zip(single, before))
+    assert ce.conv_pool_wgrad.variants[3, 86, 10, 10, 5] > cvs_shape
+
+    pcfg = sweep.load_base_config("proc")
+    pcfg.num_epochs, pcfg.data_seed = 1, 1
+    sweep_members = [sweep.prepare_member("proc", pcfg, seed, cuda) for seed in (3, 4)]
+    before, replays = [c.launches for c in members], Graph.replays
+    proc_shape = ce.conv_pool_wgrad_members.variants[4, 100, 10, 10, 5]
+    sweep.train_ensemble(sweep_members, device=cuda)
+    torch.cuda.synchronize()
+    assert Graph.replays > replays and all(c.launches > n for c, n in zip(members, before))
+    assert ce.conv_pool_wgrad_members.variants[4, 100, 10, 10, 5] > proc_shape

@@ -335,8 +335,9 @@ def test_sweep_defaults_to_one_stacked_run():
 
 @pytest.mark.parametrize("deterministic", [True, False])
 def test_full_fp32_sets_cudnn_determinism(deterministic):
-    """Training and sweeps ask cuDNN for deterministic algorithms, serving
-    for its fastest; TF32 stays off either way."""
+    """``deterministic`` asks cuDNN for deterministic algorithms (for a
+    convolution run beside the port, such as the benchmark's reference);
+    TF32 stays off either way."""
     full_fp32(deterministic=deterministic)
     assert torch.backends.cudnn.deterministic is deterministic
     assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
