@@ -12,7 +12,7 @@ Phases, each fatal on any fault:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source and width pair, all
    started together: K1, the conv encoder's pair (one library for every
-   shape), and K2 and K3 (single-member and member-batched launches share a
+   shape), the sampler's draw and fold kernels, and K2 and K3 (single-member and member-batched launches share a
    library) at CVS's and challenge's (H, D) = (25, 5), proc's (25, 8) and
    the wide (40, 17) and (128, 32); prints nvcc's -Xptxas -v report and each
    kernel's registers and spills per method.
@@ -48,7 +48,14 @@ Phases, each fatal on any fault:
    launch bit for bit the first, each member bit for bit a single-member
    launch (with its own observations and with one set shared by all), each
    timed beside its plain version, its bound and cuDNN's way of the same
-   work.
+   work. Then the sampler's kernels (csrc/counter_normal.cu: a draw site's
+   counter hash and Box-Muller in one launch, a seed tensor's folds in one)
+   at CVS's and proc's draw sites and at ten members of each: bit for bit
+   their plain version on the card (int64 and float64 tensor arithmetic),
+   each member bit for bit its single-seed launch, each timed beside the
+   plain version and its bound. The sampler's launches are read from every
+   path (a model's draws on the card launch counter_normal, a sweep's
+   members counter_normal_members).
 4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
@@ -219,8 +226,11 @@ Phases, each fatal on any fault:
    four eval epochs), eager and replayed; the host time of a fresh capture
    of the step and of the val eval epoch (its graph.capture span); a traced
    epoch each way (device busy time, idle share, the host's launching calls
-   a step). Prints a {"graphs": ...} line (with
-   phase 8's menu epochs). The training runs of phases 5, 6 and 9
+   a step). Then one replayed CVS dual step (semilinear, B = 128) under the
+   profiler: its five draw sites launch counter_normal once each (at most
+   two sampler launches a site), and none of the plain sampler's int64 and
+   float64 elementwise kernels runs. Prints a {"graphs": ...} line (with
+   phase 8's menu epochs and that step's counts). The training runs of phases 5, 6 and 9
    replay graphs too: each prints its replays (and the CLI its "epoch
    dispatch: cuda graph" line), and a run that replayed none fails.
 13. the sweeps' epochs as CUDA graphs (train/ensemble.py: the stacked dual
@@ -288,7 +298,7 @@ import torch
 from structured_latent_odes_tpu_torch import serve, sweep, training_challenge, training_cvs, training_proc
 from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_config
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
-from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+from structured_latent_odes_tpu_torch.data.loader import iter_minibatches, stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
 from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
 from structured_latent_odes_tpu_torch.nn.ode_model import (
@@ -299,12 +309,12 @@ from structured_latent_odes_tpu_torch.nn.ode_model import (
     solve_ode,
 )
 from structured_latent_odes_tpu_torch.ode import solvers
-from structured_latent_odes_tpu_torch.ops import _build, conv_encoder, fused_step, recurrence
+from structured_latent_odes_tpu_torch.ops import _build, conv_encoder, counter_normal, fused_step, recurrence
 from structured_latent_odes_tpu_torch.parallel import launch, timepar
 from structured_latent_odes_tpu_torch.parallel import mesh as mesh_module
 from structured_latent_odes_tpu_torch.parallel import train as dp_train
 from structured_latent_odes_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_stacked
-from structured_latent_odes_tpu_torch.prob import fold_seed
+from structured_latent_odes_tpu_torch.prob import distributions, fold_seed
 from structured_latent_odes_tpu_torch.train import checkpoint, ensemble, svi
 from structured_latent_odes_tpu_torch.train.driver import device_batch, final_test_eval
 from structured_latent_odes_tpu_torch.utils import graphs, profiling
@@ -378,6 +388,13 @@ TOLERANCE_RULES["conv_pool_wgrad"] = {"dw": CONV_WGRAD_RULE, "db": CONV_WGRAD_RU
 TOLERANCE_RULES["conv_pool_fwd_members"] = {"single-member launch": MEMBER_RULE, **TOLERANCE_RULES["conv_pool_fwd"]}
 TOLERANCE_RULES["conv_pool_wgrad_members"] = {"single-member launch": MEMBER_RULE,
                                               **TOLERANCE_RULES["conv_pool_wgrad"]}
+# the draws' counter hash against its plain version on the card (int64 and
+# float64 tensor arithmetic, prob/distributions.py): the same integer words
+# and the same float64 library calls, so bit for bit
+SAMPLER_RULE = "torch.equal(out, the plain version on the card): bit for bit"
+TOLERANCE_RULES["counter_normal"] = {"eps": SAMPLER_RULE, "int32 ids": SAMPLER_RULE}
+TOLERANCE_RULES["counter_normal_members"] = {"single-member launch": MEMBER_RULE, "eps": SAMPLER_RULE}
+TOLERANCE_RULES["counter_fold"] = {"words": SAMPLER_RULE}
 # first-step gradients across the three backends: max|g - g_seq| /
 # max(max|g_seq|, 1) over every leaf, the JAX package's own fused-vs-autodiff
 # bound (tests/test_fused_step.py): float32 accumulation order
@@ -413,6 +430,9 @@ K3_REPLACES = "structured_latent_odes_tpu/ops/fused_step.py:171"
 CONV_SOURCE = "structured_latent_odes_tpu_torch/csrc/conv_encoder.cu"
 # no TPU kernel: the JAX package's conv and pool are XLA's
 CONV_REPLACES = "none: structured_latent_odes_tpu/nn/layers.py:188 (lax.conv_general_dilated and the pool)"
+SAMPLER_SOURCE = "structured_latent_odes_tpu_torch/csrc/counter_normal.cu"
+# no TPU kernel: the JAX package draws with jax.random inside XLA's fusions
+SAMPLER_REPLACES = "none: torch elementwise ops (prob/distributions.py's int64 hash and float64 Box-Muller)"
 KERNELS = {  # key: wrapper, which counts its launches
     "K1": recurrence.affine_scan_fwd,
     "K1-bwd": recurrence.affine_scan_bwd,
@@ -428,8 +448,23 @@ KERNELS = {  # key: wrapper, which counts its launches
     "conv_pool_wgrad": conv_encoder.conv_pool_wgrad,
     "conv_pool_fwd_members": conv_encoder.conv_pool_fwd_members,
     "conv_pool_wgrad_members": conv_encoder.conv_pool_wgrad_members,
+    # the draws' counter hash: a draw site, one seed or S members (under
+    # torch.func.vmap), and a fold of a seed tensor
+    "counter_normal": counter_normal.counter_normal,
+    "counter_normal_members": counter_normal.counter_normal_members,
+    "counter_fold": counter_normal.counter_fold,
 }
 CONV_KEYS = ("conv_pool_fwd", "conv_pool_wgrad", "conv_pool_fwd_members", "conv_pool_wgrad_members")
+SAMPLER_KEYS = ("counter_normal", "counter_normal_members", "counter_fold")
+# the sampler's kernels a path runs: a model's draws on the card, a sweep's
+# members' (the stacked steps and the val ELBO, under torch.func.vmap)
+DRAW = ("counter_normal",)
+DRAW_MEMBERS = ("counter_normal_members",)
+# the draw sites at each workload's training batch, (members, B, draws a
+# row) with 0 members for one seed: CVS's blocks (5) and posterior (15),
+# proc's joint z_u (40), and ten members of each (the sweeps)
+SAMPLER_SHAPES = {"cvs": (0, TRAIN_B, 5), "cvs_post": (0, TRAIN_B, 15), "proc": (0, 36, 40),
+                  "cvs_S10": (10, TRAIN_B, 5), "proc_S10": (10, 36, 40)}
 # the conv kernels a path runs: a served model's encoder, a trained one's,
 # and a sweep's members' (the stacked steps, under torch.func.vmap)
 ENCODE = ("conv_pool_fwd",)
@@ -621,10 +656,10 @@ def phase_device(rehearse: bool):
 
 
 def phase_build(widths):
-    """K1's library, the conv encoder's, and K2's and K3's at each (H, D) of
-    ``widths``."""
+    """K1's library, the conv encoder's, the sampler's, and K2's and K3's at
+    each (H, D) of ``widths``."""
     t0 = time.perf_counter()
-    targets = [("affine_scan", ()), ("conv_encoder", ())]
+    targets = [("affine_scan", ()), ("conv_encoder", ()), ("counter_normal", ())]
     for H, D in widths:
         defines = (("SLODE_H", H), ("SLODE_D", D))
         targets += [("fused_semilinear_fwd", defines), ("fused_semilinear_bwd", defines)]
@@ -664,7 +699,7 @@ def ptxas_table(log: str) -> dict:
             name = m.group(1)
             k = re.search(r"(fused_semilinear_(?:fwd|bwd)_kernel)ILi(\d+)E", name)
             plain = re.search(r"(affine_scan_(?:fwd|bwd)_kernel|reduce_partials|conv_pool_(?:fwd|wgrad)_kernel"
-                              r"|conv_pool_wgrad_sum)", name)
+                              r"|conv_pool_wgrad_sum|counter_(?:normal|fold)_kernel)", name)
             current = ((k.group(1), fused_step.METHODS[int(k.group(2))]) if k
                        else (plain.group(1) if plain else name, ""))
             spills = (0, 0)
@@ -1148,6 +1183,112 @@ def phase_conv(device, clock: Clock, rehearse: bool, smi: str, res: dict):
               f"{res[wgrad_key][label]['library_ms']:.4f} ms ({smi})", flush=True)
 
 
+def sampler_bound_ms(S: int, B: int, n: int):
+    """A draw site's bound: each sample id (int64) and seed read once, each
+    float32 draw written once; its integer and float64 work is no float32
+    FLOP and is left out."""
+    return bound(8 * max(S, 1) * (B + 1) + 4 * max(S, 1) * B * n, 0)
+
+
+def phase_sampler(device, clock: Clock, rehearse: bool, smi: str, res: dict):
+    """The sampler's kernels at each workload's draw sites (SAMPLER_SHAPES):
+    the draws bit for bit their plain version on the card at int64 and
+    int32 ids, the folds' 64-bit words exactly, each member of the
+    member-batched launch bit for bit its own single-seed launch; then each
+    timed beside its plain version (the int64 and float64 elementwise
+    kernels it replaces) and its bound."""
+    seeds_all = [12, 2147483901, (1 << 64) - 5, 0x9E3779B97F4A7C15, 7, 8, 9, 10, 11, 13]
+    for label, (S, B, n) in SAMPLER_SHAPES.items():
+        if rehearse:
+            S, B = min(S, 2), 4
+        gen = torch.Generator().manual_seed(1000 * S + B + n)
+        sids = torch.randint(0, 1 << 31, (max(S, 1), B), generator=gen).to(device)
+        seeds = distributions.seed_tensor(seeds_all[:max(S, 1)], device)
+        plain_draw = distributions.standard_normal_plain
+        key = "counter_normal_members" if S else "counter_normal"
+        worst = res[key]["worst"]
+        if S:
+            got = counter_normal.counter_normal_members(seeds, "main/z_u", sids, n)
+            ok = torch.equal(got, plain_draw(seeds, "main/z_u", sids, (n,)))
+            single = all(torch.equal(got[s], counter_normal.counter_normal(seeds[s], "main/z_u", sids[s], n))
+                         for s in range(S))
+            worst["single-member launch"] = max(worst["single-member launch"], 0.0 if single else math.inf)
+            call = lambda: counter_normal.counter_normal_members(seeds, "main/z_u", sids, n)  # noqa: E731
+            plain = lambda: plain_draw(seeds, "main/z_u", sids, (n,))  # noqa: E731
+            checks = {"eps": ok, "single-member launch": single}
+        else:
+            one = seeds[0]
+            ok = torch.equal(counter_normal.counter_normal(one, "main/z_u", sids[0], n),
+                             plain_draw(one, "main/z_u", sids[0], (n,)))
+            ids32 = sids[0].to(torch.int32)
+            ok32 = torch.equal(counter_normal.counter_normal(one, "main/z_u", ids32, n),
+                               plain_draw(one, "main/z_u", ids32, (n,)))
+            worst["int32 ids"] = max(worst["int32 ids"], 0.0 if ok32 else math.inf)
+            call = lambda: counter_normal.counter_normal(one, "main/z_u", sids[0], n)  # noqa: E731
+            plain = lambda: plain_draw(one, "main/z_u", sids[0], (n,))  # noqa: E731
+            checks = {"eps": ok, "int32 ids": ok32}
+        worst["eps"] = max(worst["eps"], 0.0 if ok else math.inf)
+        fold_seeds = seeds if S else seeds[0]
+        words = torch.equal(counter_normal.counter_fold(fold_seeds, "main"),
+                            distributions.fold_seed_plain(fold_seeds, "main"))
+        res["counter_fold"]["worst"]["words"] = max(res["counter_fold"]["worst"]["words"], 0.0 if words else math.inf)
+        checks["fold words"] = words
+        shape = f"S={S} B={B} n={n}"
+        print(f"sampler {label} {shape}: bit for bit the plain version on the card {checks}", flush=True)
+        check(all(checks.values()), f"sampler {label}: differs from its plain version: {checks}")
+        res[key][label] = _time(clock, rehearse, key, call, plain, sampler_bound_ms(S, B, n), shape)
+        res["counter_fold"][label] = _time(clock, rehearse, "counter_fold",
+                                           lambda: counter_normal.counter_fold(fold_seeds, "main"),
+                                           lambda: distributions.fold_seed_plain(fold_seeds, "main"),
+                                           bound(16 * max(S, 1), 0), f"S={S} one word")
+
+
+HASH_KERNELS = re.compile(r"Bitwise|shift_kernel|\(double\)|Functor<long>|Functor<double>")
+
+
+def phase_sampler_step(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -> dict:
+    """One replayed CVS dual step (semilinear, B = 128, seeds on the card):
+    its five draw sites launch the sampler's kernel once each (at most two
+    sampler launches a site, a fold included), and the profiler finds none
+    of the plain version's int64 and float64 elementwise kernels (bitwise,
+    shifts, int64 and float64 functors) among its device operations."""
+    cfg = _config(data_dir, "semilinear")
+    spec = cvs_spec(cfg)
+    _, splits, times = serve._build("cvs", cfg, device)
+    ts = torch.as_tensor(np.asarray(times, dtype=np.float32), device=device)
+    B = 8 if rehearse else TRAIN_B
+    rows = device_batch(stacked_minibatches(splits["train"], B, shuffle=True, rng=np.random.RandomState(0)), device)
+    one = {k: v[:1] for k, v in rows.items()}
+    params = init_params(spec, 0, device=device)
+    init_state, _, epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params,
+                                               dispatch="plain" if rehearse else None)
+    state = init_state(params, 5)
+    for _ in range(2):  # the eager first call, the capture
+        state, _ = epoch(state, one)
+    replays = graphs.Graph.replays
+    name = "sampler cvs semilinear: one replayed dual step"
+    if rehearse:
+        counted(paths, name, (), rehearse, lambda: epoch(state, one))
+        return {}
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        counted(paths, name, TRAINING["semilinear"] + ENCODE_TRAIN + DRAW, rehearse, lambda: epoch(state, one))
+        torch.cuda.synchronize()
+    check(graphs.Graph.replays - replays == 1, f"{name}: {graphs.Graph.replays - replays} replays")
+    counts = paths[name]
+    sampler = sum(counts[k] for k in SAMPLER_KEYS)
+    ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    hashing = sorted({op for op in ops if HASH_KERNELS.search(op)})
+    out = {"sites": 5, "sampler_launches": sampler, "counter_normal": counts["counter_normal"],
+           "counter_fold": counts["counter_fold"], "device_ops": len(ops), "hash_ops": hashing}
+    print(f"== {name}: {sampler} sampler launches for 5 sites ({counts['counter_normal']} draws, "
+          f"{counts['counter_fold']} folds), {len(ops)} device operations, plain version's hash kernels "
+          f"{hashing} ({smi})", flush=True)
+    check(counts["counter_normal"] == 5 and sampler <= 10, f"{name}: {sampler} sampler launches for 5 sites")
+    check(not hashing, f"{name}: the plain version's elementwise kernels ran: {hashing[:5]}")
+    return out
+
+
 def _width_ode(device, H: int, D: int, L: int = 15):
     """Random ODE weights at (H, D) (the port's init, seed H + D)."""
     spec = OdeModelSpec(latent_dim=L, ode_state_dim=D, ode_hidden_dim=H)
@@ -1483,7 +1624,8 @@ def phase_sweeps(device, workdir: str, data_dir: str, rehearse: bool, smi: str, 
         extra = ["--data-path", data_dir] if dataset == "cvs" else ["--data-seed", "12", "--num-samples", n_samples]
         t0 = time.perf_counter()
         argv = [dataset, "--seeds", seeds, "--results-root", root] + common + extra
-        run, text = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend] + ENCODE_MEMBERS, rehearse,
+        run, text = counted(paths, f"sweep {dataset} {backend}", SWEEP[backend] + ENCODE_MEMBERS + DRAW_MEMBERS,
+                            rehearse,
                             lambda: printed(lambda: sweep.run(sweep.parse_args(argv))), replayed=True)
         wall = time.perf_counter() - t0
         check_dispatch(f"sweep {dataset} {backend}", text, "eager (on cpu" if rehearse else "cuda graph")
@@ -1559,14 +1701,23 @@ def counted(paths: dict, name: str, expected, rehearse: bool, fn, replayed: bool
     return out
 
 
+def same_launches(a: dict, b: dict, folds: int = 0) -> bool:
+    """Two runs' launch counts equal, save that ``b`` made ``folds`` more seed
+    folds on the card (counter_fold): a replayed eval function's losses fold
+    its seed tensor there twice a call ("main", "aux"), where the eager call
+    folds a host int on the host."""
+    return b == {**a, "counter_fold": a["counter_fold"] + folds}
+
+
 def hold_counts(name: str, counts: dict, expected, rehearse: bool) -> None:
     """Each kernel of ``expected`` launched on the card, and no other K1-K3
     kernel. The conv encoder's kernels run wherever a path encodes on the
-    card, whatever its ODE backend: the ones ``expected`` names must have
-    launched, the others are recorded. In a rehearsal none launches."""
+    card, and the sampler's wherever it draws, whatever its ODE backend: the
+    ones ``expected`` names must have launched, the others are recorded. In
+    a rehearsal none launches."""
     for key, n in counts.items():
         want = key in expected and not rehearse
-        if key in CONV_KEYS and not want and not rehearse:
+        if key in CONV_KEYS + SAMPLER_KEYS and not want and not rehearse:
             continue
         check(n > 0 if want else n == 0,
               f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
@@ -1615,7 +1766,7 @@ def phase_serving(device, workdir: str, rehearse: bool, paths: dict):
             )
 
     for backend, expected in FORWARD.items():
-        counted(paths, f"serve {backend}", expected + ENCODE, rehearse, lambda: serve_all(backend))
+        counted(paths, f"serve {backend}", expected + ENCODE + DRAW, rehearse, lambda: serve_all(backend))
     gauss_cfg = _config(data_dir, "semilinear", "MechanisticGauss")
     gauss_ckpt = os.path.join(workdir, "gauss.npz")
     checkpoint.save(gauss_ckpt, params_to_jax(init_params(cvs_spec(gauss_cfg), 2, device=device)))
@@ -1716,7 +1867,7 @@ def phase_training(device, workdir: str, data_dir: str, rehearse: bool, paths: d
         root = os.path.join(workdir, f"train-{backend}-{model}")
         t0 = time.perf_counter()
         name = f"train {backend}" + (" Gauss" if model == "MechanisticGauss" else "")
-        results[backend, model] = counted(paths, name, TRAINING[backend] + ENCODE_TRAIN, rehearse,
+        results[backend, model] = counted(paths, name, TRAINING[backend] + ENCODE_TRAIN + DRAW, rehearse,
                                           lambda: training_cvs.main([
             "--num-epochs", "1", "--no-plot", "--ode-backend", backend, "--model", model,
             "--data-path", data_dir, "--results-root", root, "--device", str(device),
@@ -2280,7 +2431,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                       f"{case} epoch {epoch}: {graphs.Graph.replays - replays} replays of {steps} steps")
                 check(_states_equal(s_eager, s_graph), f"{case} epoch {epoch}: the replayed state differs from eager")
                 check(_trees_equal(m_eager, m_graph), f"{case} epoch {epoch}: the replayed metrics differ from eager")
-                check(paths[f"{case} epoch {epoch} eager"] == paths[f"{case} epoch {epoch} graph"],
+                check(same_launches(paths[f"{case} epoch {epoch} eager"], paths[f"{case} epoch {epoch} graph"]),
                       f"{case} epoch {epoch}: launches differ from eager")
             check(len(_graphs_of(svi._TRAIN_GRAPHS)) == 1, f"{case}: one step graph")
             params_now = svi.own_state(s_eager).params
@@ -2294,7 +2445,8 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                         got = counted(paths, f"{tag} graph {call}", kernels[:1], rehearse,
                                       lambda: graph_eval(params_now, seed, stacks[name], is_post))
                         check(_trees_equal(ref, got), f"{tag} call {call}: the replayed statistics differ from eager")
-                        check(paths[f"{tag} eager"] == paths[f"{tag} graph {call}"], f"{tag}: launches differ")
+                        check(same_launches(paths[f"{tag} eager"], paths[f"{tag} graph {call}"]),
+                              f"{tag}: launches differ")
             print(f"== {case}: two epochs of {steps} steps and four eval epochs, replayed bit for bit eager, "
                   f"launches equal", flush=True)
 
@@ -2500,7 +2652,8 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
             check(_results_equal(ref, run), f"{case} {what}: differs from eager")
         for a, b in (("eager", "replayed"), ("eager", "replayed chunks"), ("eager groups", "replayed groups")):
             if f"{case} {b}" in paths:
-                check(paths[f"{case} {a}"] == paths[f"{case} {b}"], f"{case} {b}: launches differ from {a}")
+                check(same_launches(paths[f"{case} {a}"], paths[f"{case} {b}"]),
+                      f"{case} {b}: launches differ from {a}")
         print(f"== {case} x {S}: replayed, in 1-epoch chunks{' and in groups' if len(checks) > 2 else ''} bit "
               f"for bit eager, launches equal ({paths[f'{case} eager']})", flush=True)
 
@@ -2593,17 +2746,20 @@ def _outputs_equal(a, b) -> bool:
     return sorted(a) == sorted(b) and all(np.array_equal(host(a[k]), host(b[k])) for k in a)
 
 
-def _held_replays(paths: dict, name: str, kernels, rehearse: bool, eager_fn, graph_fn, same, calls: int = 3) -> int:
+def _held_replays(paths: dict, name: str, kernels, rehearse: bool, eager_fn, graph_fn, same, calls: int = 3,
+                  folds: int = 0) -> int:
     """``eager_fn()`` once and ``graph_fn()`` ``calls`` times (the graph's
     eager warm-up, its capture and replay, replays), each counted: every
     call's output bit for bit the eager one (``same``), its launches the
-    eager call's. Returns the replays."""
+    eager call's and ``folds`` seed folds more (:func:`same_launches`).
+    Returns the replays."""
     ref = counted(paths, f"{name} eager", kernels, rehearse, eager_fn)
     replays = graphs.Graph.replays
     for call in range(calls):
         got = counted(paths, f"{name} replayed {call}", kernels, rehearse, graph_fn)
         check(same(ref, got), f"{name} call {call}: the replayed output differs from eager")
-        check(paths[f"{name} eager"] == paths[f"{name} replayed {call}"], f"{name} call {call}: launches differ")
+        check(same_launches(paths[f"{name} eager"], paths[f"{name} replayed {call}"], folds),
+              f"{name} call {call}: launches differ")
     n = graphs.Graph.replays - replays
     check(rehearse or n >= calls - 1, f"{name}: {n} CUDA graph replays in {calls} calls")
     return n
@@ -2700,7 +2856,8 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
             check(text.count(f"predict dispatch: {want}\n") == 1, f"{case}: printed {text!r}")
             check(rehearse or graphs.Graph.replays > replays, f"{case}: no CUDA graph replayed")
             check(_outputs_equal(ref, got), f"{case}: serve.main replayed differs from eager")
-            check(paths[f"{case} eager"] == paths[f"{case} replayed"], f"{case}: launches differ from eager")
+            check(same_launches(paths[f"{case} eager"], paths[f"{case} replayed"]),
+                  f"{case}: launches differ from eager")
             out[case] = {"replays": graphs.Graph.replays - replays, "mu_50": list(got["mu_50"].shape)}
             print(f"== {case}: two checkpoints with --classify through serve.main, replayed bit for bit eager, "
                   f"launches equal; {json.dumps(out[case])}", flush=True)
@@ -2734,9 +2891,11 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     def final(fns):
         return final_test_eval(spec, params, 6, splits["test"], fns, cfg.mini_batch_size)
 
+    # the losses of each test batch, posterior and prior, fold on the card when replayed
+    batches = sum(1 for _ in iter_minibatches(splits["test"], cfg.mini_batch_size, shuffle=False, pad=True))
     t0_ns = time.perf_counter_ns()
     rec = {"replays": _held_replays(paths, case, ("K2",), rehearse, lambda: final(eager_fns),
-                                    lambda: final(graph_fns), _stats_equal)}
+                                    lambda: final(graph_fns), _stats_equal, folds=0 if rehearse else 2 * 2 * batches)}
     rec["capture_ms"] = _captures_since(t0_ns)
     rec.update(_timed_both(device, rehearse, lambda: final(eager_fns), lambda: final(graph_fns)))
     out[case] = rec
@@ -2762,7 +2921,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     counted(paths, f"{case} eager", ("K2",), rehearse, lambda: bands(p_eager, "eager"))
     replays, t0_ns = graphs.Graph.replays, time.perf_counter_ns()
     counted(paths, f"{case} replayed", ("K2",), rehearse, lambda: bands(p_graph, "replayed"))
-    check(paths[f"{case} eager"] == paths[f"{case} replayed"], f"{case}: launches differ from eager")
+    check(same_launches(paths[f"{case} eager"], paths[f"{case} replayed"]), f"{case}: launches differ from eager")
     rec = {"replays": graphs.Graph.replays - replays, "arrays": _bit_equal(dirs["eager"], dirs["replayed"], case)}
     check(rehearse or rec["replays"] >= 2 * draws - 2, f"{case}: {rec['replays']} replays")
     rec["capture_ms"] = _captures_since(t0_ns)
@@ -3375,7 +3534,8 @@ def _hold_dp_graphs(name: str, outs, backend: str, paths: dict, rehearse: bool, 
               f"{name} rank {r}: dispatch {e['dispatch']}, {g['dispatch']}")
         check(rehearse or g["replays"] == 2 * GRAPH_STEPS + 1,
               f"{name} rank {r}: {g['replays']} CUDA graph replays, not {2 * GRAPH_STEPS + 1}")
-        check(e["counts"] == g["counts"], f"{name} rank {r}: launches {g['counts']} replayed, {e['counts']} eager")
+        check(same_launches(e["counts"], g["counts"]),
+              f"{name} rank {r}: launches {g['counts']} replayed, {e['counts']} eager")
         _check_rank_counts(paths, f"ranks {name} rank{r}", g["counts"], TRAINING[backend], rehearse)
         same = all(_np_equal(e[k], g[k]) for k in keys)
         bit = bit and same
@@ -4011,6 +4171,8 @@ def main(argv=None):
     phase_members(device, clock, args.rehearse, smi, res)
     phase("3: the conv encoder's kernels")
     phase_conv(device, clock, args.rehearse, smi, res)
+    phase("3: the sampler's kernels")
+    phase_sampler(device, clock, args.rehearse, smi, res)
     phase("3: C2, K2 and K3 at dopri5 and at wide widths")
     c2 = phase_c2(device, clock, args.rehearse, smi, odes)
 
@@ -4059,6 +4221,7 @@ def main(argv=None):
         phase("12: the training and eval epochs as CUDA graphs")
         graphed = phase_graphs(device, data_dir, args.rehearse, smi, paths)
         graphed["menu"] = menu_graphs
+        graphed["sampler_step"] = phase_sampler_step(device, data_dir, args.rehearse, smi, paths)
         print(f"== phase 12 took {time.perf_counter() - t12:.1f} s ({smi})", flush=True)
         t13 = time.perf_counter()
         phase("13: the sweeps' epochs as CUDA graphs")
@@ -4118,6 +4281,27 @@ def main(argv=None):
             "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"], "shape": t["shape"],
             **{other: res[key][other] for other in CONV_SHAPES if other != label and other in res[key]},
+        })
+    # the sampler's kernels: a draw site at CVS's blocks (main path: CVS
+    # training on semilinear, the benchmark's cvs_train), the member-batched
+    # at the proc sweep's ten members (main path: the proc sweep), the fold
+    # (main path: CVS training, the graphed eval functions' losses); their
+    # other shapes beside them. The plain version is the library column's
+    # torch elementwise ops.
+    for key, main_path, label in (("counter_normal", "train semilinear", "cvs"),
+                                  ("counter_normal_members", "sweep proc semilinear_fused", "proc_S10"),
+                                  ("counter_fold", "train semilinear", "cvs")):
+        t = res[key][label]
+        kernels.append({
+            "name": key, "route": "cuda", "source": SAMPLER_SOURCE, "replaces": SAMPLER_REPLACES,
+            "launches": paths[main_path][key], "main_path": main_path,
+            "launches_by_path": {path: counts.get(key) for path, counts in paths.items()},
+            "max_abs_err": 0.0,
+            "tolerance": {out: {"rule": rule, "worst_error_over_tolerance": res[key]["worst"][out]}
+                          for out, rule in TOLERANCE_RULES[key].items()},
+            "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+            **{other: res[key][other] for other in SAMPLER_SHAPES if other != label and other in res[key]},
         })
     # C2's kernels: K2 and K3 at dopri5 and at the wide widths, each with
     # the launches of its variant (method, H, D) on the path that runs it

@@ -19,6 +19,12 @@ integers; an ensemble (``train/ensemble.py``) hands its members' seeds to the
 draws as one int64 tensor (:func:`seed_tensor`), and the hash then runs on the
 device, member s drawing exactly what it would draw alone.
 
+The arithmetic below (``_mix32``, ``_site_word``, :func:`fold_seed_plain`,
+:func:`standard_normal_plain`) is the plain version of the kernels of
+``ops/counter_normal.py``: on the CPU :func:`standard_normal_ps` and
+:func:`fold_seed` run it, and on the card they launch one kernel a draw site
+(float32 draws) and one a fold of a seed tensor, bit for bit the same.
+
 The samplers the JAX package keys by a plain key (``sample_laplace``,
 ``sample_bernoulli``, ``sample_onehot_categorical``) draw here from the same
 counter hash, per sample: :func:`uniform_words_ps` gives each (seed, site,
@@ -34,6 +40,8 @@ import zlib
 from typing import Sequence
 
 import torch
+
+from structured_latent_odes_tpu_torch.ops import counter_normal as _kernels
 
 Tensor = torch.Tensor
 
@@ -102,13 +110,22 @@ def _site_word(seed, site: str):
     return h
 
 
-def fold_seed(seed, *words):
-    """A 64-bit seed from ``seed`` and ``words`` (ints or strings), e.g. the
-    training step and the loss, through the draws' own hash. ``seed`` is an
-    int, or an int64 tensor of seeds (their bits, :func:`seed_tensor`)."""
+def fold_seed_plain(seed, *words):
+    """Plain version of :func:`fold_seed`, on ints or int64 tensors."""
     for w in words:
         seed = (_site_word(seed, f"fold/{w}") << 32) | _site_word(seed, f"fold/{w}/lo")
     return seed
+
+
+def fold_seed(seed, *words):
+    """A 64-bit seed from ``seed`` and ``words`` (ints or strings), e.g. the
+    training step and the loss, through the draws' own hash. ``seed`` is an
+    int, or an int64 tensor of seeds (their bits, :func:`seed_tensor`); a
+    tensor on the card is folded in one launch
+    (``ops/counter_normal.py::counter_fold``)."""
+    if isinstance(seed, Tensor):
+        return _kernels.counter_fold(seed, *words)
+    return fold_seed_plain(seed, *words)
 
 
 def seed_tensor(seeds, device=None) -> Tensor:
@@ -139,6 +156,19 @@ def uniform_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int]) 
     return ((words.to(torch.float64) + 0.5) / 16777216.0).reshape(*words.shape[:-1], *event_shape)
 
 
+def standard_normal_plain(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int],
+                          dtype=torch.float32) -> Tensor:
+    """Plain version of :func:`standard_normal_ps`: the hash in int64 and
+    Box-Muller in float64 tensor arithmetic, cast to ``dtype``."""
+    n = math.prod(event_shape)
+    # counters 2j and 2j+1 feed the two uniforms of element j's Box-Muller
+    # pair; one tensor for both keeps the number of small launches down
+    u = uniform_ps(seed, site, sample_ids, (2 * n,))
+    u1, u2 = u[..., 0::2], u[..., 1::2]
+    eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
+    return eps.to(dtype).reshape(*u.shape[:-1], *event_shape)
+
+
 def standard_normal_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequence[int],
                        dtype=torch.float32) -> Tensor:
     """Standard-normal draws of shape ``(..., B, *event_shape)`` on
@@ -148,14 +178,19 @@ def standard_normal_ps(seed, site: str, sample_ids: Tensor, event_shape: Sequenc
     of shape ``(S,)``, the draws gain a leading member axis, member s's
     equal to the draws at ``seeds[s]`` alone (``sample_ids`` ``(B,)`` or
     ``(S, B)``); 0-d, the form it has under ``torch.func.vmap``, they are
-    those of that one seed."""
+    those of that one seed. float32 draws are one kernel launch on the card
+    (``ops/counter_normal.py``); other types are drawn on the CPU alone, by
+    the plain version."""
+    if dtype != torch.float32:
+        if sample_ids.device.type != "cpu":
+            raise ValueError(f"draws on {sample_ids.device} are float32 (ops/counter_normal.py), not {dtype}")
+        return standard_normal_plain(seed, site, sample_ids, event_shape, dtype)
     n = math.prod(event_shape)
-    # counters 2j and 2j+1 feed the two uniforms of element j's Box-Muller
-    # pair; one tensor for both keeps the number of small launches down
-    u = uniform_ps(seed, site, sample_ids, (2 * n,))
-    u1, u2 = u[..., 0::2], u[..., 1::2]
-    eps = torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(2.0 * math.pi * u2)
-    return eps.to(dtype).reshape(*u.shape[:-1], *event_shape)
+    if isinstance(seed, Tensor) and seed.ndim:
+        eps = _kernels.counter_normal_members(seed, site, sample_ids, n)
+    else:
+        eps = _kernels.counter_normal(seed, site, sample_ids, n)
+    return eps.reshape(*eps.shape[:-1], *event_shape)
 
 
 def sample_normal_ps(seed, site: str, sample_ids: Tensor, loc: Tensor, scale: Tensor,

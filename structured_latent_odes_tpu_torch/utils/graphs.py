@@ -34,12 +34,13 @@ def _counted():
     once, at the capture, so each replay adds what the capture counted.
     (Imported here: the solvers, which the ops import, replay graphs of
     their own.)"""
-    from structured_latent_odes_tpu_torch.ops import conv_encoder, fused_step, recurrence
+    from structured_latent_odes_tpu_torch.ops import conv_encoder, counter_normal, fused_step, recurrence
 
     return (recurrence.affine_scan_fwd, recurrence.affine_scan_bwd, fused_step.fused_semilinear_fwd,
             fused_step.fused_semilinear_fwd_members, fused_step.fused_semilinear_bwd,
             fused_step.fused_semilinear_bwd_members, conv_encoder.conv_pool_fwd,
-            conv_encoder.conv_pool_fwd_members, conv_encoder.conv_pool_wgrad, conv_encoder.conv_pool_wgrad_members)
+            conv_encoder.conv_pool_fwd_members, conv_encoder.conv_pool_wgrad, conv_encoder.conv_pool_wgrad_members,
+            counter_normal.counter_normal, counter_normal.counter_normal_members, counter_normal.counter_fold)
 
 
 def _counts():

@@ -608,10 +608,10 @@ def test_dp_step_through_an_nccl_group_of_one_is_the_one_device_step(cuda, rank_
     assert out["counts"]["K2"] > 0 and out["counts"]["K3"] > 0
 
 
-# the kernels a rank's dual step launches, and no other: its backend's and
-# its encoder's conv pair (main and aux)
-DP_STEP_KERNELS = [("semilinear_fused", ("K2", "K3", "conv_pool_fwd", "conv_pool_wgrad")),
-                   ("semilinear", ("K1", "K1-bwd", "conv_pool_fwd", "conv_pool_wgrad"))]
+# the kernels a rank's dual step launches, and no other: its backend's, its
+# encoder's conv pair (main and aux) and the sampler's draws
+DP_STEP_KERNELS = [("semilinear_fused", ("K2", "K3", "conv_pool_fwd", "conv_pool_wgrad", "counter_normal")),
+                   ("semilinear", ("K1", "K1-bwd", "conv_pool_fwd", "conv_pool_wgrad", "counter_normal"))]
 
 
 @pytest.mark.parametrize("backend,kernels", DP_STEP_KERNELS)
@@ -1135,3 +1135,157 @@ def test_conv_encoder_kernels_run_in_replayed_steps(cuda, tiny_cvs):
     torch.cuda.synchronize()
     assert Graph.replays > replays and all(c.launches > n for c, n in zip(members, before))
     assert ce.conv_pool_wgrad_members.variants[4, 100, 10, 10, 5] > proc_shape
+
+
+# The draws' counter hash (csrc/counter_normal.cu): a draw site's words and
+# Box-Muller in one launch, and a seed tensor's folds in one, bit for bit the
+# plain version (prob/distributions.py) on the card. Shapes (members, rows,
+# draws a row; 0 members for one seed): CVS's sites (B = 128, 5 draws) and
+# proc's (B = 36, 10), ten members of each (the sweeps' stacked steps), an
+# odd edge and a large batch (more blocks than rows).
+CN_SHAPES = {"cvs": (0, 128, 5), "proc": (0, 36, 10), "cvs-S10": (10, 128, 5), "proc-S10": (10, 36, 10),
+             "odd": (0, 7, 3), "big": (0, 16411, 15)}
+CN_SEEDS = [0, 12, 2147483901, (1 << 63) + 5, (1 << 64) - 5, 0x9E3779B97F4A7C15]
+
+
+def _cn_case(cuda, name):
+    from structured_latent_odes_tpu_torch.prob import seed_tensor
+
+    S, B, n = CN_SHAPES[name]
+    gen = torch.Generator().manual_seed(B * 100 + n)
+    sids = torch.randint(-(1 << 40), 1 << 40, (max(S, 1), B), generator=gen).to(cuda)
+    seeds = seed_tensor([CN_SEEDS[i % len(CN_SEEDS)] + i for i in range(max(S, 1))], cuda)
+    return S, B, n, sids, seeds
+
+
+@pytest.mark.parametrize("name", sorted(CN_SHAPES))
+def test_counter_normal_kernel_matches_plain(cuda, name):
+    """Each seed form's draws bit for bit the plain version's on the card
+    (int seeds, 0-d and (S,) seed tensors, int32 and int64 ids), and the
+    folds' 64-bit words exactly, one launch each."""
+    from structured_latent_odes_tpu_torch.ops import counter_normal as cn
+    from structured_latent_odes_tpu_torch.prob import distributions as dist
+
+    S, B, n, sids, seeds = _cn_case(cuda, name)
+    plain = dist.standard_normal_plain
+    if S:
+        before = cn.counter_normal_members.launches
+        got = cn.counter_normal_members(seeds, "main/z_u", sids, n)
+        assert cn.counter_normal_members.launches == before + 1
+        assert torch.equal(got, plain(seeds, "main/z_u", sids, (n,)))
+        assert torch.equal(cn.counter_normal_members(seeds, "main/z_u", sids[0], n),
+                           plain(seeds, "main/z_u", sids[0], (n,)))
+    for seed in CN_SEEDS:
+        for ids in (sids[0], sids[0].to(torch.int32)):
+            before = cn.counter_normal.launches
+            assert torch.equal(cn.counter_normal(seed, "aux/iext", ids, n), plain(seed, "aux/iext", ids, (n,)))
+            t = dist.seed_tensor([seed], cuda)[0]
+            assert torch.equal(cn.counter_normal(t, "aux/iext", ids, n), plain(t, "aux/iext", ids, (n,)))
+            assert cn.counter_normal.launches == before + 2
+    before = cn.counter_fold.launches
+    for words in (("main",), (3, "aux")):
+        assert torch.equal(cn.counter_fold(seeds, *words), dist.fold_seed_plain(seeds, *words))
+    assert cn.counter_fold.launches == before + 2
+
+
+def test_counter_normal_past_2_31_counters_a_launch(cuda):
+    """One launch of 2^27 + 1 rows of 8 draws (2 * B * n past 2^31: the
+    counters run within a row, so no limit): its last rows, and its first,
+    bit for bit the plain version's at those ids."""
+    from structured_latent_odes_tpu_torch.ops import counter_normal as cn
+    from structured_latent_odes_tpu_torch.prob import distributions as dist
+
+    B, n = (1 << 27) + 1, 8
+    sids = torch.arange(B, dtype=torch.int32, device=cuda)
+    got = cn.counter_normal(CN_SEEDS[0], "main/z_u", sids, n)
+    for rows in (slice(0, 3), slice(B - 3, B)):
+        assert torch.equal(got[rows], dist.standard_normal_plain(CN_SEEDS[0], "main/z_u", sids[rows], (n,)))
+    del got
+
+
+def test_counter_normal_members_are_single_launches(cuda):
+    """Ten members in one launch, alone and under torch.func.vmap (shared and
+    own ids): each member bit for bit its own single-seed launch."""
+    from structured_latent_odes_tpu_torch.ops import counter_normal as cn
+    from structured_latent_odes_tpu_torch.prob import standard_normal_ps
+
+    S, B, n, sids, seeds = _cn_case(cuda, "cvs-S10")
+    for ids, dims in ((sids, 0), (sids[0], None)):
+        before = cn.counter_normal_members.launches
+        got = torch.func.vmap(lambda s, i: standard_normal_ps(s, "main/iext", i, (n,)), in_dims=(0, dims))(seeds, ids)
+        assert cn.counter_normal_members.launches == before + 1
+        for s in range(S):
+            assert torch.equal(got[s], cn.counter_normal(seeds[s], "main/iext", ids[s] if dims == 0 else ids, n))
+
+
+def test_counter_normal_in_a_captured_graph(cuda):
+    """A captured graph that folds its seed buffer and draws from it: the
+    buffer rewritten between replays, each replay the plain version's draws
+    at that seed; the launch counters advance once a site (and once a fold)
+    a replay."""
+    from structured_latent_odes_tpu_torch.ops import counter_normal as cn
+    from structured_latent_odes_tpu_torch.prob import distributions as dist
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    _, B, n, sids, _ = _cn_case(cuda, "cvs")
+    buf = dist.seed_tensor([0], cuda)[0].clone()
+
+    def body():
+        s = dist.fold_seed(buf, "main")
+        return [dist.standard_normal_ps(s, site, sids[0], (n,)) for site in ("main/iext", "main/rtpr")]
+
+    graph = Graph(body, cuda)
+    for i, seed in enumerate(CN_SEEDS):
+        buf.copy_(dist.seed_tensor([seed], cuda)[0])
+        before = (cn.counter_normal.launches, cn.counter_fold.launches)
+        out = graph()
+        torch.cuda.synchronize()
+        if i >= 2:  # a replay
+            assert (cn.counter_normal.launches, cn.counter_fold.launches) == (before[0] + 2, before[1] + 1)
+        folded = dist.fold_seed_plain(dist.seed_tensor([seed], cuda)[0], "main")
+        for got, site in zip(out, ("main/iext", "main/rtpr")):
+            assert torch.equal(got, dist.standard_normal_plain(folded, site, sids[0], (n,)))
+
+
+def test_cvs_dual_step_draws_are_the_fed_plain_draws(cuda, tiny_cvs):
+    """A CVS dual step drawing on the card (five sites, seeds on the card)
+    against the same step fed the plain version's draws through ``noise=``:
+    states and losses bit for bit equal; the drawing step launched five
+    draws and no fold."""
+    from structured_latent_odes_tpu_torch import training_cvs
+    from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+    from structured_latent_odes_tpu_torch.ops import counter_normal as cn
+    from structured_latent_odes_tpu_torch.prob import distributions as dist
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+
+    full_fp32(deterministic=True)
+    cfg = load_cvs_config()
+    cfg.data_path = tiny_cvs
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    params = init_params(spec, 0, device=cuda)
+    stack = device_batch(stacked_minibatches(splits["train"], 16, shuffle=True, rng=np.random.RandomState(0)), cuda)
+    batch = {k: v[0] for k, v in stack.items()}
+    init_state, step, _ = svi.make_train_step(spec, torch.arange(86.0, device=cuda), cfg.learning_rate, params,
+                                              dispatch="eager")
+    state = init_state(params, 5)
+    seeds, corrections, _ = svi.epoch_scalars(svi.make_dual_optimizer(spec, params, cfg.learning_rate), state, 1)
+    sids = batch["sample_id"]
+
+    def plain(seed, sites):
+        return {name: dist.standard_normal_plain(seed, f"{loss}/{name}", sids, (dim,)) for loss, name, dim in sites}
+
+    blocks = [(b.name, b.dim) for b in spec.labeled_blocks]
+    noise = {"main": [plain(seeds[0, 0, 0], [("main", n_, d) for n_, d in blocks]
+                            + [("main", spec.epsilon_block.name, spec.epsilon_block.dim)])],
+             "aux": [plain(seeds[0, 1, 0], [("aux", n_, d) for n_, d in blocks])]}
+    before = (cn.counter_normal.launches, cn.counter_normal_members.launches, cn.counter_fold.launches)
+    drawn, m_d = step(state, batch, None, (seeds[0], corrections[0]))
+    assert (cn.counter_normal.launches - before[0], cn.counter_normal_members.launches - before[1],
+            cn.counter_fold.launches - before[2]) == (5, 0, 0)
+    fed, m_f = step(state, batch, noise, (seeds[0], corrections[0]))
+    for a, b in zip(svi._tensors(drawn) + [m_d["loss_main"], m_d["loss_aux"], m_d["l1"]],
+                    svi._tensors(fed) + [m_f["loss_main"], m_f["loss_aux"], m_f["l1"]]):
+        assert torch.equal(a, b)
