@@ -12,7 +12,8 @@ Phases, each fatal on any fault:
 1. device: the card's name and power limit (nvidia-smi).
 2. build: every kernel from csrc/, one nvcc per source and width pair, all
    started together: K1, the conv encoder's pair (one library for every
-   shape), the sampler's draw and fold kernels, and K2 and K3 (single-member and member-batched launches share a
+   shape), the sampler's draw and fold kernels, the shared Adam's kernel, and K2 and K3 (single-member and
+   member-batched launches share a
    library) at CVS's and challenge's (H, D) = (25, 5), proc's (25, 8) and
    the wide (40, 17) and (128, 32); prints nvcc's -Xptxas -v report and each
    kernel's registers and spills per method.
@@ -55,7 +56,14 @@ Phases, each fatal on any fault:
    each member bit for bit its single-seed launch, each timed beside the
    plain version and its bound. The sampler's launches are read from every
    path (a model's draws on the card launch counter_normal, a sweep's
-   members counter_normal_members).
+   members counter_normal_members). Then the shared Adam's kernel
+   (csrc/multi_adam.cu: every leaf of an update in one launch) at CVS's,
+   the proc sweep's (ten members stacked) and challenge's leaves, at a host
+   lr and a 0-d lr on the card, and a tree of 240 leaves over several
+   launches: bit for bit its plain version on the card, timed beside it and
+   its bound (28 bytes an element). Every path that trains makes all of its
+   leaf updates through the kernel (its engagement share, printed a path,
+   must be 1), and a stacked step makes two launches.
 4. serving path: generates CVS with the port's make_dataset on the card, writes
    two random-weight checkpoints (seeds 0 and 1) in the JAX package's format,
    and serves them through serve.main: posterior recon, prior recon with
@@ -300,7 +308,7 @@ from structured_latent_odes_tpu_torch.data.configs import LOADERS, load_cvs_conf
 from structured_latent_odes_tpu_torch.data.cvs import make_dataset
 from structured_latent_odes_tpu_torch.data.loader import iter_minibatches, stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_to_jax
-from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, proc_spec
+from structured_latent_odes_tpu_torch.models import challenge_spec, cvs_spec, init_params, param_masks, proc_spec
 from structured_latent_odes_tpu_torch.nn.ode_model import (
     OdeModelSpec,
     auto_picks_fused,
@@ -309,7 +317,14 @@ from structured_latent_odes_tpu_torch.nn.ode_model import (
     solve_ode,
 )
 from structured_latent_odes_tpu_torch.ode import solvers
-from structured_latent_odes_tpu_torch.ops import _build, conv_encoder, counter_normal, fused_step, recurrence
+from structured_latent_odes_tpu_torch.ops import (
+    _build,
+    conv_encoder,
+    counter_normal,
+    fused_step,
+    multi_adam,
+    recurrence,
+)
 from structured_latent_odes_tpu_torch.parallel import launch, timepar
 from structured_latent_odes_tpu_torch.parallel import mesh as mesh_module
 from structured_latent_odes_tpu_torch.parallel import train as dp_train
@@ -395,6 +410,11 @@ SAMPLER_RULE = "torch.equal(out, the plain version on the card): bit for bit"
 TOLERANCE_RULES["counter_normal"] = {"eps": SAMPLER_RULE, "int32 ids": SAMPLER_RULE}
 TOLERANCE_RULES["counter_normal_members"] = {"single-member launch": MEMBER_RULE, "eps": SAMPLER_RULE}
 TOLERANCE_RULES["counter_fold"] = {"words": SAMPLER_RULE}
+# the shared Adam's multi-tensor launch against its plain version on the card
+# (train/svi.py::adam_plain: float32 elementwise kernels, a leaf at a time):
+# the same float32 operations in the same order, so bit for bit
+ADAM_RULE = "torch.equal(out, the plain version on the card): bit for bit"
+TOLERANCE_RULES["multi_adam"] = {name: ADAM_RULE for name in ("params", "mu", "nu", "0-d lr", "split launches")}
 # first-step gradients across the three backends: max|g - g_seq| /
 # max(max|g_seq|, 1) over every leaf, the JAX package's own fused-vs-autodiff
 # bound (tests/test_fused_step.py): float32 accumulation order
@@ -433,6 +453,9 @@ CONV_REPLACES = "none: structured_latent_odes_tpu/nn/layers.py:188 (lax.conv_gen
 SAMPLER_SOURCE = "structured_latent_odes_tpu_torch/csrc/counter_normal.cu"
 # no TPU kernel: the JAX package draws with jax.random inside XLA's fusions
 SAMPLER_REPLACES = "none: torch elementwise ops (prob/distributions.py's int64 hash and float64 Box-Muller)"
+ADAM_SOURCE = "structured_latent_odes_tpu_torch/csrc/multi_adam.cu"
+# no TPU kernel: the JAX package's Adam is jnp arithmetic that XLA fuses
+ADAM_REPLACES = "none: torch elementwise ops (train/svi.py::adam_plain, about 15 a leaf)"
 KERNELS = {  # key: wrapper, which counts its launches
     "K1": recurrence.affine_scan_fwd,
     "K1-bwd": recurrence.affine_scan_bwd,
@@ -453,9 +476,17 @@ KERNELS = {  # key: wrapper, which counts its launches
     "counter_normal": counter_normal.counter_normal,
     "counter_normal_members": counter_normal.counter_normal_members,
     "counter_fold": counter_normal.counter_fold,
+    # the shared Adam: one launch an update of up to multi_adam.MAX_LEAVES
+    # leaves, whatever the model or its members
+    "multi_adam": multi_adam.multi_adam,
 }
 CONV_KEYS = ("conv_pool_fwd", "conv_pool_wgrad", "conv_pool_fwd_members", "conv_pool_wgrad_members")
 SAMPLER_KEYS = ("counter_normal", "counter_normal_members", "counter_fold")
+ADAM_KEYS = ("multi_adam",)
+# the shared Adam's updates at each workload's leaves, (workload, members)
+# with 0 members for one model: CVS's 38 leaves, proc's 48 stacked for its
+# ten-member sweep, challenge's
+ADAM_SHAPES = {"cvs": ("cvs", 0), "proc_S10": ("proc", 10), "challenge": ("challenge", 0)}
 # the sampler's kernels a path runs: a model's draws on the card, a sweep's
 # members' (the stacked steps and the val ELBO, under torch.func.vmap)
 DRAW = ("counter_normal",)
@@ -506,6 +537,9 @@ ADJOINT_RTOL, ADJOINT_ATOL = 2e-2, 1e-2
 PTXAS = {}
 # per path: each fused wrapper's launches by (method, H, D) (set by counted)
 VARIANT_PATHS = {}
+# per path that stepped Adam: (leaf updates the kernel made, leaf updates
+# asked for) (set by counted)
+ADAM_PATHS = {}
 
 
 def fail(msg: str):
@@ -656,10 +690,10 @@ def phase_device(rehearse: bool):
 
 
 def phase_build(widths):
-    """K1's library, the conv encoder's, the sampler's, and K2's and K3's at
-    each (H, D) of ``widths``."""
+    """K1's library, the conv encoder's, the sampler's, the Adam's, and K2's
+    and K3's at each (H, D) of ``widths``."""
     t0 = time.perf_counter()
-    targets = [("affine_scan", ()), ("conv_encoder", ()), ("counter_normal", ())]
+    targets = [("affine_scan", ()), ("conv_encoder", ()), ("counter_normal", ()), ("multi_adam", ())]
     for H, D in widths:
         defines = (("SLODE_H", H), ("SLODE_D", D))
         targets += [("fused_semilinear_fwd", defines), ("fused_semilinear_bwd", defines)]
@@ -699,7 +733,7 @@ def ptxas_table(log: str) -> dict:
             name = m.group(1)
             k = re.search(r"(fused_semilinear_(?:fwd|bwd)_kernel)ILi(\d+)E", name)
             plain = re.search(r"(affine_scan_(?:fwd|bwd)_kernel|reduce_partials|conv_pool_(?:fwd|wgrad)_kernel"
-                              r"|conv_pool_wgrad_sum|counter_(?:normal|fold)_kernel)", name)
+                              r"|conv_pool_wgrad_sum|counter_(?:normal|fold)_kernel|multi_adam_kernel)", name)
             current = ((k.group(1), fused_step.METHODS[int(k.group(2))]) if k
                        else (plain.group(1) if plain else name, ""))
             spills = (0, 0)
@@ -1243,6 +1277,84 @@ def phase_sampler(device, clock: Clock, rehearse: bool, smi: str, res: dict):
                                            bound(16 * max(S, 1), 0), f"S={S} one word")
 
 
+def adam_bound_ms(n: int):
+    """An update's bound: each element's params, gradient and moments read
+    once and its params and moments written once, 28 bytes; its 15 float32
+    operations beside them."""
+    return bound(28 * n, 15 * n)
+
+
+def _adam_update(device, workload: str, S: int, seed: int):
+    """The main update's stepped leaves at ``workload``'s params (S members
+    stacked, or one model) as ``multi_adam``'s arguments but the lr: params,
+    gradients and moments (drawn from ``seed``), the corrections at a count
+    of 3, the columns, and lr multipliers of 2 on the priors (the prior-lr
+    knob) and 1 elsewhere."""
+    cfg = load_cvs_config() if workload == "cvs" else LOADERS[workload]()
+    spec = cvs_spec(cfg) if workload == "cvs" else WORKLOADS[workload]["spec"](cfg, n_time=WORKLOADS[workload]["T"])
+    params = init_params(spec, 0, device=device)
+    if S:
+        params = tree_map(lambda p: torch.stack([p * (1.0 + 0.1 * s) for s in range(S)]), params)
+    mask, _ = param_masks(spec, params)
+    scales = tree_leaves({g: tree_map(lambda _: 2.0 if g == "priors" else 1.0, sub) for g, sub in params.items()})
+    cols = [i for i, mk in enumerate(tree_leaves(mask)) if mk]
+    gen = torch.Generator().manual_seed(seed)
+    leaves = [tree_leaves(params)[i] for i in cols]
+
+    def draw(scale, positive=False):
+        return [((torch.rand if positive else torch.randn)(p.shape, generator=gen) * scale).to(device) for p in leaves]
+
+    corrections = torch.as_tensor(svi.bias_corrections(tree_map(lambda _: 2, params), mask), device=device)
+    return (leaves, draw(0.1), draw(0.01), draw(1e-3, positive=True), corrections, cols, [scales[i] for i in cols])
+
+
+def phase_adam(device, clock: Clock, rehearse: bool, smi: str, res: dict):
+    """The shared Adam's kernel at each workload's leaves (ADAM_SHAPES): the
+    main update's params and moments bit for bit its plain version on the
+    card at a host lr (with the prior-lr multipliers) and at a 0-d lr on the
+    card; a tree of eight times CVS's leaves, split over several launches,
+    bit for bit too; each timed beside its plain version and its bound."""
+    worst = res["multi_adam"]["worst"]
+    lr = load_cvs_config().learning_rate
+
+    def held(name, got, ref) -> bool:
+        ok = all(torch.equal(a, b) for a, b in zip(got, ref))
+        worst[name] = max(worst[name], 0.0 if ok else math.inf)
+        return ok
+
+    for label, (workload, S) in ADAM_SHAPES.items():
+        if rehearse:
+            S = min(S, 2)
+        p, g, m, n, corr, cols, scales = _adam_update(device, workload, S, seed=len(label))
+        checks = {}
+        for lr_name, rate in (("host lr", lr), ("0-d lr", torch.tensor(0.75, device=device) * lr)):
+            got = multi_adam.multi_adam(p, g, m, n, rate, corr, cols, scales)
+            ref = svi.adam_plain(p, g, m, n, rate, corr, cols, scales)
+            names = ("params", "mu", "nu") if lr_name == "host lr" else ("0-d lr",) * 3
+            checks[lr_name] = all([held(k, a, b) for k, a, b in zip(names, got, ref)])
+        elements = sum(t.numel() for t in p)
+        launches = len(multi_adam.plan([t.numel() for t in p]))
+        shape = f"{len(p)} leaves, {elements} floats" + (f", S={S}" if S else "")
+        print(f"adam {label} ({shape}): bit for bit the plain version on the card {checks}", flush=True)
+        check(all(checks.values()), f"adam {label}: differs from its plain version: {checks}")
+        res["multi_adam"][label] = dict(_time(
+            clock, rehearse, "multi_adam", lambda: multi_adam.multi_adam(p, g, m, n, lr, corr, cols, scales),
+            lambda: svi.adam_plain(p, g, m, n, lr, corr, cols, scales), adam_bound_ms(elements), shape,
+            per_call=launches), leaves=len(p), elements=elements, launches=launches)
+    p, g, m, n, corr, cols, scales = _adam_update(device, "cvs", 0, seed=3)
+    many = [x * 8 for x in (p, g, m, n)]  # eight times the leaves, sharing their tensors
+    cols8 = cols * 8
+    before = multi_adam.multi_adam.launches
+    got = multi_adam.multi_adam(*many, lr, corr, cols8, scales * 8)
+    ref = svi.adam_plain(*many, lr, corr, cols8, scales * 8)
+    split = held("split launches", [t for out in got for t in out], [t for out in ref for t in out])
+    made = multi_adam.multi_adam.launches - before
+    want = 0 if rehearse else -(-len(cols8) // multi_adam.MAX_LEAVES)
+    print(f"adam {len(cols8)} leaves: {made} launches (expected {want}), bit for bit the plain version {split} "
+          f"({smi})", flush=True)
+    check(split and made == want, f"adam split over launches: {made} launches, bit for bit {split}")
+
+
 HASH_KERNELS = re.compile(r"Bitwise|shift_kernel|\(double\)|Functor<long>|Functor<double>")
 
 
@@ -1600,6 +1712,8 @@ def phase_stacked_step(device, clock: Clock, data_dir: str, rehearse: bool, smi:
               f"S=10 {step_ms[10]:.3f} ms, ten sequential dual steps {step_ms['10 sequential']:.3f} ms ({smi})",
               flush=True)
         check(launches[1] == launches[10], f"stacked step {backend}: launches differ at S=1 and S=10: {launches}")
+        check(rehearse or launches[10]["multi_adam"] == 2,
+              f"stacked step {backend}: {launches[10]['multi_adam']} Adam launches, expected 2 (main and aux)")
         check(rehearse or all(launches[10][key] > 0 for key in STACKED[backend] + ENCODE_MEMBERS),
               f"stacked step {backend}: {launches[10]}")
 
@@ -1670,6 +1784,14 @@ def zero_counts():
         wrapper.launches = 0
         if hasattr(wrapper, "variants"):
             wrapper.variants.clear()
+    multi_adam.multi_adam.leaves = svi.shared_adam_update.leaves = 0
+
+
+def adam_share() -> tuple:
+    """(leaf updates the Adam kernel made, leaf updates the shared Adam was
+    asked for) since the counts were zeroed: the kernel's engagement share
+    is the first over the second."""
+    return multi_adam.multi_adam.leaves, svi.shared_adam_update.leaves
 
 
 def read_counts():
@@ -1698,6 +1820,12 @@ def counted(paths: dict, name: str, expected, rehearse: bool, fn, replayed: bool
     VARIANT_PATHS[name] = {key: collections.Counter(w.variants) for key, w in KERNELS.items() if hasattr(w, "variants")}
     print(f"launches {name}: {counts}", flush=True)
     hold_counts(name, counts, expected, rehearse)
+    kernel, stepped = adam_share()
+    if stepped:
+        ADAM_PATHS[name] = (kernel, stepped)
+        print(f"adam {name}: the kernel made {kernel} of {stepped} leaf updates, engagement share "
+              f"{kernel / stepped:.3f} in {counts['multi_adam']} launches", flush=True)
+        check(rehearse or kernel == stepped, f"{name}: the Adam kernel made {kernel} of {stepped} leaf updates")
     return out
 
 
@@ -1712,12 +1840,13 @@ def same_launches(a: dict, b: dict, folds: int = 0) -> bool:
 def hold_counts(name: str, counts: dict, expected, rehearse: bool) -> None:
     """Each kernel of ``expected`` launched on the card, and no other K1-K3
     kernel. The conv encoder's kernels run wherever a path encodes on the
-    card, and the sampler's wherever it draws, whatever its ODE backend: the
-    ones ``expected`` names must have launched, the others are recorded. In
-    a rehearsal none launches."""
+    card, the sampler's wherever it draws and the Adam's wherever it trains,
+    whatever its ODE backend: the ones ``expected`` names must have
+    launched, the others are recorded (:func:`counted` holds the Adam's
+    engagement share to 1). In a rehearsal none launches."""
     for key, n in counts.items():
         want = key in expected and not rehearse
-        if key in CONV_KEYS + SAMPLER_KEYS and not want and not rehearse:
+        if key in CONV_KEYS + SAMPLER_KEYS + ADAM_KEYS and not want and not rehearse:
             continue
         check(n > 0 if want else n == 0,
               f"{name}: {key} launched {n} times, expected {'some' if want else 'none'}")
@@ -4173,6 +4302,8 @@ def main(argv=None):
     phase_conv(device, clock, args.rehearse, smi, res)
     phase("3: the sampler's kernels")
     phase_sampler(device, clock, args.rehearse, smi, res)
+    phase("3: the shared Adam's kernel")
+    phase_adam(device, clock, args.rehearse, smi, res)
     phase("3: C2, K2 and K3 at dopri5 and at wide widths")
     c2 = phase_c2(device, clock, args.rehearse, smi, odes)
 
@@ -4303,6 +4434,26 @@ def main(argv=None):
             "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
             **{other: res[key][other] for other in SAMPLER_SHAPES if other != label and other in res[key]},
         })
+    # the shared Adam's kernel: an update at the proc sweep's ten members'
+    # leaves (main path: the proc sweep, the benchmark's proc_sweep), CVS's
+    # and challenge's beside it; each path's engagement share (the kernel's
+    # leaf updates over the shared Adam's) beside its launches
+    t = res["multi_adam"]["proc_S10"]
+    adam_ptxas = PTXAS.get(("multi_adam", (None, None)), {}).get(("multi_adam_kernel", ""))
+    kernels.append({
+        "name": "multi_adam", "route": "cuda", "source": ADAM_SOURCE, "replaces": ADAM_REPLACES,
+        "launches": paths["sweep proc semilinear_fused"]["multi_adam"], "main_path": "sweep proc semilinear_fused",
+        "launches_by_path": {path: counts.get("multi_adam") for path, counts in paths.items()},
+        "engagement_by_path": {path: k / n for path, (k, n) in ADAM_PATHS.items()},
+        "max_abs_err": 0.0,
+        "tolerance": {out: {"rule": rule, "worst_error_over_tolerance": res["multi_adam"]["worst"][out]}
+                      for out, rule in TOLERANCE_RULES["multi_adam"].items()},
+        "ms": t["ms"], "wrapper_ms": t["wrapper_ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None, "shape": t["shape"],
+        "ptxas": None if adam_ptxas is None else dict(zip(("registers", "spill_store_bytes", "spill_load_bytes"),
+                                                          adam_ptxas)),
+        **{other: res["multi_adam"][other] for other in ADAM_SHAPES if other != "proc_S10"},
+    })
     # C2's kernels: K2 and K3 at dopri5 and at the wide widths, each with
     # the launches of its variant (method, H, D) on the path that runs it
     c2_paths = {"dopri5 cvs": "c2 cvs dopri5 semilinear_auto", "dopri5 proc": "c2 proc dopri5 semilinear_auto",

@@ -53,6 +53,7 @@ from structured_latent_odes_tpu_torch.models import classifier, elbo_aux, elbo_m
 from structured_latent_odes_tpu_torch.models.slode import masked_abs_parts
 from structured_latent_odes_tpu_torch.models.spec import ModelSpec
 from structured_latent_odes_tpu_torch.nn.ode_model import NOT_CAPTURABLE, solve_is_capturable, solve_is_per_member
+from structured_latent_odes_tpu_torch.ops.multi_adam import multi_adam
 from structured_latent_odes_tpu_torch.prob import fold_seed, l1_of_parts, seed_tensor
 from structured_latent_odes_tpu_torch.utils.graphs import Graph
 from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
@@ -165,29 +166,54 @@ def shared_adam_update(grads, slots: AdamSlots, params, mask, lr, b1: float = 0.
     tensor on the params' device (a dual step's comes from
     :func:`epoch_scalars`); None makes it from ``slots.count``. The moments
     are divided by its elements, device tensors, so an eager update and a
-    graph's replay of it divide alike."""
+    graph's replay of it divide alike.
+
+    The stepped leaves go to ``ops/multi_adam.py::multi_adam`` together: on
+    the card one launch, on the CPU :func:`adam_plain`.
+    ``shared_adam_update.leaves`` counts the leaf updates asked for, on any
+    device (the kernel's ``leaves`` over it is its engagement share)."""
     if corrections is None:
         corrections = torch.as_tensor(bias_corrections(slots.count, mask, b1, b2),
                                       device=tree_leaves(params)[0].device)
+    new_p, new_m, new_n = tree_leaves(params), tree_leaves(slots.mu), tree_leaves(slots.nu)
+    grads = tree_leaves(grads)
+    scales = tree_leaves(lr_scales) if lr_scales is not None else [1.0] * len(new_p)
+    cols = [i for i, mk in enumerate(tree_leaves(mask)) if mk]
+    shared_adam_update.leaves += len(cols)
+    # a stacked step's gradients leave torch.func.vmap in whatever layout its
+    # batching rules chose, on the card not always contiguous: the kernel
+    # reads them contiguous (a copy only where one is not)
+    stepped = multi_adam([new_p[i] for i in cols], [grads[i].contiguous() for i in cols], [new_m[i] for i in cols],
+                         [new_n[i] for i in cols], lr, corrections, cols, [scales[i] for i in cols], b1, b2, eps)
+    for out, new in zip((new_p, new_m, new_n), stepped):
+        for i, t in zip(cols, new):
+            out[i] = t
+    return tree_unflatten(params, new_p), AdamSlots(
+        tree_unflatten(params, new_m), tree_unflatten(params, new_n), advance_counts(slots.count, mask)
+    )
+
+
+shared_adam_update.leaves = 0
+
+
+def adam_plain(params, grads, mu, nu, lr, corrections, cols, scales, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8):
+    """The plain version of ``ops/multi_adam.py::multi_adam``: one
+    ``torch.optim.Adam`` step of each leaf in float32 tensor arithmetic, a
+    leaf at a time. Leaf i is divided by the bias corrections
+    ``corrections[:, cols[i]]`` (device tensors, so an eager update and a
+    graph's replay of it divide alike) and stepped by ``lr * scales[i]``.
+    Returns the lists ``(params', mu', nu')``."""
     c1, c2 = corrections
-    scales = tree_leaves(lr_scales) if lr_scales is not None else [1.0] * len(tree_leaves(params))
     new_p, new_m, new_n = [], [], []
-    for i, (p, g, m, n, mk, sc) in enumerate(zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(slots.mu), tree_leaves(slots.nu),
-        tree_leaves(mask), scales,
-    )):
-        if not mk:
-            new_p.append(p), new_m.append(m), new_n.append(n)
-            continue
+    for p, g, m, n, i, sc in zip(params, grads, mu, nu, cols, scales):
         m2 = b1 * m + (1.0 - b1) * g
         n2 = b2 * n + (1.0 - b2) * g * g
         m_hat = m2 / c1[i]
         n_hat = n2 / c2[i]
         new_p.append(p - (lr * sc) * m_hat / (torch.sqrt(n_hat) + eps))
         new_m.append(m2), new_n.append(n2)
-    return tree_unflatten(params, new_p), AdamSlots(
-        tree_unflatten(params, new_m), tree_unflatten(params, new_n), advance_counts(slots.count, mask)
-    )
+    return new_p, new_m, new_n
 
 
 def make_dual_optimizer(spec: ModelSpec, params_example, lr: float, mode: str = "shared",
@@ -404,7 +430,8 @@ def _with_counts(opt, counts_of):
 def _copy_in(dst, src) -> None:
     """Each ``src`` tensor into its ``dst`` buffer (skipping a buffer given
     itself) as one multi-tensor copy: a graph's params are some 40 small
-    leaves, and a launch for each cost the host more than the replay."""
+    leaves, and a launch for each cost the host more than the replay (and,
+    as a captured step's write-back, the card a node each)."""
     pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
     if pairs:
         torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
@@ -471,8 +498,7 @@ class _StepGraph:
 
         def body():  # refers to the buffers, not to self: an evicted graph is freed at once
             new, metrics = call(own, batch, seeds, corrections)
-            for buf, t in zip(buffers, _tensors(new)):
-                buf.copy_(t)
+            _copy_in(buffers, _tensors(new))
             return metrics
 
         self.run = Graph(body, _device(state), plain=plain)

@@ -28,28 +28,37 @@ from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 
 
 def _counted():
-    """The kernel wrappers, whose launch counters (``launches``, and
-    ``variants`` by (method, H, D) or, for the conv encoder's, by shape,
-    where a wrapper keeps them) a graph keeps true: a wrapper's Python runs
-    once, at the capture, so each replay adds what the capture counted.
-    (Imported here: the solvers, which the ops import, replay graphs of
-    their own.)"""
-    from structured_latent_odes_tpu_torch.ops import conv_encoder, counter_normal, fused_step, recurrence
+    """The kernel wrappers, whose launch counters (``launches``, ``leaves``
+    where a wrapper counts what its launches covered, and ``variants`` by
+    (method, H, D) or, for the conv encoder's, by shape, where a wrapper
+    keeps them) a graph keeps true: a wrapper's Python runs once, at the
+    capture, so each replay adds what the capture counted. The shared Adam's
+    count of the leaf updates asked for (``svi.shared_adam_update.leaves``)
+    is kept alike. (Imported here: the solvers, which the ops import, replay
+    graphs of their own.)"""
+    from structured_latent_odes_tpu_torch.ops import conv_encoder, counter_normal, fused_step, multi_adam, recurrence
+    from structured_latent_odes_tpu_torch.train import svi
 
     return (recurrence.affine_scan_fwd, recurrence.affine_scan_bwd, fused_step.fused_semilinear_fwd,
             fused_step.fused_semilinear_fwd_members, fused_step.fused_semilinear_bwd,
             fused_step.fused_semilinear_bwd_members, conv_encoder.conv_pool_fwd,
             conv_encoder.conv_pool_fwd_members, conv_encoder.conv_pool_wgrad, conv_encoder.conv_pool_wgrad_members,
-            counter_normal.counter_normal, counter_normal.counter_normal_members, counter_normal.counter_fold)
+            counter_normal.counter_normal, counter_normal.counter_normal_members, counter_normal.counter_fold,
+            multi_adam.multi_adam, svi.shared_adam_update)
+
+
+_INTS = ("launches", "leaves")
 
 
 def _counts():
-    return [(w.launches, collections.Counter(getattr(w, "variants", ()))) for w in _counted()]
+    return [({k: getattr(w, k) for k in _INTS if hasattr(w, k)}, collections.Counter(getattr(w, "variants", ())))
+            for w in _counted()]
 
 
 def _add(counts, sign: int = 1) -> None:
-    for w, (n, variants) in zip(_counted(), counts):
-        w.launches += sign * n
+    for w, (ints, variants) in zip(_counted(), counts):
+        for k, n in ints.items():
+            setattr(w, k, getattr(w, k) + sign * n)
         for key, m in variants.items():
             w.variants[key] += sign * m
 
@@ -120,7 +129,7 @@ class Graph:
                 if collecting:
                     gc.enable()
             after = _counts()
-            self.captured = [(n - n0, v - v0) for (n, v), (n0, v0) in zip(after, before)]
+            self.captured = [({k: n[k] - n0[k] for k in n}, v - v0) for (n, v), (n0, v0) in zip(after, before)]
             _add(self.captured, -1)  # nothing ran
             self.graph, self.out = graph, out
         return self()

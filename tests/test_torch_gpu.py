@@ -609,9 +609,9 @@ def test_dp_step_through_an_nccl_group_of_one_is_the_one_device_step(cuda, rank_
 
 
 # the kernels a rank's dual step launches, and no other: its backend's, its
-# encoder's conv pair (main and aux) and the sampler's draws
-DP_STEP_KERNELS = [("semilinear_fused", ("K2", "K3", "conv_pool_fwd", "conv_pool_wgrad", "counter_normal")),
-                   ("semilinear", ("K1", "K1-bwd", "conv_pool_fwd", "conv_pool_wgrad", "counter_normal"))]
+# encoder's conv pair (main and aux), the sampler's draws and the shared Adam
+_DP_SHARED = ("conv_pool_fwd", "conv_pool_wgrad", "counter_normal", "multi_adam")
+DP_STEP_KERNELS = [("semilinear_fused", ("K2", "K3") + _DP_SHARED), ("semilinear", ("K1", "K1-bwd") + _DP_SHARED)]
 
 
 @pytest.mark.parametrize("backend,kernels", DP_STEP_KERNELS)
@@ -1289,3 +1289,132 @@ def test_cvs_dual_step_draws_are_the_fed_plain_draws(cuda, tiny_cvs):
     for a, b in zip(svi._tensors(drawn) + [m_d["loss_main"], m_d["loss_aux"], m_d["l1"]],
                     svi._tensors(fed) + [m_f["loss_main"], m_f["loss_aux"], m_f["l1"]]):
         assert torch.equal(a, b)
+
+
+# The shared Adam's multi-tensor launch (csrc/multi_adam.cu): an update's
+# params and moments bit for bit its plain version on the card
+# (train/svi.py::adam_plain), at CVS's 38 leaves and the proc sweep's 48
+# leaves stacked over ten members, eagerly and replayed in a captured graph
+# whose inputs change between replays; a tree past one launch's table, split
+# over several launches; and every training step's updates through it: two
+# launches a dual step and a stacked step, the kernel's leaf updates all of
+# those asked for.
+ADAM_LAYOUTS = {"cvs": ("cvs", 0), "proc-S10": ("proc", 10)}
+
+
+def _adam_equal(got, ref):
+    return all(torch.equal(a, b) for out, want in zip(got, ref) for a, b in zip(out, want))
+
+
+@pytest.mark.parametrize("layout", sorted(ADAM_LAYOUTS))
+def test_multi_adam_matches_plain_on_card(cuda, layout):
+    import chip_smoke
+    from structured_latent_odes_tpu_torch.ops import multi_adam as ma
+    from structured_latent_odes_tpu_torch.train import svi
+
+    p, g, m, n, corr, cols, scales = chip_smoke._adam_update(cuda, *ADAM_LAYOUTS[layout], seed=1)
+    assert len(p) == {"cvs": 30, "proc-S10": 48}[layout]
+    for lr in (1e-3, torch.tensor(7e-4, device=cuda)):
+        before = ma.multi_adam.launches
+        got = ma.multi_adam(p, g, m, n, lr, corr, cols, scales)
+        assert ma.multi_adam.launches == before + 1
+        assert _adam_equal(got, svi.adam_plain(p, g, m, n, lr, corr, cols, scales))
+
+
+@pytest.mark.parametrize("layout", sorted(ADAM_LAYOUTS))
+def test_multi_adam_replays_match_plain_on_card(cuda, layout):
+    """The update captured once; its gradients, moments, lr and corrections
+    rewritten in place between replays: each replay's outputs bit for bit
+    the plain version on the buffers' values, one launch counted a replay."""
+    import chip_smoke
+    from structured_latent_odes_tpu_torch.ops import multi_adam as ma
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.utils.graphs import Graph
+
+    p, g, m, n, corr, cols, scales = chip_smoke._adam_update(cuda, *ADAM_LAYOUTS[layout], seed=2)
+    lr = torch.tensor(1e-3, device=cuda)
+    graph = Graph(lambda: ma.multi_adam(p, g, m, n, lr, corr, cols, scales), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for k in range(4):
+        for t in g + m:
+            t.copy_(torch.randn(t.shape, generator=gen, device=cuda) * 0.1)
+        for t in n:
+            t.copy_(torch.rand(t.shape, generator=gen, device=cuda) * 1e-3)
+        lr.fill_(1e-3 * (1 + k))
+        corr.copy_(torch.rand(corr.shape, generator=gen, device=cuda) * 0.5 + 0.5)
+        before = ma.multi_adam.launches
+        got = graph()
+        torch.cuda.synchronize()
+        assert ma.multi_adam.launches == before + 1
+        assert _adam_equal(got, svi.adam_plain(p, g, m, n, lr, corr, cols, scales))
+    assert graph.graph is not None
+
+
+def test_multi_adam_splits_a_300_leaf_tree(cuda):
+    from structured_latent_odes_tpu_torch.ops import multi_adam as ma
+    from structured_latent_odes_tpu_torch.train import svi
+
+    gen = torch.Generator().manual_seed(3)
+    sizes = torch.randint(0, 5000, (300,), generator=gen).tolist()
+    p, g, m = ([(torch.randn(s, generator=gen) * 0.1).to(cuda) for s in sizes] for _ in range(3))
+    n = [torch.rand(s, generator=gen).to(cuda) * 1e-3 for s in sizes]
+    corr = torch.rand((2, 310), generator=gen).to(cuda) * 0.5 + 0.5
+    cols = list(range(5, 305))
+    scales = [1.0 + (i % 3) for i in range(300)]
+    before = ma.multi_adam.launches
+    got = ma.multi_adam(p, g, m, n, 3e-4, corr, cols, scales)
+    assert ma.multi_adam.launches == before + -(-300 // ma.MAX_LEAVES) > before + 1
+    assert _adam_equal(got, svi.adam_plain(p, g, m, n, 3e-4, corr, cols, scales))
+
+
+def _adam_counts():
+    from structured_latent_odes_tpu_torch.ops import multi_adam as ma
+    from structured_latent_odes_tpu_torch.train import svi
+
+    return ma.multi_adam.launches, ma.multi_adam.leaves, svi.shared_adam_update.leaves
+
+
+def test_every_training_step_reaches_multi_adam(cuda, tiny_cvs):
+    """A CVS epoch of dual steps eager and replayed, and a stacked step of
+    three members: two Adam launches a step, and the kernel's leaf updates
+    are every leaf update the shared Adam was asked for (share 1.0)."""
+    from structured_latent_odes_tpu_torch import training_cvs
+    from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+    from structured_latent_odes_tpu_torch.train import ensemble, svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+
+    full_fp32(deterministic=True)
+    cfg = load_cvs_config()
+    cfg.data_path = tiny_cvs
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    ts = torch.arange(86.0, device=cuda)
+    params = init_params(spec, 0, device=cuda)
+    batches = device_batch(stacked_minibatches(splits["train"], 16, shuffle=True, rng=np.random.RandomState(0)), cuda)
+    steps = batches["mask"].shape[0]
+    for dispatch in ("eager", None):
+        init_state, _, epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=dispatch)
+        state = init_state(params, 5)
+        for _ in range(2):  # the graph's eager first call and capture, then a replay
+            c0 = _adam_counts()
+            state, _ = epoch(state, batches)
+            torch.cuda.synchronize()
+            launches, leaves, asked = (b - a for a, b in zip(c0, _adam_counts()))
+            assert launches == 2 * steps and asked > 0 and leaves == asked, (dispatch, launches, leaves, asked)
+
+    S, B = 3, 16
+    optim = svi.make_dual_optimizer(spec, params, cfg.learning_rate)
+    members = [init_params(spec, s, device=cuda) for s in range(S)]
+    state = ensemble.stack_states([svi.SVIState(p, optim.init(p), 7 + s, 0) for s, p in enumerate(members)])
+    step = svi.make_stacked_dual_step(spec, ts, optim)
+    perms = np.stack([np.random.RandomState(s).permutation(len(splits["train"]["observations"]))[:B] for s in range(S)])
+    batch = {k: torch.as_tensor(v[perms], device=cuda) for k, v in splits["train"].items()}
+    batch.update(sample_id=torch.as_tensor(perms, device=cuda), mask=torch.ones(B, device=cuda))
+    dims = {k: 0 for k in batch}
+    dims["mask"] = None
+    c0 = _adam_counts()
+    step(state, batch, dims, svi.stacked_step_seeds(state.seed, range(1), device=cuda)[0])
+    torch.cuda.synchronize()
+    launches, leaves, asked = (b - a for a, b in zip(c0, _adam_counts()))
+    assert launches == 2 and asked > 0 and leaves == asked
