@@ -2446,11 +2446,6 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cu
                 "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
-def _graphs_of(memo) -> list:
-    """The utils/graphs.py Graphs held by one of train/svi.py's memos."""
-    return [g.run for g in memo._d.values()]
-
-
 def _states_equal(a, b) -> bool:
     return (a.step == b.step and a.seed == b.seed
             and [s.count for s in svi._slots(a.opt)] == [s.count for s in svi._slots(b.opt)]
@@ -2547,8 +2542,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
             _, _, graph_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=graphed)
             eager_eval = svi.make_eval_epoch(spec, ts, dispatch="eager")
             graph_eval = svi.make_eval_epoch(spec, ts, dispatch=graphed)
-            svi._TRAIN_GRAPHS.clear()  # fresh captures: their times
-            svi._EVAL_GRAPHS.clear()
+            graphs.GRAPHS.clear()  # fresh captures: their times
             s_eager, s_graph = init_state(params, 5), init_state(params, 5)
             for epoch in range(2):
                 s_eager, m_eager = counted(paths, f"{case} epoch {epoch} eager", kernels, rehearse,
@@ -2562,7 +2556,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
                 check(_trees_equal(m_eager, m_graph), f"{case} epoch {epoch}: the replayed metrics differ from eager")
                 check(same_launches(paths[f"{case} epoch {epoch} eager"], paths[f"{case} epoch {epoch} graph"]),
                       f"{case} epoch {epoch}: launches differ from eager")
-            check(len(_graphs_of(svi._TRAIN_GRAPHS)) == 1, f"{case}: one step graph")
+            check(len(graphs.graphs_of("train")) == 1, f"{case}: one step graph")
             params_now = svi.own_state(s_eager).params
             for name in ("val", "train"):
                 for is_post in (True, False):
@@ -2602,8 +2596,7 @@ def phase_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: dict) -
             two = {k: torch.cat([v[:1], v[:1]]) for k, v in batches.items()}
             captures = {"train": [], "eval": []}
             for _ in range(n):
-                svi._TRAIN_GRAPHS.clear()
-                svi._EVAL_GRAPHS.clear()
+                graphs.GRAPHS.clear()
                 t0_ns = time.perf_counter_ns()
                 graph_epoch(svi.own_state(s_eager), two)
                 captures["train"] += _captures_since(t0_ns)
@@ -2675,7 +2668,6 @@ TRACE_NAMES = {"K2": "fused_semilinear_fwd_kernel", "K3": "fused_semilinear_bwd_
 SWEEP_GRAPH_CASES = (("cvs", "semilinear_fused", "12..21", 0), ("cvs", "semilinear", "12..21", 0),
                      ("proc", "semilinear_fused", "12..16", 1), ("challenge", "semilinear_fused", "12,13", 0))
 SWEEP_GROUP = 5
-SWEEP_MEMOS = {"step": ensemble._STEP_GRAPHS, "val": ensemble._VAL_GRAPHS, "refit": ensemble._REFIT_GRAPHS}
 
 
 class _Tee:
@@ -2755,8 +2747,7 @@ def phase_sweep_graphs(device, data_dir: str, rehearse: bool, smi: str, paths: d
         cfg = _sweep_config(dataset, data_dir, backend, refit)
         members = [sweep.prepare_member(dataset, cfg, seed, device) for seed in seeds]
         S, kernels = len(members), STACKED[backend]
-        for memo in SWEEP_MEMOS.values():
-            memo.clear()  # fresh captures: their times
+        graphs.GRAPHS.clear()  # fresh captures: their times
 
         def train(name, **kw):
             return counted(paths, f"{case} {name}", kernels, rehearse, lambda: printed(
@@ -2937,7 +2928,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
             idx = np.arange(B) % test["observations"].shape[0]
             batch = {k: torch.as_tensor(v[idx], device=device) for k, v in test.items()}
             batch["sample_id"] = torch.arange(B, device=device)
-            svi._EVAL_FN_GRAPHS.clear()  # fresh captures: their times
+            graphs.GRAPHS.clear()  # fresh captures: their times
             t0_ns = time.perf_counter_ns()
             rec = {"replays": _held_replays(paths, f"{case} posterior", kernels, rehearse,
                                             lambda: eager[0](params, 3, batch, True),
@@ -2996,7 +2987,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
             replayed = serve.make_predict_fns(spec, times, device, dispatch=graphed)
             batch = {k: torch.as_tensor(v, device=device) for k, v in splits["val"].items()}
             case = f"served {wl} semilinear_fused B={batch['observations'].shape[0]}"
-            svi._EVAL_FN_GRAPHS.clear()
+            graphs.GRAPHS.clear()
             t0_ns = time.perf_counter_ns()
             rec = {"replays": _held_replays(paths, f"{case} posterior", ("K2",), rehearse,
                                             lambda: eager[0](params, 3, batch, True),
@@ -3014,7 +3005,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     ts = torch.as_tensor(times, device=device)
     eager_fns, graph_fns = svi.make_eval_fns(spec, ts, dispatch="eager"), svi.make_eval_fns(spec, ts, dispatch=graphed)
     check({f.dispatch for f in graph_fns} == {want}, f"eval dispatch {graph_fns[0].dispatch}")
-    svi._EVAL_FN_GRAPHS.clear()
+    graphs.GRAPHS.clear()
     case = "final_test_eval cvs semilinear_fused"
 
     def final(fns):
@@ -3037,7 +3028,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     pparams = init_params(pspec, 0, device=device)
     p_eager, p_graph = svi.make_eval_fns(pspec, pts, dispatch="eager"), svi.make_eval_fns(pspec, pts, dispatch=graphed)
     draws = 2 if rehearse else BANDS
-    svi._EVAL_FN_GRAPHS.clear()
+    graphs.GRAPHS.clear()
     case = f"sample bands proc semilinear_fused x{draws}"
     dirs = {}
 
@@ -3068,7 +3059,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     mts = torch.as_tensor(members[0]["times"], device=device)
     s_eager = svi.make_eval_fns(members[0]["spec"], mts, dispatch="eager")
     s_graph = svi.make_eval_fns(members[0]["spec"], mts, dispatch=graphed)
-    svi._EVAL_FN_GRAPHS.clear()
+    graphs.GRAPHS.clear()
     case = "selection_prior_l1 cvs x2"
 
     def selection(fns):
@@ -3080,7 +3071,7 @@ def phase_served_graphs(device, workdir: str, data_dir: str, ckpts, rehearse: bo
     rec["l1"] = selection(s_graph)
     out[case] = rec
     print(f"{case}: {json.dumps(rec)} ({smi})", flush=True)
-    svi._EVAL_FN_GRAPHS.clear()
+    graphs.GRAPHS.clear()
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"== phase 14 took {out['wall_s']:.1f} s ({smi})", flush=True)
     return out

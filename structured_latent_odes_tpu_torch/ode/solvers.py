@@ -35,7 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from structured_latent_odes_tpu_torch.ode.tableaus import ButcherTableau, get_tableau
-from structured_latent_odes_tpu_torch.utils.graphs import Graph
+from structured_latent_odes_tpu_torch.utils.graphs import Replayed
 
 Tensor = torch.Tensor
 ODEFunc = Callable[[Tensor, Tensor], Tensor]  # f(t, y) -> dy/dt
@@ -145,24 +145,9 @@ def _interp_eval(coeffs: Tensor, t0: Tensor, t1: Tensor, t: Tensor) -> Tensor:
     return e + theta * (d + theta * (c + theta * (b + theta * a)))
 
 
-class _Trip(Graph):
-    """One loop trip of an adaptive solver, ``trip()``, which reads and
-    writes tensors that live as long as the solver. On a CUDA device the
-    first two trips run eagerly on a side stream, the third is captured as a
-    CUDA graph, and every trip from then on replays it
-    (``utils/graphs.py``): the trip's several hundred small operations
-    (seven stages, each a vector-Jacobian product in the adjoint) in one
-    launch, without the host's cost per operation, which otherwise bounds
-    the solve. A replay runs the captured operations themselves. On the CPU
-    each trip runs eagerly (the graph's plain version)."""
-
-    def __init__(self, trip, device: torch.device):
-        super().__init__(trip, device, warm=2, plain=device.type != "cuda")
-
-
 class _Dopri5:
     """Adaptive dopri5 of ``f`` on states shaped like ``y_like``: the loop
-    state in tensors the solver keeps and one :class:`_Trip`, reused by
+    state in tensors the solver keeps and one graph of a loop trip, reused by
     every :meth:`solve` (the adjoint's interval solves of one sweep share
     them). ``per_row``: one step schedule per row of a ``(B, D)`` state
     (``f`` then takes per-row times ``(B, 1)``), else one for the whole
@@ -179,7 +164,15 @@ class _Dopri5:
         self.y = torch.zeros_like(y_like)
         self.coeffs = y_like.new_zeros((5,) + tuple(y_like.shape))
         self.accepted = torch.zeros((), dtype=torch.int64, device=y_like.device)
-        self.run = _Trip(self._trip, y_like.device)
+        # one loop trip, which reads and writes the loop state: on a CUDA device
+        # the first two trips run eagerly on a side stream, the third is
+        # captured as a CUDA graph over no inputs, and every trip from then on
+        # replays it (utils/graphs.py): the trip's several hundred small
+        # operations (seven stages, each a vector-Jacobian product in the
+        # adjoint) in one launch, without the host's cost per operation, which
+        # otherwise bounds the solve. On the CPU each trip runs eagerly (the
+        # graph's plain version).
+        self.run = Replayed(lambda _: self._trip(), {}, y_like.device, plain=y_like.device.type != "cuda", warm=2)
 
     def _trip(self) -> None:
         y, t_prev, t_next, h, coeffs = self.y, self.t_prev, self.t_next, self.h, self.coeffs
@@ -233,7 +226,7 @@ class _Dopri5:
             self.target.copy_(target)
             n = 0
             while n < max_steps and bool(torch.any(self.t_next < self.target)):
-                self.run()
+                self.run({})
                 n += 1
             trips += n
             t_prev, t_next = self.t_prev, self.t_next

@@ -36,7 +36,6 @@ the limit before any build.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 
 import torch
@@ -44,6 +43,7 @@ import torch.nn.functional as F
 
 from structured_latent_odes_tpu_torch.ops import _build
 from structured_latent_odes_tpu_torch.ops.recurrence import _to_front
+from structured_latent_odes_tpu_torch.utils.graphs import count, counted
 
 Tensor = torch.Tensor
 
@@ -152,12 +152,6 @@ def _member_major(t: Tensor):
     return t, t[0].numel()
 
 
-def _count(wrapper, shape) -> None:
-    """One launch of ``wrapper``'s kernel, and its (K, T, F, W, pool) shape."""
-    wrapper.launches += 1
-    wrapper.variants[shape] += 1
-
-
 def _fwd_launch(x: Tensor, w: Tensor, b: Tensor, pool: int) -> Tensor:
     """The forward kernel over the S members of arrays with a leading member
     axis (a single model is a member of one)."""
@@ -217,12 +211,11 @@ def conv_pool_fwd(x: Tensor, w: Tensor, b: Tensor, pool: int) -> Tensor:
     if x.device.type == "cpu":
         return conv_pool_fwd_plain(x, w, b, pool)
     out = _fwd_launch(x[None], w[None], b[None], pool)[0]
-    _count(conv_pool_fwd, (x.shape[1], x.shape[2], w.shape[0], w.shape[2], pool))
+    count(conv_pool_fwd, (x.shape[1], x.shape[2], w.shape[0], w.shape[2], pool))  # (K, T, F, W, pool)
     return out
 
 
-conv_pool_fwd.launches = 0
-conv_pool_fwd.variants = collections.Counter()
+counted(conv_pool_fwd, variants=True)
 
 
 def conv_pool_fwd_members(x: Tensor, w: Tensor, b: Tensor, pool: int) -> Tensor:
@@ -232,12 +225,11 @@ def conv_pool_fwd_members(x: Tensor, w: Tensor, b: Tensor, pool: int) -> Tensor:
     if x.device.type == "cpu":
         return conv_pool_fwd_members_plain(x, w, b, pool)
     out = _fwd_launch(x, w, b, pool)
-    _count(conv_pool_fwd_members, (x.shape[2], x.shape[3], w.shape[1], w.shape[3], pool))
+    count(conv_pool_fwd_members, (x.shape[2], x.shape[3], w.shape[1], w.shape[3], pool))
     return out
 
 
-conv_pool_fwd_members.launches = 0
-conv_pool_fwd_members.variants = collections.Counter()
+counted(conv_pool_fwd_members, variants=True)
 
 
 def conv_pool_wgrad(x: Tensor, g: Tensor, filter_size: int, pool: int):
@@ -248,12 +240,11 @@ def conv_pool_wgrad(x: Tensor, g: Tensor, filter_size: int, pool: int):
     if x.device.type == "cpu":
         return conv_pool_wgrad_plain(x, g, filter_size, pool)
     outs = tuple(t[0] for t in _wgrad_launch(x[None], g[None], filter_size, pool))
-    _count(conv_pool_wgrad, (x.shape[1], x.shape[2], outs[1].shape[-1], filter_size, pool))
+    count(conv_pool_wgrad, (x.shape[1], x.shape[2], outs[1].shape[-1], filter_size, pool))
     return outs
 
 
-conv_pool_wgrad.launches = 0
-conv_pool_wgrad.variants = collections.Counter()
+counted(conv_pool_wgrad, variants=True)
 
 
 def conv_pool_wgrad_members(x: Tensor, g: Tensor, filter_size: int, pool: int):
@@ -264,12 +255,11 @@ def conv_pool_wgrad_members(x: Tensor, g: Tensor, filter_size: int, pool: int):
     if x.device.type == "cpu":
         return conv_pool_wgrad_members_plain(x, g, filter_size, pool)
     outs = _wgrad_launch(x, g, filter_size, pool)
-    _count(conv_pool_wgrad_members, (x.shape[2], x.shape[3], outs[1].shape[-1], filter_size, pool))
+    count(conv_pool_wgrad_members, (x.shape[2], x.shape[3], outs[1].shape[-1], filter_size, pool))
     return outs
 
 
-conv_pool_wgrad_members.launches = 0
-conv_pool_wgrad_members.variants = collections.Counter()
+counted(conv_pool_wgrad_members, variants=True)
 
 
 class _ConvPoolWgrad(torch.autograd.Function):

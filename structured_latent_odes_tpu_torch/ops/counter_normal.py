@@ -34,6 +34,7 @@ import torch
 
 from structured_latent_odes_tpu_torch.ops import _build
 from structured_latent_odes_tpu_torch.ops.recurrence import _to_front
+from structured_latent_odes_tpu_torch.utils.graphs import counted
 
 Tensor = torch.Tensor
 
@@ -135,7 +136,7 @@ def counter_normal_members(seeds: Tensor, site: str, sample_ids: Tensor, n: int)
     return _members_launch(seeds, site, sids, n)
 
 
-counter_normal_members.launches = 0
+counted(counter_normal_members)
 
 
 def _members_launch(seeds, site: str, sids: Tensor, n: int) -> Tensor:
@@ -201,7 +202,7 @@ def counter_normal(seed, site: str, sample_ids: Tensor, n: int) -> Tensor:
     return _CounterNormal.apply(seed, sample_ids, site, n)
 
 
-counter_normal.launches = 0
+counted(counter_normal)
 
 
 def _fold_launch(seed: Tensor, crcs) -> Tensor:
@@ -251,4 +252,4 @@ def counter_fold(seed: Tensor, *words) -> Tensor:
     return _CounterFold.apply(seed, crcs)
 
 
-counter_fold.launches = 0
+counted(counter_fold)

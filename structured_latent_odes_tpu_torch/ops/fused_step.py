@@ -47,7 +47,6 @@ reaches the member-batched wrappers.
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import functools
 
@@ -58,6 +57,7 @@ from structured_latent_odes_tpu_torch.ode.semilinear import rk_affine_coeffs, st
 from structured_latent_odes_tpu_torch.ode.tableaus import ButcherTableau, get_tableau
 from structured_latent_odes_tpu_torch.ops import _build
 from structured_latent_odes_tpu_torch.ops.recurrence import _to_front
+from structured_latent_odes_tpu_torch.utils.graphs import count, counted
 
 Tensor = torch.Tensor
 
@@ -289,13 +289,6 @@ def _members_shapes(name: str, u, ts, wa, backward: bool):
     return ((S, B, H), (S, H), (S, D, H), (S, D), (S, D, H), (S, D)) + state + ((T,),)
 
 
-def _count(wrapper, method: str, H: int, D: int) -> None:
-    """One launch of ``wrapper``'s kernel: its count, and the count of its
-    (method, H, D) variant (a library and tableau)."""
-    wrapper.launches += 1
-    wrapper.variants[method, H, D] += 1
-
-
 # S = 0 below: one model, the arrays without a member axis (a launch of one
 # member); S > 0: S members, each array but ts with a leading member axis
 
@@ -325,12 +318,11 @@ def fused_semilinear_fwd(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
     if u.device.type == "cpu":
         return fused_semilinear_fwd_plain(*args, method)
     out = _fwd_launch(m, 0, args)
-    _count(fused_semilinear_fwd, method, u.shape[-1], wa.shape[-2])
+    count(fused_semilinear_fwd, (method, u.shape[-1], wa.shape[-2]))  # a library and tableau
     return out
 
 
-fused_semilinear_fwd.launches = 0
-fused_semilinear_fwd.variants = collections.Counter()
+counted(fused_semilinear_fwd, variants=True)
 
 
 def fused_semilinear_fwd_members(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> Tensor:
@@ -342,12 +334,11 @@ def fused_semilinear_fwd_members(u, wt, wa, ba, wd, bd, x0, ts, method: str) -> 
     if u.device.type == "cpu":
         return fused_semilinear_fwd_members_plain(*args, method)
     out = _fwd_launch(m, u.shape[0], args)
-    _count(fused_semilinear_fwd_members, method, u.shape[-1], wa.shape[-2])
+    count(fused_semilinear_fwd_members, (method, u.shape[-1], wa.shape[-2]))
     return out
 
 
-fused_semilinear_fwd_members.launches = 0
-fused_semilinear_fwd_members.variants = collections.Counter()
+counted(fused_semilinear_fwd_members, variants=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,12 +388,11 @@ def fused_semilinear_bwd(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     if u.device.type == "cpu":
         return fused_semilinear_bwd_plain(*args, method)
     outs = _bwd_launch(m, 0, args)
-    _count(fused_semilinear_bwd, method, u.shape[-1], wa.shape[-2])
+    count(fused_semilinear_bwd, (method, u.shape[-1], wa.shape[-2]))
     return outs
 
 
-fused_semilinear_bwd.launches = 0
-fused_semilinear_bwd.variants = collections.Counter()
+counted(fused_semilinear_bwd, variants=True)
 
 
 def fused_semilinear_bwd_members(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
@@ -414,12 +404,11 @@ def fused_semilinear_bwd_members(u, wt, wa, ba, wd, bd, xs, g, ts, method: str):
     if u.device.type == "cpu":
         return fused_semilinear_bwd_members_plain(*args, method)
     outs = _bwd_launch(m, u.shape[0], args)
-    _count(fused_semilinear_bwd_members, method, u.shape[-1], wa.shape[-2])
+    count(fused_semilinear_bwd_members, (method, u.shape[-1], wa.shape[-2]))
     return outs
 
 
-fused_semilinear_bwd_members.launches = 0
-fused_semilinear_bwd_members.variants = collections.Counter()
+counted(fused_semilinear_bwd_members, variants=True)
 
 
 def _vmap_members(info, in_dims, args):

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from structured_latent_odes_tpu_torch.ops import _build
+from structured_latent_odes_tpu_torch.utils.graphs import counted
 
 Tensor = torch.Tensor
 
@@ -133,5 +134,4 @@ def multi_adam(params: Sequence[Tensor], grads: Sequence[Tensor], mu: Sequence[T
     return new_p, new_m, new_n
 
 
-multi_adam.launches = 0
-multi_adam.leaves = 0
+counted(multi_adam, ints=("launches", "leaves"))

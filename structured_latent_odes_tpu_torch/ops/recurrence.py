@@ -54,6 +54,7 @@ import functools
 import torch
 
 from structured_latent_odes_tpu_torch.ops import _build
+from structured_latent_odes_tpu_torch.utils.graphs import counted
 
 Tensor = torch.Tensor
 
@@ -151,7 +152,7 @@ def affine_scan_fwd(A: Tensor, B: Tensor, x0: Tensor) -> Tensor:
     return out
 
 
-affine_scan_fwd.launches = 0
+counted(affine_scan_fwd)
 
 
 def affine_scan_bwd(A: Tensor, xs: Tensor, g: Tensor):
@@ -173,7 +174,7 @@ def affine_scan_bwd(A: Tensor, xs: Tensor, g: Tensor):
     return dA, dB, dx0
 
 
-affine_scan_bwd.launches = 0
+counted(affine_scan_bwd)
 
 
 # a thread per component of a four-trajectory tile (csrc/affine_scan.cu kMaxD)

@@ -9,9 +9,10 @@ every operation of a step, the kernels K1-K3 included, runs once for all S
 members, so S members cost one step's device operations at S times the
 width. On a CUDA device, where ``svi.epoch_dispatch`` allows, the stacked
 dual step replays a CUDA graph for each minibatch, and the members' val ELBO
-and the refit's update replay graphs of their own (``svi.stepped_epoch``,
-``svi.graphed_eval``; memoized here, so chunks and member groups of one size
-replay one capture), bit for bit the eager steps. On the adaptive ODE
+and the refit's update replay graphs of their own (``svi.Dispatch``,
+``svi.stepped_epoch``; memoized in the one memo of ``utils/graphs.py``, so
+chunks and member groups of one size replay one capture), bit for bit the
+eager steps. On the adaptive ODE
 backends the members go one at a time instead (``svi.over_members``), in
 the dual step, the prior refit and the evaluation alike, eagerly. Parameters
 and Adam slots are stacked along a leading member axis; the Adam step counts
@@ -71,25 +72,21 @@ from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
 from structured_latent_odes_tpu_torch.train.driver import epoch_aux_mult, epoch_lr_scale
 from structured_latent_odes_tpu_torch.train.svi import (
     AdamSlots,
+    Dispatch,
     SVIState,
-    _resolve_dispatch,
-    _ts_key,
     advance_counts,
     bias_corrections,
     eval_seeds,
-    graphed_eval,
     make_dual_optimizer,
     make_stacked_dual_step,
     over_members,
     own_state,
-    own_tree,
     shared_adam_init,
     shared_adam_update,
     stacked_step_seeds,
     step_corrections,
     stepped_epoch,
 )
-from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
 from structured_latent_odes_tpu_torch.utils.profiling import span
 from structured_latent_odes_tpu_torch.utils.tree import tree_map
 
@@ -98,12 +95,6 @@ Tensor = torch.Tensor
 POLICIES = ("cvs", "proc", "proc_heldout", "challenge")
 # the batch entries that every member shares (no member axis)
 SHARED_KEYS = ("mask", "aux_mult", "lr_scale")
-
-# the CUDA graphs of the stacked dual step, of the members' val ELBO and of
-# the refit's update, each keyed by its recipe, member count and shapes
-_STEP_GRAPHS = BoundedMemo()
-_VAL_GRAPHS = BoundedMemo()
-_REFIT_GRAPHS = BoundedMemo()
 
 
 class EnsembleRunner(NamedTuple):
@@ -262,8 +253,7 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None, dis
     is captured once for each recipe and batch shape and replayed for every
     refit step (``refit.dispatch`` names the choice)."""
     device = ts.device
-    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
-    key = (spec, _ts_key(ts), float(lr), str(device), dispatch, reduce) if dispatch in ("cuda graph", "plain") else None
+    dispatch = Dispatch(dispatch, "refit", spec, ts, reduce, float(lr))
 
     def loss(params, seed, batch, noise=None):
         return elbo_main(spec, params, seed, batch, ts, noise=noise)[0]
@@ -307,15 +297,13 @@ def make_prior_refit_fn(spec: ModelSpec, ts: Tensor, lr: float, reduce=None, dis
                                      device).reshape(nb, len(seeds))
             rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
             with span("dispatch.train"):
-                state, _ = stepped_epoch(step, state, rows, step_seeds, corrections[r * nb:(r + 1) * nb],
+                state, _ = stepped_epoch(dispatch, step, state, rows, step_seeds, corrections[r * nb:(r + 1) * nb],
                                          dataclasses.replace(state.opt, count=counts[(r + 1) * nb]),
-                                         {"aux_mult": float(spec.aux_loss_multiplier)}, _REFIT_GRAPHS,
-                                         None if key is None else key + (len(seeds), shared_data),
-                                         dispatch == "plain")
-        return state.params if key is None else own_tree(state.params)
+                                         {"aux_mult": float(spec.aux_loss_multiplier)})
+        return dispatch.own(state.params)
 
     refit.update = update
-    refit.dispatch = dispatch
+    refit.dispatch = dispatch.name
     return refit
 
 
@@ -406,11 +394,8 @@ def make_ensemble_runner(
     prior_refit_fn = make_prior_refit_fn(spec, ts, lr, reduce, dispatch) if refit_epochs else None
     decay = float(np.float32(tail_ema_decay))
     keep = float(np.float32(1.0) - np.float32(tail_ema_decay))
-    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
-    plain = dispatch == "plain"
-    graphed = dispatch in ("cuda graph", "plain")
-    key = (spec, _ts_key(ts), str(device), dispatch, bool(shared_data), reduce) if graphed else None
-    own = own_tree if graphed else (lambda tree: tree)
+    dispatch = Dispatch(dispatch, "ensemble", spec, ts, reduce, bool(shared_data), int(num_particles), optimizer,
+                        float(lr), float(prior_lr_mult))
 
     @torch.no_grad()
     def evaluate(params, seeds, batch):
@@ -432,20 +417,18 @@ def make_ensemble_runner(
             seeds = stacked_step_seeds(state.seed, range(state.step, state.step + nb), num_particles, device)
             corrections, opt = step_corrections(optim, state.opt, nb, device)
             rows = [{**{k: v[:, i] for k, v in batches.items()}, "mask": mask[i]} for i in range(nb)]
-            return stepped_epoch(member_step, state, rows, seeds, corrections, opt, fills, _STEP_GRAPHS,
-                                 None if key is None else key + (len(state.seed), int(num_particles), optimizer,
-                                                                 float(lr), float(prior_lr_mult)), plain)
+            return stepped_epoch(dispatch, member_step, state, rows, seeds, corrections, opt, fills)
 
     def val_elbo_sums(params, seeds: Tensor, val_stack):
         """The val split's summed per-batch ELBOs (loss / n) per member, in
         batch order in float32 (the driver's eval_epoch), under eval seeds
         (S, 2)."""
         with span("dispatch.eval"):
-            if graphed:
-                return graphed_eval(_VAL_GRAPHS, key + (len(seeds),), val_body, params, seeds, val_stack, plain)
-            return val_body(params, seeds, val_stack)
+            x = {"params": params, "seeds": seeds, "batches": val_stack}
+            return dispatch.own(dispatch.runner("val", val_body, x, [seeds, val_stack])(x))
 
-    def val_body(params, seeds: Tensor, val_stack):
+    def val_body(x):
+        params, seeds, val_stack = x["params"], x["seeds"], x["batches"]
         dims = {k: None if shared_data else 0 for k in val_stack}
         rows = []
         for i in range(val_stack["mask"].shape[0 if shared_data else 1]):
@@ -529,7 +512,7 @@ def make_ensemble_runner(
                         crit, rule, rec = criterion(host[0], host[1] if needs_val else None, epoch)
                         improve = {"ties": best_c >= crit, "strict": crit < best_c, "always": np.ones(S, bool)}[rule]
                         if improve.all():
-                            best_p = own(state.params)
+                            best_p = dispatch.own(state.params)
                         elif improve.any():
                             best_p = _where(torch.as_tensor(improve, device=device), state.params, best_p)
                         best_c = np.where(improve, crit, best_c)
@@ -540,7 +523,7 @@ def make_ensemble_runner(
                             if epoch >= tail_ema_start:
                                 ema = tree_map(lambda e, p: decay * e + keep * p, ema, state.params)
                             else:
-                                ema = own(state.params)
+                                ema = dispatch.own(state.params)
             hist = {k: np.stack(v, axis=1) for k, v in hist.items()}  # (S, E, nb)
             out = (state, eval_seed_list, best_p, best_c, best_e)
             return (out + (ema,) if use_ema else out), hist
@@ -571,15 +554,15 @@ def make_ensemble_runner(
             if refit_perms is None:
                 raise ValueError("refit_epochs > 0 requires refit_perms")
             bp = refit(bp, eval_seed_list, train_splits, refit_perms, mask)
-        return EnsembleResult(own_state(state) if graphed else state, bp, bc, be, hist,
-                              carry[5] if use_ema else None)
+        # the run's own final state (at the end of a run, off the steps' path)
+        return EnsembleResult(own_state(state), bp, bc, be, hist, carry[5] if use_ema else None)
 
     def init_state(params, seed: int) -> SVIState:
         params = tree_map(lambda p: p.detach().clone(), params)
         return SVIState(params, optim.init(params), int(seed), 0)
 
     return EnsembleRunner(init_state, run, run_chunk, refit if refit_epochs else None, tail_ema=use_ema,
-                          init_carry=init_carry, finish=finish, dispatch=dispatch, train_epoch=train_epoch)
+                          init_carry=init_carry, finish=finish, dispatch=dispatch.name, train_epoch=train_epoch)
 
 
 def run_chunked(

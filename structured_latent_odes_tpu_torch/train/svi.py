@@ -21,10 +21,11 @@ and each of :func:`make_eval_fns`' functions (which serving's predict
 functions are) one call: the counterpart of the JAX package's jitted
 ``lax.scan`` epochs and eval functions. The graphs keep
 the state in buffers that each replay overwrites in place, as JAX's
-``donate_argnums=0`` donates the state; they are memoized in a
-``BoundedMemo`` (``utils/memo.py``), as the JAX package memoizes its jitted
-builders. :func:`stepped_epoch` and :func:`graphed_eval` are those epochs'
-machinery, which the ensemble runner (``train/ensemble.py``) shares.
+``donate_argnums=0`` donates the state; they are memoized in one memo
+(``utils/graphs.py``), as the JAX package memoizes its jitted functions.
+:class:`Dispatch` (each path's choice and its bodies' calls) and
+:func:`stepped_epoch` are that machinery, which the ensemble runner
+(``train/ensemble.py``) shares.
 
 Randomness: the state carries an integer seed and a step counter. Each step's
 main and aux draws are keyed by ``fold_seed(seed, step, 'main' | 'aux')``
@@ -55,8 +56,7 @@ from structured_latent_odes_tpu_torch.models.spec import ModelSpec
 from structured_latent_odes_tpu_torch.nn.ode_model import NOT_CAPTURABLE, solve_is_capturable, solve_is_per_member
 from structured_latent_odes_tpu_torch.ops.multi_adam import multi_adam
 from structured_latent_odes_tpu_torch.prob import fold_seed, l1_of_parts, seed_tensor
-from structured_latent_odes_tpu_torch.utils.graphs import Graph
-from structured_latent_odes_tpu_torch.utils.memo import BoundedMemo
+from structured_latent_odes_tpu_torch.utils.graphs import copy_in, counted, replayed, signature
 from structured_latent_odes_tpu_torch.utils.profiling import span
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -193,7 +193,7 @@ def shared_adam_update(grads, slots: AdamSlots, params, mask, lr, b1: float = 0.
     )
 
 
-shared_adam_update.leaves = 0
+counted(shared_adam_update, ints=("leaves",))
 
 
 def adam_plain(params, grads, mu, nu, lr, corrections, cols, scales, b1: float = 0.9, b2: float = 0.999,
@@ -327,10 +327,6 @@ def _same(tree):
     return tree
 
 
-def _device(state: SVIState) -> torch.device:
-    return tree_leaves(state.params)[0].device
-
-
 def make_dual_step(spec: ModelSpec, ts: Tensor, optim: DualOptimizer, num_particles: int = 1,
                    reduce: Optional[Callable] = None):
     """The sequential dual-loss SVI update: ``step(state, batch, noise=None,
@@ -380,7 +376,7 @@ def epoch_scalars(optim: DualOptimizer, state: SVIState, n_steps: int, num_parti
     particle seeds, :func:`stacked_step_seeds`), Adam's bias corrections,
     float32 ``(n_steps, 2, 2, L)`` (``optim.schedule``), and the optimizer
     state with the step counts after the last of those steps."""
-    device = _device(state)
+    device = tree_leaves(state.params)[0].device
     seeds = stacked_step_seeds([state.seed], range(state.step, state.step + n_steps), num_particles, device)
     corrections, opt = step_corrections(optim, state.opt, n_steps, device)
     return seeds.reshape(n_steps, 2, num_particles), corrections, opt
@@ -401,9 +397,28 @@ def _slots(opt):
     return [opt] if isinstance(opt, AdamSlots) else list(opt)
 
 
+def _state_tree(state: SVIState):
+    """The state's tensors as a tree: ``[params, [mu, nu] of each slot
+    set]``."""
+    return [state.params] + [[s.mu, s.nu] for s in _slots(state.opt)]
+
+
+def _counts(opt):
+    """Each slot set's step counts: the host part of the optimizer state."""
+    return [s.count for s in _slots(opt)]
+
+
+def _state_over(tree, counts, seed, step) -> SVIState:
+    """The state over the tensors of ``tree`` (:func:`_state_tree`'s layout)
+    with the step counts ``counts`` (:func:`_counts`; one slot set is the
+    shared optimizer's, two the split one's)."""
+    slots = [AdamSlots(mu, nu, c) for (mu, nu), c in zip(tree[1:], counts)]
+    return SVIState(tree[0], slots[0] if len(slots) == 1 else tuple(slots), seed, step)
+
+
 def _tensors(state: SVIState):
     """The state's tensors: the params, then each slot set's moments."""
-    return tree_leaves(state.params) + [t for s in _slots(state.opt) for t in tree_leaves(s.mu) + tree_leaves(s.nu)]
+    return tree_leaves(_state_tree(state))
 
 
 def own_tree(tree):
@@ -415,40 +430,12 @@ def own_tree(tree):
 def own_state(state: SVIState) -> SVIState:
     """A copy of the state's tensors, with its counts, seed and step: what a
     caller keeps of a state over a graph's buffers."""
-    opt = [AdamSlots(own_tree(s.mu), own_tree(s.nu), s.count) for s in _slots(state.opt)]
-    return SVIState(own_tree(state.params), opt[0] if isinstance(state.opt, AdamSlots) else tuple(opt),
-                    state.seed, state.step)
-
-
-def _with_counts(opt, counts_of):
-    """``opt``'s moments with the step counts of ``counts_of``."""
-    if isinstance(opt, AdamSlots):
-        return AdamSlots(opt.mu, opt.nu, counts_of.count)
-    return tuple(AdamSlots(s.mu, s.nu, c.count) for s, c in zip(opt, counts_of))
-
-
-def _copy_in(dst, src) -> None:
-    """Each ``src`` tensor into its ``dst`` buffer (skipping a buffer given
-    itself) as one multi-tensor copy: a graph's params are some 40 small
-    leaves, and a launch for each cost the host more than the replay (and,
-    as a captured step's write-back, the card a node each)."""
-    pairs = [(d, s) for d, s in zip(dst, src) if d is not s]
-    if pairs:
-        torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
-
-
-def _signature(batch):
-    """A batch's keys, shapes and dtypes."""
-    return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in sorted(batch.items()))
+    return _state_over(own_tree(_state_tree(state)), _counts(state.opt), state.seed, state.step)
 
 
 def _ts_key(ts: Tensor):
     a = ts.detach().cpu().numpy()
     return a.shape, str(a.dtype), a.tobytes()
-
-
-_TRAIN_GRAPHS = BoundedMemo()
-_EVAL_GRAPHS = BoundedMemo()
 
 
 def epoch_dispatch(spec: ModelSpec, device, reduce: Optional[Callable] = None) -> str:
@@ -473,86 +460,82 @@ def epoch_dispatch(spec: ModelSpec, device, reduce: Optional[Callable] = None) -
     return "cuda graph"
 
 
-def _resolve_dispatch(dispatch: Optional[str], spec: ModelSpec, device, reduce) -> str:
-    """A builder's ``dispatch``: None is :func:`epoch_dispatch`'s choice;
-    'eager' and 'plain' are taken as asked."""
-    if dispatch is None:
-        return epoch_dispatch(spec, device, reduce)
-    if dispatch not in ("eager", "plain"):
-        raise ValueError(f"unknown epoch dispatch {dispatch!r}: None, 'eager' or 'plain'")
-    return dispatch
+class Dispatch:
+    """How the bodies of one captured path run, decided once. ``dispatch`` None takes
+    :func:`epoch_dispatch`'s choice for the spec, the device of ``ts`` and
+    ``reduce``; 'eager' and 'plain' (a graph's plain version,
+    ``utils/graphs.py``: the CPU tests) are taken as asked. ``name`` is the
+    choice, which the CLIs print.
+
+    :meth:`runner` gives the call of a body ``body(inputs)``: the body
+    itself when eager, else its graph over buffers (``utils/graphs.py``'s
+    :class:`~structured_latent_odes_tpu_torch.utils.graphs.Replayed`),
+    memoized in the one memo under the path's name, its recipe (``spec``,
+    ``ts``, the device, the choice, ``reduce`` and ``recipe``), the body's
+    name and the signature of its data.
+    :meth:`own` is what a caller keeps of a body's outputs: a copy where
+    they are a graph's buffers, which its next call overwrites."""
+
+    def __init__(self, dispatch: Optional[str], path: str, spec: ModelSpec, ts: Tensor,
+                 reduce: Optional[Callable] = None, *recipe):
+        if dispatch is None:
+            dispatch = epoch_dispatch(spec, ts.device, reduce)
+        elif dispatch not in ("eager", "plain"):
+            raise ValueError(f"unknown epoch dispatch {dispatch!r}: None, 'eager' or 'plain'")
+        self.name, self.device = dispatch, ts.device
+        self.graphed = dispatch in ("cuda graph", "plain")
+        if self.graphed:
+            self.key = (path, spec, _ts_key(ts), str(ts.device), dispatch, reduce) + recipe
+
+    def runner(self, part, body: Callable, example, data) -> Callable:
+        """The call of ``body``, the path's body named ``part``, for
+        inputs shaped as ``example``; ``data`` is the part of them whose
+        shapes tell its graphs apart (the recipe pins the params')."""
+        if not self.graphed:
+            return body
+        return replayed(self.key + (part, signature(data)), body, example, self.device, plain=self.name == "plain")
+
+    def own(self, tree):
+        return own_tree(tree) if self.graphed else tree
 
 
-class _StepGraph:
-    """A step ``call(state, batch, seeds, corrections) -> (state, metrics)``
-    over buffers of the state, of one step's batch and of its seeds and
-    corrections, run by a :class:`Graph`: the captured step ends by writing
-    the new params and moments into the state's buffers, in place."""
-
-    def __init__(self, call, state: SVIState, batch, seeds: Tensor, corrections: Tensor, plain: bool):
-        self.state = own = own_state(state)
-        self.buffers = buffers = _tensors(own)
-        self.batch = batch = {k: torch.empty_like(v) for k, v in batch.items()}
-        self.seeds = seeds = torch.zeros_like(seeds)
-        self.corrections = corrections = torch.ones_like(corrections)
-
-        def body():  # refers to the buffers, not to self: an evicted graph is freed at once
-            new, metrics = call(own, batch, seeds, corrections)
-            _copy_in(buffers, _tensors(new))
-            return metrics
-
-        self.run = Graph(body, _device(state), plain=plain)
-
-    def epoch(self, state: SVIState, rows, seeds: Tensor, corrections: Tensor, opt, fills):
-        """The steps from ``state`` (copied into the buffers unless it is
-        them) over ``rows``; ``fills`` are filled into the batch once. Returns
-        the state over the buffers with ``opt``'s counts, and the metrics
-        stacked."""
-        _copy_in(self.buffers, _tensors(state))
-        for k, v in fills.items():
-            self.batch[k].fill_(v)
-        mets = None
-        for i, row in enumerate(rows):
-            for k, v in row.items():
-                self.batch[k].copy_(v)
-            self.seeds.copy_(seeds[i])
-            self.corrections.copy_(corrections[i])
-            m = self.run()
-            if mets is None:
-                mets = {k: v.new_empty((len(rows),) + v.shape) for k, v in m.items()}
-            for k, v in m.items():
-                mets[k][i].copy_(v)
-        return SVIState(self.state.params, _with_counts(self.state.opt, opt), state.seed, state.step + len(rows)), mets
-
-
-def stepped_epoch(call, state: SVIState, rows, seeds: Tensor, corrections: Tensor, opt, fills=None,
-                  graphs: Optional[BoundedMemo] = None, key=None, plain: bool = False):
+def stepped_epoch(dispatch: Dispatch, call, state: SVIState, rows, seeds: Tensor, corrections: Tensor, opt,
+                  fills=None):
     """The steps ``call(state, batch, seeds, corrections) -> (state,
     metrics)`` from ``state`` over ``rows`` (a list of batches, one a step),
     step i fed row i of ``seeds`` and of ``corrections``; ``fills`` holds the
     batch entries that are one host number for all the steps (float32 0-d).
-    Returns the state after the steps and each metric stacked over them.
+    Returns the state after the steps, with ``opt``'s step counts (the counts
+    after them, derived on the host), and each metric stacked over them.
 
-    With a ``key``, the step runs as a CUDA graph (``plain``: the graph's
-    plain version, ``utils/graphs.py``) captured once for ``key`` and the
-    batch's signature and memoized in ``graphs``; the state it returns is
-    over the graph's buffers, which the graph's next call overwrites, with
-    ``opt``'s step counts (the counts after the steps, derived on the host).
-    Without, the steps run eagerly and advance the counts themselves."""
-    fills = fills or {}
-    if key is None:
-        shared = {k: torch.tensor(v, dtype=torch.float32, device=_device(state)) for k, v in fills.items()}
-        mets = []
-        for i, row in enumerate(rows):
-            state, m = call(state, {**row, **shared}, seeds[i], corrections[i])
-            mets.append(m)
-        return state, {k: torch.stack([m[k] for m in mets]) for k in mets[0]}
-    example = {**rows[0], **{k: rows[0]["mask"].new_empty(()) for k in fills}}
-    graph_key = key + (_signature(example),)
-    graph = graphs.get(graph_key)
-    if graph is None:
-        graph = graphs[graph_key] = _StepGraph(call, state, example, seeds[0], corrections[0], plain)
-    return graph.epoch(state, rows, seeds, corrections, opt, fills)
+    As a graph (``dispatch``) the step is captured once for the batch's
+    signature and replayed for each row: the captured step ends by writing
+    the new params and moments into the state's buffers, in place, and the
+    state it returns is over those buffers, which the graph's next call
+    overwrites."""
+    shared = {k: torch.full((), v, dtype=torch.float32, device=dispatch.device) for k, v in (fills or {}).items()}
+    counts, seed, step = _counts(state.opt), state.seed, state.step  # the body holds no tensor of the caller's
+
+    def body(x):
+        new, metrics = call(_state_over(x["state"], counts, seed, step), x["batch"], x["seeds"], x["corrections"])
+        new = _state_tree(new)
+        if dispatch.graphed:  # the buffers take the new state
+            copy_in(x["state"], new)
+            new = x["state"]
+        return new, metrics
+
+    def inputs(tree, i: int):
+        return {"state": tree, "batch": {**rows[i], **shared}, "seeds": seeds[i], "corrections": corrections[i]}
+
+    first = inputs(_state_tree(state), 0)
+    run = dispatch.runner("step", body, first, first["batch"])
+    tree, mets = first["state"], None
+    for i in range(len(rows)):
+        tree, m = run(inputs(tree, i))
+        if mets is None:
+            mets = {k: v.new_empty((len(rows),) + v.shape) for k, v in m.items()}
+        copy_in({k: v[i] for k, v in mets.items()}, m)
+    return _state_over(tree, _counts(opt), state.seed, state.step + len(rows)), mets
 
 
 def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_particles: int = 1,
@@ -566,21 +549,18 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
     metrics stacked. ``ts`` is the time grid as a tensor on the device.
     ``reduce``: as for :func:`make_dual_step`.
 
-    ``dispatch`` picks how ``train_epoch`` runs: None as
+    ``dispatch`` picks how ``train_epoch`` runs (:class:`Dispatch`): None as
     :func:`epoch_dispatch` says; 'eager'; or 'plain', the captured path's
     buffers with the graph's plain version (``utils/graphs.py``; the CPU
     tests). ``train_epoch.dispatch`` names the choice. When it is the CUDA
     graph, the step is captured once for each recipe and batch shape and
-    memoized (``utils/memo.py``); ``train_epoch`` returns a state over the
-    graph's buffers, which the graph's next epoch overwrites, whoever calls
-    it: keep a clone of what must outlive it (JAX's donated state).
+    memoized; ``train_epoch`` returns a state over the graph's buffers, which
+    the graph's next epoch overwrites, whoever calls it: keep a clone of what
+    must outlive it (JAX's donated state).
     """
     optim = make_dual_optimizer(spec, params_example, lr, optimizer, prior_lr_mult=prior_lr_mult)
-    device = ts.device
-    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
-    graphed = dispatch in ("cuda graph", "plain")
-    key = (spec, _ts_key(ts), int(num_particles), optimizer, float(lr), float(prior_lr_mult), str(device),
-           dispatch, reduce) if graphed else None
+    dispatch = Dispatch(dispatch, "train", spec, ts, reduce, int(num_particles), optimizer, float(lr),
+                        float(prior_lr_mult))
 
     def init_state(params, seed: int) -> SVIState:
         params = tree_map(lambda p: p.detach().clone(), params)
@@ -596,10 +576,9 @@ def make_train_step(spec: ModelSpec, ts: Tensor, lr: float, params_example, num_
             n = batches["mask"].shape[0]
             seeds, corrections, opt = epoch_scalars(optim, state, n, num_particles)
             rows = [{k: v[i] for k, v in batches.items()} for i in range(n)]
-            return stepped_epoch(step, state, rows, seeds, corrections, opt, graphs=_TRAIN_GRAPHS, key=key,
-                                 plain=dispatch == "plain")
+            return stepped_epoch(dispatch, step, state, rows, seeds, corrections, opt)
 
-    train_epoch.dispatch = dispatch
+    train_epoch.dispatch = dispatch.name
     return init_state, train_step, train_epoch
 
 
@@ -724,9 +703,6 @@ def _without_noise(inputs):
     return {k: v for k, v in inputs.items() if not k.startswith(_NOISE)}, noise or None
 
 
-_EVAL_FN_GRAPHS = BoundedMemo()
-
-
 def make_eval_fns(spec: ModelSpec, ts: Tensor, dispatch: Optional[str] = None):
     """Eval-only functions: per-loss ELBO (SVI.evaluate_loss), classifier
     predictions, posterior/prior reconstruction. ``evaluate_losses(params,
@@ -745,37 +721,31 @@ def make_eval_fns(spec: ModelSpec, ts: Tensor, dispatch: Optional[str] = None):
     graph's buffers, replays it and returns copies of its outputs. The
     first call of each graph runs eagerly (``utils/graphs.py``)."""
     device = ts.device
-    dispatch = _resolve_dispatch(dispatch, spec, device, None)
-    graphed = dispatch in ("cuda graph", "plain")
-    key = (spec, _ts_key(ts), str(device), dispatch) if graphed else None
+    dispatch = Dispatch(dispatch, "eval_fns", spec, ts)
 
-    def losses(params, seed, inputs):
-        batch, noise = _without_noise(inputs)
+    def losses(x):
+        batch, noise = _without_noise(x["inputs"])
         noise = noise or {}
-        loss_m, _ = elbo_main(spec, params, fold_seed(seed, "main"), batch, ts, noise=noise.get("main"))
-        return loss_m, elbo_aux(spec, params, fold_seed(seed, "aux"), batch, noise=noise.get("aux"))
+        loss_m, _ = elbo_main(spec, x["params"], fold_seed(x["seed"], "main"), batch, ts, noise=noise.get("main"))
+        return loss_m, elbo_aux(spec, x["params"], fold_seed(x["seed"], "aux"), batch, noise=noise.get("aux"))
 
-    def labels(params, seed, inputs):
-        batch, noise = _without_noise(inputs)
-        return classifier(spec, params, seed, batch["observations"], batch.get("sample_id"), noise=noise)
+    def labels(x):
+        batch, noise = _without_noise(x["inputs"])
+        return classifier(spec, x["params"], x["seed"], batch["observations"], batch.get("sample_id"), noise=noise)
 
     def recons(is_post: bool):
-        def body(params, seed, inputs):
-            batch, noise = _without_noise(inputs)
-            return recon(spec, params, seed, batch, ts, is_post, noise=noise)
+        def body(x):
+            batch, noise = _without_noise(x["inputs"])
+            return recon(spec, x["params"], x["seed"], batch, ts, is_post, noise=noise)
         return body
 
     bodies = {"losses": losses, "classify": labels, ("recon", True): recons(True), ("recon", False): recons(False)}
 
     def run(name, params, seed, inputs):
-        if not graphed:
-            return bodies[name](params, seed, inputs)
-        if not isinstance(seed, Tensor):
+        if dispatch.graphed and not isinstance(seed, Tensor):  # a graph reads its seed from a buffer
             seed = seed_tensor([seed], device)[0]
-        # the buffers are plain tensors even where the caller runs in inference mode
-        with torch.inference_mode(False):
-            return graphed_eval(_EVAL_FN_GRAPHS, key + (name,), bodies[name], params, seed, inputs,
-                                plain=dispatch == "plain")
+        x = {"params": params, "seed": seed, "inputs": inputs}
+        return dispatch.own(dispatch.runner(name, bodies[name], x, inputs)(x))
 
     @torch.no_grad()
     def evaluate_losses(params, seed, batch, noise=None):
@@ -791,39 +761,8 @@ def make_eval_fns(spec: ModelSpec, ts: Tensor, dispatch: Optional[str] = None):
         return run(("recon", bool(is_post)), params, seed, _with_noise(batch, noise))
 
     for fn in (evaluate_losses, classify, reconstruct):
-        fn.dispatch = dispatch
+        fn.dispatch = dispatch.name
     return evaluate_losses, classify, reconstruct
-
-
-class _EvalGraph:
-    """An evaluation ``body(params, seeds, batches)`` over buffers of the
-    params, the stacked batches and the seeds, run by a :class:`Graph`."""
-
-    def __init__(self, body, params, seeds: Tensor, batches, plain: bool):
-        device = tree_leaves(params)[0].device
-        self.params = own = own_tree(params)
-        self.batches = stack = {k: v.clone() for k, v in batches.items()}
-        self.seeds = buf = torch.zeros_like(seeds)
-        self.run = Graph(lambda: body(own, buf, stack), device, plain=plain)  # no reference to self
-
-    def __call__(self, params, seeds: Tensor, batches):
-        _copy_in(tree_leaves(self.params), tree_leaves(params))
-        _copy_in([self.batches[k] for k in sorted(self.batches)], [batches[k] for k in sorted(batches)])
-        self.seeds.copy_(seeds)
-        return tree_map(torch.clone, self.run())
-
-
-def graphed_eval(graphs: BoundedMemo, key, body, params, seeds: Tensor, batches, plain: bool = False):
-    """``body(params, seeds, batches)``, a tree of tensors, as a CUDA graph
-    (``plain``: its plain version) captured once for ``key`` and the
-    batches' signature and memoized in ``graphs``: a call copies the params,
-    the seeds and the batches into the graph's buffers and replays it.
-    Returns the tree, copied out of the graph."""
-    graph_key = key + (_signature(batches),)
-    graph = graphs.get(graph_key)
-    if graph is None:
-        graph = graphs[graph_key] = _EvalGraph(body, params, seeds, batches, plain)
-    return graph(params, seeds, batches)
 
 
 def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = None, dispatch: Optional[str] = None):
@@ -847,10 +786,8 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
     and mode)."""
     evaluate_losses, classify, reconstruct = make_eval_fns(spec, ts, dispatch="eager")  # inside this graph
     device = ts.device
-    dispatch = _resolve_dispatch(dispatch, spec, device, reduce)
+    dispatch = Dispatch(dispatch, "eval_epoch", spec, ts, reduce)
     reduce = reduce or _same
-    graphed = dispatch in ("cuda graph", "plain")
-    key = (spec, _ts_key(ts), str(device), dispatch, reduce) if graphed else None
 
     @torch.no_grad()
     def body(params, seeds: Tensor, batches, is_post: bool):
@@ -881,11 +818,10 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
 
     def eval_epoch(params, seed, batches, is_post: bool):
         with span("dispatch.eval"):
-            seeds = seed_tensor(eval_seeds(seed), device)
-            if not graphed:
-                return body(params, seeds, batches, is_post)
-            return graphed_eval(_EVAL_GRAPHS, key + (bool(is_post),), lambda p, s, b: body(p, s, b, is_post),
-                                params, seeds, batches, plain=dispatch == "plain")
+            x = {"params": params, "seeds": seed_tensor(eval_seeds(seed), device), "batches": batches}
+            run = dispatch.runner(bool(is_post), lambda x: body(x["params"], x["seeds"], x["batches"], is_post), x,
+                                  batches)
+            return dispatch.own(run(x))
 
-    eval_epoch.dispatch = dispatch
+    eval_epoch.dispatch = dispatch.name
     return eval_epoch

@@ -454,7 +454,7 @@ def test_semilinear_auto_launches_the_path_it_picks(cuda):
 @pytest.mark.parametrize("per_row", [False, True], ids=["batchwide", "per_sample"])
 def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
     """The adaptive solvers on the card replay a CUDA graph of a loop trip
-    from the third trip on (ode/solvers.py::_Trip): the same operations as
+    from the third trip on (ode/solvers.py, a Replayed): the same operations as
     the trips run eagerly, so the solve, its trip count and its accepted
     steps are bit for bit those of an eager solve; and so are the adaptive
     adjoint's gradients (the augmented system's trips, each stage a
@@ -469,14 +469,12 @@ def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
     ts = torch.arange(12.0, device=cuda)
 
     def run(graphs: bool):
-        warm = solvers._Trip.__init__
+        made = solvers.Replayed
 
-        def init(self, trip, device):
-            warm(self, trip, device)
-            if not graphs:
-                self.plain = True
+        def trip(body, example, device, plain=False, warm=1):
+            return made(body, example, device, plain=plain or not graphs, warm=warm)
 
-        solvers._Trip.__init__ = init
+        solvers.Replayed = trip
         try:
             counter = solvers.odeint_adaptive_per_sample.trips if per_row else solvers.odeint_adaptive.trips
             before = dict(counter)
@@ -487,7 +485,7 @@ def test_adaptive_trip_graph_replays_match_eager_trips(cuda, per_row):
             torch.cuda.synchronize()
             return out.detach(), grads, {k: counter[k] - before.get(k, 0) for k in ("trips", "accepted")}
         finally:
-            solvers._Trip.__init__ = warm
+            solvers.Replayed = made
 
     out, grads, trips = run(True)
     ref, ref_grads, ref_trips = run(False)
@@ -911,6 +909,28 @@ def test_failed_capture_raises_on_card(cuda):
         graph()
     assert graph.graph is None
     torch.cuda.synchronize()
+
+
+def test_counted_wrapper_keeps_its_counts_through_replays_on_card(cuda):
+    """A wrapper registered with ``utils/graphs.py::counted`` and called in
+    a graph's body counts what an eager run would: the warm-up call counts
+    itself, the capture counts nothing and each replay adds what the
+    capture counted, its variants alike."""
+    from structured_latent_odes_tpu_torch.utils import graphs
+
+    def wrapper(x):
+        graphs.count(wrapper, ("double", x.numel()))
+        return x * 2.0
+
+    graphs.counted(wrapper, variants=True)
+    buf = torch.ones(4, device=cuda)
+    graph = graphs.Graph(lambda: {"y": wrapper(buf)}, cuda)
+    replays = graphs.Graph.replays
+    for _ in range(5):
+        out = graph()
+    torch.cuda.synchronize()
+    assert graphs.Graph.replays - replays == 4 and torch.equal(out["y"], buf * 2.0)
+    assert wrapper.launches == 5 and dict(wrapper.variants) == {("double", 4): 5}
 
 
 def test_graph_records_warm_capture_then_replays_on_card(cuda):

@@ -41,6 +41,7 @@ from structured_latent_odes_tpu_torch.data.loader import full_batch, stacked_min
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
 from structured_latent_odes_tpu_torch.train import driver, svi
+from structured_latent_odes_tpu_torch.utils.graphs import GRAPHS, graphs_of
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 from test_torch_slode_workloads import _SPLITS, N_TIME, _draws, _jax_params, _port, _rows, _specs
@@ -88,9 +89,9 @@ def _equal(a, b) -> bool:
 
 @pytest.fixture(autouse=True)
 def fresh_memo():
-    svi._EVAL_FN_GRAPHS.clear()
+    GRAPHS.clear()
     yield
-    svi._EVAL_FN_GRAPHS.clear()
+    GRAPHS.clear()
 
 
 def test_predict_fns_plain_graphs_equal_eager():
@@ -112,7 +113,7 @@ def test_predict_fns_plain_graphs_equal_eager():
                     assert _equal(plain[0](params, seed, batch, is_post), want), (seed, is_post)
                 assert _equal(plain[1](params, seed, batch["observations"]),
                               eager[1](params, seed, batch["observations"]))
-    assert len(svi._EVAL_FN_GRAPHS) == 6  # (post, prior, classify) x two shapes
+    assert len(graphs_of("eval_fns")) == 6  # (post, prior, classify) x two shapes
 
 
 def test_predict_fns_first_request_in_inference_mode():
@@ -149,8 +150,9 @@ def test_eval_fns_plain_graphs_equal_eager(wl):
             assert _equal(plain[1](params, call, batch), eager[1](params, seed, batch))
             for is_post in (True, False):
                 assert _equal(plain[2](params, call, batch, is_post), eager[2](params, seed, batch, is_post))
-    graphs = list(svi._EVAL_FN_GRAPHS._d.values())
-    assert len(graphs) == 4 and all(g.seeds.shape == () and g.seeds.dtype == torch.int64 for g in graphs)
+    graphs = list(graphs_of("eval_fns").values())
+    assert len(graphs) == 4 and all(g.inputs["seed"].shape == () and g.inputs["seed"].dtype == torch.int64
+                                    for g in graphs)
 
 
 @pytest.mark.parametrize("wl", WORKLOADS)

@@ -18,6 +18,9 @@ version (``utils/graphs.py``), train exactly as the eager path.
 - :func:`svi.epoch_dispatch` for every backend, with and without ranks, on
   the CPU and on a CUDA device; a capture on the CPU raises; a graph evicted
   from its memo is freed at once, without the garbage collector.
+- A kernel wrapper registered with ``utils/graphs.py::counted`` keeps its
+  counts through a graph's plain version (``tests/test_torch_gpu.py``: a
+  replay on the card).
 """
 
 import gc
@@ -38,7 +41,8 @@ from structured_latent_odes_tpu_torch.models import cvs_spec, elbo_main, init_pa
 from structured_latent_odes_tpu_torch.nn.ode_model import solve_is_capturable
 from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor, standard_normal_ps
 from structured_latent_odes_tpu_torch.train import driver, svi
-from structured_latent_odes_tpu_torch.utils.graphs import Graph
+from structured_latent_odes_tpu_torch.utils import graphs
+from structured_latent_odes_tpu_torch.utils.graphs import GRAPHS, Graph, graphs_of
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 from test_torch_svi import LR, T, _assert_state_close, _port, _specs, _split, _step_noise
@@ -226,13 +230,12 @@ def test_evicted_graphs_are_freed_at_once():
     eval_epoch = svi.make_eval_epoch(spec, ts, dispatch="plain")
     epoch(init_state(params, 1), driver.device_batch(_stack(8), "cpu"))
     eval_epoch(params, 2, driver.device_batch(_stack(6), "cpu"), True)
-    refs = [weakref.ref(g) for memo in (svi._TRAIN_GRAPHS, svi._EVAL_GRAPHS) for g in memo._d.values()]
+    refs = [weakref.ref(g) for path in ("train", "eval_epoch") for g in graphs_of(path).values()]
     assert len(refs) >= 2
     collecting = gc.isenabled()
     gc.disable()
     try:
-        svi._TRAIN_GRAPHS.clear()
-        svi._EVAL_GRAPHS.clear()
+        GRAPHS.clear()
         assert all(r() is None for r in refs)
     finally:
         if collecting:
@@ -278,3 +281,25 @@ def test_capture_on_the_cpu_raises():
     _, pspec = _specs()
     with pytest.raises(ValueError, match="dispatch"):
         svi.make_train_step(pspec, torch.arange(float(T)), LR, init_params(pspec, 0, device="cpu"), dispatch="graph")
+
+
+def test_counted_wrapper_keeps_its_counts_on_the_plain_graph():
+    """A wrapper registered with ``counted`` starts its counters at zero and
+    is among those a capture reads; called inside a graph's plain version
+    (a :class:`graphs.Replayed` over buffers), its launches and variants
+    count each call, as an eager call does."""
+    def wrapper(x, variant):
+        graphs.count(wrapper, variant)
+        wrapper.leaves += x.numel()
+        return x + 1.0
+
+    assert graphs.counted(wrapper, ints=("launches", "leaves"), variants=True) is wrapper
+    assert wrapper.launches == wrapper.leaves == 0 and not wrapper.variants
+    run = graphs.Replayed(lambda x: {"y": wrapper(x["x"], ("a", 3))}, {"x": torch.zeros(3)}, "cpu", plain=True)
+    for i in range(3):
+        assert torch.equal(run({"x": torch.full((3,), float(i))})["y"], torch.full((3,), i + 1.0))
+    wrapper(torch.zeros(2), ("b", 2))
+    assert (wrapper.launches, wrapper.leaves, dict(wrapper.variants)) == (4, 11, {("a", 3): 3, ("b", 2): 1})
+    counts = graphs._counts()
+    assert counts[wrapper, "launches"] == 4 and counts[wrapper, "leaves"] == 11
+    assert counts[wrapper, "variants", ("a", 3)] == 3

@@ -34,6 +34,7 @@ from structured_latent_odes_tpu_torch.data.configs import load_cvs_config
 from structured_latent_odes_tpu_torch.models import cvs_spec, init_params
 from structured_latent_odes_tpu_torch.train import ensemble as ens
 from structured_latent_odes_tpu_torch.train import svi
+from structured_latent_odes_tpu_torch.utils.graphs import graphs_of
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 from test_torch_ensemble import T, _config, _ensemble, _splits
@@ -97,7 +98,7 @@ def test_chunked_plain_matches_one_dispatch():
 def test_second_run_leaves_the_first_result_and_captures_nothing(policy, refit_epochs):
     """Two runs of other seeds on the same memoized graphs (the step, the val
     ELBO and the refit's update): the first run's result, kept aside, is
-    unchanged after the second, which adds no graph to the memos. Without a
+    unchanged after the second, which adds no graph to the memo. Without a
     refit, at challenge, both members' best params are the last epoch's:
     the run's own copy of them, not the graph's buffers."""
     kw = dict(FULL, refit_epochs=refit_epochs)
@@ -108,11 +109,15 @@ def test_second_run_leaves_the_first_result_and_captures_nothing(policy, refit_e
     kept = ens.EnsembleResult(svi.own_state(first.state), svi.own_tree(first.best_params), first.best_crit.copy(),
                               first.best_epoch.copy(), {k: v.copy() for k, v in first.history.items()},
                               svi.own_tree(first.ema_params))
-    memos = [ens._STEP_GRAPHS] + [ens._VAL_GRAPHS] * (policy == "cvs") + [ens._REFIT_GRAPHS] * bool(refit_epochs)
-    graphs = [set(m._d) for m in memos]
+    def keys():  # the graphs of the stacked step, of the val ELBO and of the refit's update
+        runner = graphs_of("ensemble")
+        parts = [{k for k in runner if k[-2] == part} for part in ["step"] + ["val"] * (policy == "cvs")]
+        return parts + [set(graphs_of("refit"))] * bool(refit_epochs)
+
+    graphs = keys()
     assert all(graphs)
     second = _ensemble(config, _splits(), [5, 6], policy, dispatch="plain", **kw)
-    assert [set(m._d) for m in memos] == graphs
+    assert keys() == graphs
     _assert_results_equal(first, kept)
     assert not torch.equal(tree_leaves(first.state.params)[0], tree_leaves(second.state.params)[0])
 
@@ -158,7 +163,7 @@ def test_runner_dispatch(backend, monkeypatch):
 
     with FakeTensorMode():
         cuda_ts = torch.arange(float(T), device="cuda")
-    monkeypatch.setattr(ens, "_ts_key", lambda ts: ())  # a fake tensor has no values to key on
+    monkeypatch.setattr(svi, "_ts_key", lambda ts: ())  # a fake tensor has no values to key on
     cpu_ts, reduce = torch.arange(float(T)), (lambda tree: tree)
     for ts in (cpu_ts, cuda_ts):
         assert dispatch(ts) == svi.epoch_dispatch(spec, ts.device)

@@ -55,3 +55,32 @@ def test_port_never_imports_jax_or_the_jax_package():
                 "native", "utils.profiling", "utils.plotting", "eval.figures", "parallel", "parallel.mesh",
                 "parallel.launch", "parallel.train", "parallel.timepar", "utils.memo", "utils.graphs"}
     assert {f"structured_latent_odes_tpu_torch.{m}" for m in training} <= walked
+
+
+def test_utils_import_no_layer_above_them():
+    """No module under the port's ``utils/`` imports ``ops``, ``train``,
+    ``models``, ``nn`` or ``prob`` (read from every import statement of the
+    sources, those inside functions too): the lowest layer knows none of its
+    callers, and a kernel registers its counters with ``utils/graphs.py``
+    from below."""
+    import ast
+
+    above = {f"structured_latent_odes_tpu_torch.{m}" for m in ("ops", "train", "models", "nn", "prob")}
+    utils = os.path.join(REPO, "structured_latent_odes_tpu_torch", "utils")
+    found = []
+    for name in sorted(os.listdir(utils)):
+        if not name.endswith(".py"):
+            continue
+        with open(os.path.join(utils, name)) as f:
+            tree = ast.parse(f.read())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                modules = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                base = "structured_latent_odes_tpu_torch.utils" if node.level else ""
+                modules = [f"{base}.{node.module}" if base and node.module else node.module or base]
+                modules += [f"{modules[0]}.{a.name}" for a in node.names]
+            else:
+                continue
+            found += [(name, m) for m in modules if any(m == a or m.startswith(a + ".") for a in above)]
+    assert not found, found

@@ -60,13 +60,12 @@ def test_leaving_a_group_first_drops_every_memo(monkeypatch):
     graph they hold, whose collectives may use the group) before it
     destroys the process group."""
     from structured_latent_odes_tpu_torch.parallel import launch
-    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.utils.graphs import GRAPHS
 
     mine = BoundedMemo()
     mine["step"] = object()
-    svi._EVAL_FN_GRAPHS["fn"] = object()
+    GRAPHS["fn"] = object()
     seen = []
-    monkeypatch.setattr(launch.dist, "destroy_process_group",
-                        lambda: seen.append((len(mine), len(svi._EVAL_FN_GRAPHS))))
+    monkeypatch.setattr(launch.dist, "destroy_process_group", lambda: seen.append((len(mine), len(GRAPHS))))
     launch._leave_group()
     assert seen == [(0, 0)]
