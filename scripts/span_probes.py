@@ -17,9 +17,8 @@
 - ``replays``: one run of a benchmark cell as ``port_bench/run.py`` runs it,
   with a CUDA event pair around every graph replay (the device's time from a
   replay's first operation to its last, the gaps between its kernels
-  included) and each eval statistics read timed alone; after the result
-  line, the window's replay device time, reads and spans' self time per
-  epoch. Needs a card.
+  included); after the result line, the window's replay device time and
+  spans' self time per epoch. Needs a card.
 
 Each prints one JSON line. Imports nothing of JAX.
 """
@@ -129,10 +128,9 @@ def annotation() -> dict:
 
 def replays(argv) -> dict:
     from port_bench import harness
-    from structured_latent_odes_tpu_torch.train import driver
     from structured_latent_odes_tpu_torch.utils import graphs
 
-    pairs, reads = [], []  # (host time, start event, end event); (host time, each read's seconds)
+    pairs = []  # (host time, start event, end event)
     graph_call = graphs.Graph.__call__
 
     def timed_call(self):
@@ -145,19 +143,6 @@ def replays(argv) -> dict:
         pairs.append((time.perf_counter(), a, b))
         return out
 
-    def timed_stats(spec, fused):
-        tensors = [fused["n"], fused["elbo_main"], fused["elbo_aux"], fused["l1"]] + list(fused["labels"].values())
-        vals, took = [], []
-        for v in tensors:
-            t = time.perf_counter()
-            vals.append(float(v))
-            took.append(time.perf_counter() - t)
-        reads.append((time.perf_counter(), took))
-        n = max(vals[0], 1.0)
-        return driver.EvalStats(elbo=vals[1:3], l1=vals[3] / n,
-                                label_metrics={k: v / n for k, v in zip(fused["labels"], vals[4:])},
-                                recon={}, labels={}, observations=np.zeros(0))
-
     finish, out = harness.finish, {}
 
     def probed_finish(run, bench):
@@ -165,7 +150,6 @@ def replays(argv) -> dict:
         torch.cuda.synchronize()
         a, b, e = run.ticks[0], run.ticks[-1], run.work["epochs"]
         ms = [x.elapsed_time(y) for t, x, y in pairs if a <= t <= b]
-        rd = [r for t, r in reads if a <= t <= b]
         by = {}
         for name, _, end, _, own in SPANS:
             if a * 1e9 <= end <= b * 1e9:
@@ -173,13 +157,10 @@ def replays(argv) -> dict:
         out.update(cell=run.cell, seed=run.seed, epochs=e, window_ms_per_epoch=1e3 * (b - a) / e,
                    replays_per_epoch=len(ms) / e, replay_device_ms_per_epoch=sum(ms) / e,
                    replay_device_ms_median=float(np.median(ms)) if ms else None,
-                   first_read_ms_per_epoch=1e3 * sum(r[0] for r in rd) / e,
-                   other_reads_ms_per_epoch=1e3 * sum(sum(r[1:]) for r in rd) / e,
                    span_self_ms_per_epoch=dict(sorted(by.items())))
         return rc
 
     graphs.Graph.__call__ = timed_call
-    driver._stats_from_fused = timed_stats
     harness.finish = probed_finish
     os.chdir(ROOT)
     rc = harness.main(argv, T0)

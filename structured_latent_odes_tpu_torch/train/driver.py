@@ -14,7 +14,7 @@ import logging
 import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,18 +157,30 @@ def plots_due(config, epoch: int) -> bool:
     return bool(config.get("plot", True) and config.get("plot_epoch") and epoch % config.plot_epoch == 0)
 
 
-def _stats_from_fused(spec: ModelSpec, fused) -> EvalStats:
-    """EvalStats (without recon payloads) from an ``eval_epoch`` result."""
-    with span("wait.eval"):
-        n = max(float(fused["n"]), 1.0)
-        return EvalStats(
-            elbo=[float(fused["elbo_main"]), float(fused["elbo_aux"])],
-            l1=float(fused["l1"]) / n,
-            label_metrics={k: float(v) / n for k, v in fused["labels"].items()},
-            recon={},
-            labels={},
-            observations=np.zeros(0),
-        )
+def read_epoch(mets, evals) -> Tuple[List[List[float]], List[EvalStats]]:
+    """The epoch's one read, made once everything it reads is queued: the
+    per-step losses of ``train_epoch``'s metrics ``mets`` and, of each
+    ``eval_epoch`` result in ``evals``, n, the two ELBOs, the L1 sum and
+    each label's sum, cast to float64 (exact for float32 and for counts)
+    and copied to the host together. Returns the losses, ``[main, aux]`` a
+    step, and an EvalStats (without recon payloads) a result, whose label
+    metrics keep the result's order of labels."""
+    with span("wait.epoch"):
+        losses = torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1)
+        parts = [losses] + [t for fused in evals for t in (fused["n"], fused["elbo_main"], fused["elbo_aux"],
+                                                           fused["l1"], *fused["labels"].values())]
+        host = torch.cat([t.reshape(-1).to(torch.float64) for t in parts]).cpu().tolist()
+    epoch_losses = [host[i:i + 2] for i in range(0, losses.numel(), 2)]
+    stats, at = [], losses.numel()
+    for fused in evals:
+        n, elbo_main, elbo_aux, l1 = host[at:at + 4]
+        sums = host[at + 4:at + 4 + len(fused["labels"])]
+        at += 4 + len(sums)
+        n = max(n, 1.0)
+        stats.append(EvalStats(elbo=[elbo_main, elbo_aux], l1=l1 / n,
+                               label_metrics={k: v / n for k, v in zip(fused["labels"], sums)},
+                               recon={}, labels={}, observations=np.zeros(0)))
+    return epoch_losses, stats
 
 
 def run_training_epochs(
@@ -223,11 +235,15 @@ def run_training_epochs(
     second epoch run, or the only one) is traced (``utils/profiling.trace``),
     the whole of it, with its phases' spans.
 
+    An epoch launches ``train_epoch`` and its eval epochs before the host
+    reads anything of them, then reads the losses and the statistics in one
+    copy (:func:`read_epoch`), so the card runs the epoch's work without
+    draining between its phases.
+
     Each epoch is a span, ``entry.epoch`` (``utils/profiling.py``), and so
     is each of its phases: ``entry.batches`` (the shuffle and stacking),
-    ``entry.put``, ``dispatch.train`` (``train_epoch``), ``wait.losses``
-    (the losses' copy to the host), per eval epoch ``dispatch.eval`` and
-    ``wait.eval`` (its statistics' reads), ``entry.plot``,
+    ``entry.put``, ``dispatch.train`` (``train_epoch``), per eval epoch
+    ``dispatch.eval``, ``wait.epoch`` (the one read), ``entry.plot``,
     ``entry.select`` (the policy and the best params' copy),
     ``entry.checkpoint`` and ``entry.log`` (the epoch line and
     ``on_epoch``).
@@ -266,10 +282,10 @@ def run_training_epochs(
         start_epoch = meta["epoch"] + 1
         print(f"resumed from {checkpoint_path} at epoch {start_epoch}")
 
-    def split_stats(params, seed, name: str, is_post: bool) -> EvalStats:
+    def split_eval(params, seed, name: str, is_post: bool):
         if name not in eval_stacks:
             eval_stacks[name] = put(stacked_minibatches(splits[name], batch_size, shuffle=False))
-        return _stats_from_fused(spec, eval_epoch(params, seed, eval_stacks[name], is_post))
+        return eval_epoch(params, seed, eval_stacks[name], is_post)
 
     def one_epoch(epoch: int, state: SVIState, best: Dict):
         with span("entry.batches"):
@@ -284,10 +300,9 @@ def run_training_epochs(
         with span("entry.put"):
             batches = put(batches)
         state, mets = train_epoch(state, batches)
-        with span("wait.losses"):
-            epoch_losses = torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1).cpu().tolist()
 
         if eval_every > 1 and epoch % eval_every and epoch != config.num_epochs:
+            epoch_losses, _ = read_epoch(mets, [])
             with span("entry.log"):
                 epoch_mean_loss = float(np.mean(epoch_losses)) if epoch_losses else float("nan")
                 line = "[Epoch %d/%d] loss= %.4f  [%.1fs]" % (
@@ -300,13 +315,12 @@ def run_training_epochs(
 
         k1, k2, k3, k4 = (fold_seed(eval_seed, epoch, name) for name in
                           ("val_post", "val_prior", "train_post", "train_prior"))
-        val_post = split_stats(state.params, k1, "val", True)
-        val_prior = split_stats(state.params, k2, "val", False)
+        evals = [split_eval(state.params, k1, "val", True), split_eval(state.params, k2, "val", False)]
         if eval_train_stats:
-            train_post = split_stats(state.params, k3, "train", True)
-            train_prior = split_stats(state.params, k4, "train", False)
-        else:
-            train_post = train_prior = val_post
+            evals += [split_eval(state.params, k3, "train", True), split_eval(state.params, k4, "train", False)]
+        epoch_losses, stats = read_epoch(mets, evals)
+        val_post, val_prior, *train_stats = stats
+        train_post, train_prior = train_stats or (val_post, val_post)
         plot_post, plot_prior = val_post, val_prior
         if on_epoch is not None and plots_due(config, epoch):
             # the recon payloads the plots draw, with the seeds of the

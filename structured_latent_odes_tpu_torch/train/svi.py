@@ -139,7 +139,7 @@ def _bias_correction(b: float, count: int) -> float:
 def advance_counts(count, mask):
     """The step counts after an update: one more on each leaf that ``mask``
     steps."""
-    return tree_map(lambda c, mk: c + 1 if mk else c, count, mask)
+    return tree_unflatten(count, _advanced(tree_leaves(count), tree_leaves(mask)))
 
 
 def bias_corrections(count, mask, b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
@@ -147,11 +147,21 @@ def bias_corrections(count, mask, b1: float = 0.9, b2: float = 0.999) -> np.ndar
     the leaves in ``tree_leaves`` order: ``1 - b1**c`` and ``1 - b2**c`` at
     the count c that the update gives each leaf ``mask`` steps, 1 on the
     others (which the update leaves)."""
-    out = np.ones((2, len(tree_leaves(count))), np.float32)
-    for i, (c, mk) in enumerate(zip(tree_leaves(count), tree_leaves(mask))):
-        if mk:
-            out[:, i] = _bias_correction(b1, c + 1), _bias_correction(b2, c + 1)
-    return out
+    return _corrections(tree_leaves(count), tree_leaves(mask), b1, b2)
+
+
+def _corrections(counts, mask, b1: float = 0.9, b2: float = 0.999) -> np.ndarray:
+    """:func:`bias_corrections` of the leaves' counts and mask flags as
+    lists, each distinct count's powers computed once."""
+    stepped = {c for c, mk in zip(counts, mask) if mk}
+    at = {c: (_bias_correction(b1, c + 1), _bias_correction(b2, c + 1)) for c in stepped}
+    return np.array([[at[c][k] if mk else 1.0 for c, mk in zip(counts, mask)] for k in (0, 1)], np.float32)
+
+
+def _advanced(counts, mask):
+    """:func:`advance_counts` on lists of the leaves' counts and mask
+    flags."""
+    return [c + 1 if mk else c for c, mk in zip(counts, mask)]
 
 
 def shared_adam_update(grads, slots: AdamSlots, params, mask, lr, b1: float = 0.9,
@@ -235,11 +245,17 @@ def make_dual_optimizer(spec: ModelSpec, params_example, lr: float, mode: str = 
                                           corrections=corrections)
             return fn
 
+        main_flags, aux_flags = tree_leaves(main_mask), tree_leaves(aux_mask)
+
         def schedule(slots: AdamSlots):
-            main = bias_corrections(slots.count, main_mask)
-            count = advance_counts(slots.count, main_mask)
-            aux = bias_corrections(count, aux_mask)
-            return np.stack([main, aux]), AdamSlots(slots.mu, slots.nu, advance_counts(count, aux_mask))
+            # one walk of the counts' tree a step: the host's schedule of an
+            # epoch's steps runs while the card waits for their first launch
+            counts = tree_leaves(slots.count)
+            main = _corrections(counts, main_flags)
+            counts = _advanced(counts, main_flags)
+            aux = _corrections(counts, aux_flags)
+            count = tree_unflatten(slots.count, _advanced(counts, aux_flags))
+            return np.stack([main, aux]), AdamSlots(slots.mu, slots.nu, count)
 
         return DualOptimizer(init=shared_adam_init, update_main=update(main_mask), update_aux=update(aux_mask),
                              schedule=schedule)
@@ -778,7 +794,9 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
     summed over the ranks in one collective, and each batch's ratios are
     taken from the sums.
 
-    The three eval seeds reach the device as one int64 tensor. ``dispatch``
+    The three eval seeds reach the device as one int64 tensor, on a card
+    from pinned memory without a stream sync: a call waits for none of the
+    work queued before it. ``dispatch``
     as for :func:`make_train_step`: as a CUDA graph each (split shape,
     ``is_post``) is captured once and memoized, and a call copies the
     params, the split and the seeds into the graph's buffers and replays
@@ -816,9 +834,16 @@ def make_eval_epoch(spec: ModelSpec, ts: Tensor, reduce: Optional[Callable] = No
             sums = one if sums is None else tree_map(torch.add, sums, one)
         return sums
 
+    def seeds_on_device(seed: int) -> Tensor:
+        if device.type != "cuda":
+            return seed_tensor(eval_seeds(seed), device)
+        # a pageable copy would sync the stream; the pinned block is not
+        # reused before the copy ends (the caching host allocator's event)
+        return seed_tensor(eval_seeds(seed)).pin_memory().to(device, non_blocking=True)
+
     def eval_epoch(params, seed, batches, is_post: bool):
         with span("dispatch.eval"):
-            x = {"params": params, "seeds": seed_tensor(eval_seeds(seed), device), "batches": batches}
+            x = {"params": params, "seeds": seeds_on_device(seed), "batches": batches}
             run = dispatch.runner(bool(is_post), lambda x: body(x["params"], x["seeds"], x["batches"], is_post), x,
                                   batches)
             return dispatch.own(run(x))

@@ -23,7 +23,8 @@ checkpoint is bit for bit the uninterrupted run, and the profiler trace of
 an epoch names K2's and K3's kernels among its device events. The training
 and eval epochs replayed as CUDA graphs are bit for bit the eager ones, with
 the same launches, and so are a sweep's (the stacked step, the val ELBO,
-the prior refit); the trainers replay graphs; a capture that fails raises;
+the prior refit); an epoch's step replays and eval epochs queue without a
+synchronizing call; the trainers replay graphs; a capture that fails raises;
 a graph's eager first call, its capture and its replays are spans.
 Serving's predict functions and the eval functions (the final test
 evaluation, the sample bands) replayed are bit for bit the eager ones.
@@ -844,6 +845,67 @@ def test_epochs_replay_bit_for_bit_eager_on_card(cuda, tiny_cvs, backend):
         for _ in range(2):
             got = graph_eval(s_e.params, 9, stack, is_post)
             assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
+
+
+def test_an_epoch_queues_with_no_sync_on_card(cuda, tiny_cvs, monkeypatch):
+    """Once the step and eval graphs are captured, a graphed ``train_epoch``
+    from its first step replay on and the driver's four eval epochs make no
+    synchronizing call (``set_sync_debug_mode("error")``; the epoch's step
+    seeds and corrections are copied before its first replay, when the card
+    has nothing queued), and each eval epoch's result is bit for bit its
+    graph's at the eval seeds copied the blocking way."""
+    from structured_latent_odes_tpu_torch import training_cvs
+    from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
+    from structured_latent_odes_tpu_torch.prob import fold_seed, seed_tensor
+    from structured_latent_odes_tpu_torch.train import svi
+    from structured_latent_odes_tpu_torch.train.driver import device_batch, read_epoch
+    from structured_latent_odes_tpu_torch.utils.device import full_fp32
+    from structured_latent_odes_tpu_torch.utils.graphs import GRAPHS, signature
+    from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
+
+    full_fp32(deterministic=True)
+    cfg = load_cvs_config()
+    cfg.data_path = tiny_cvs
+    splits, _ = training_cvs.build_splits(cfg, device=cuda)
+    spec = cvs_spec(cfg)
+    ts = torch.arange(86.0, device=cuda)
+    params = init_params(spec, 0, device=cuda)
+    init_state, _, train_epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params)
+    eval_epoch = svi.make_eval_epoch(spec, ts)
+    assert train_epoch.dispatch == eval_epoch.dispatch == "cuda graph"
+    batches = device_batch(stacked_minibatches(splits["train"], 16, shuffle=True, rng=np.random.RandomState(0)), cuda)
+    stacks = {k: device_batch(stacked_minibatches(splits[k], 16, shuffle=False), cuda) for k in ("val", "train")}
+    runs = [(fold_seed(4, 1, f"{split}_{mode}"), split, mode == "post")
+            for split in ("val", "train") for mode in ("post", "prior")]
+    state = init_state(params, 5)
+    for _ in range(2):  # the graphs' eager first calls and captures
+        state, _ = train_epoch(state, batches)
+        for seed, split, is_post in runs:
+            eval_epoch(state.params, seed, stacks[split], is_post)
+    torch.cuda.synchronize()
+
+    stepped = svi.stepped_epoch
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        return stepped(*args, **kwargs)
+
+    monkeypatch.setattr(svi, "stepped_epoch", strict)
+    try:
+        state, mets = train_epoch(state, batches)
+        evals = [eval_epoch(state.params, seed, stacks[split], is_post) for seed, split, is_post in runs]
+        with pytest.raises(RuntimeError):  # the mode catches the blocking copy
+            seed_tensor(svi.eval_seeds(1), cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, stats = read_epoch(mets, evals)
+    assert len(stats) == 4
+    key = svi.Dispatch(None, "eval_epoch", spec, ts).key
+    for (seed, split, is_post), got in zip(runs, evals):
+        graph = GRAPHS.get(key + (is_post, signature(stacks[split])))
+        ref = graph({"params": state.params, "seeds": seed_tensor(svi.eval_seeds(seed), cuda),
+                     "batches": stacks[split]})
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(ref), tree_leaves(got)))
 
 
 @pytest.mark.parametrize("backend", ["semilinear_fused", "semilinear"])

@@ -56,4 +56,4 @@ def test_profile_dir_traces_one_epoch(data_dir, tmp_path, epochs, resume_from, t
     (name,) = os.listdir(tmp_path / "prof")
     with open(tmp_path / "prof" / name) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert {"entry.epoch", "entry.batches", "dispatch.train", "wait.losses", "dispatch.eval"} <= names
+    assert {"entry.epoch", "entry.batches", "dispatch.train", "dispatch.eval", "wait.epoch"} <= names

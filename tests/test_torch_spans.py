@@ -167,7 +167,8 @@ def data_dir(tmp_path_factory):
 def test_one_cvs_driver_epoch_is_one_span_tree(data_dir, tmp_path):
     """One epoch of ``training_cvs.main`` with the train split's statistics:
     one ``entry.epoch``, each of its phases once under it, four eval epochs
-    each with its wait; nothing of the epoch outside the tree."""
+    and one wait, the epoch's one read; nothing of the epoch outside the
+    tree."""
     argv = ["--data-path", data_dir, "--results-root", str(tmp_path), "--mini-batch-size", "8", "--no-plot",
             "--device", "cpu", "--num-epochs", "0"]
     with contextlib.redirect_stdout(io.StringIO()):
@@ -176,7 +177,7 @@ def test_one_cvs_driver_epoch_is_one_span_tree(data_dir, tmp_path):
     assert epoch[3] is None
     tree = _within(spans, epoch)
     assert _names(tree) == {"entry.epoch": 1, "entry.batches": 1, "entry.put": 1, "dispatch.train": 1,
-                            "wait.losses": 1, "dispatch.eval": 4, "wait.eval": 4, "entry.select": 1, "entry.log": 1}
+                            "dispatch.eval": 4, "wait.epoch": 1, "entry.select": 1, "entry.log": 1}
     assert all(s[3] == "entry.epoch" for s in tree if s is not epoch)
     assert sum(s[4] for s in tree) == epoch[2] - epoch[1]
 

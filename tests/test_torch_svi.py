@@ -37,7 +37,7 @@ from structured_latent_odes_tpu_torch.data.loader import stacked_minibatches
 from structured_latent_odes_tpu_torch.interop import params_from_jax
 from structured_latent_odes_tpu_torch.models import cvs_spec, param_masks
 from structured_latent_odes_tpu_torch.train import svi
-from structured_latent_odes_tpu_torch.train.driver import _stats_from_fused, device_batch, eval_split
+from structured_latent_odes_tpu_torch.train.driver import device_batch, eval_split, read_epoch
 from structured_latent_odes_tpu_torch.utils.tree import tree_leaves
 from _torch_one_thread import one_intra_op_thread  # noqa: F401 (autouse)
 
@@ -215,7 +215,8 @@ def test_eval_epoch_matches_host_loop(is_post):
     ts = torch.arange(float(T))
     loop = eval_split(pspec, params, 9, split, svi.make_eval_fns(pspec, ts), 4, is_post=is_post)
     stack = device_batch(stacked_minibatches(split, 4, shuffle=False), "cpu")
-    fused = _stats_from_fused(pspec, svi.make_eval_epoch(pspec, ts)(params, 9, stack, is_post))
+    no_steps = {"loss_main": torch.zeros(0), "loss_aux": torch.zeros(0)}
+    _, (fused,) = read_epoch(no_steps, [svi.make_eval_epoch(pspec, ts)(params, 9, stack, is_post)])
     np.testing.assert_allclose(fused.elbo, loop.elbo, rtol=2e-5)
     np.testing.assert_allclose(fused.l1, loop.l1, rtol=2e-5)
     for name in loop.label_metrics:

@@ -2,10 +2,12 @@
 metrics and the ``.npy`` artifact contract (byte for byte), the aux-multiplier
 and lr schedules, checkpoint metadata, seeding, and the epoch loop and
 ``eval_every`` (the port's own dual step and ``eval_split`` as the
-reference). JAX stays on the CPU.
+reference), and the epoch's one read against reads of each number alone.
+JAX stays on the CPU.
 """
 
 import os
+import re
 
 import jax  # noqa: F401
 import numpy as np
@@ -172,3 +174,57 @@ def test_eval_every_skips_the_statistics(capsys):
     assert [e for e, *_ in seen] == [0, 2, 3]  # the last epoch is always evaluated
     lines = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[Epoch ")]
     assert len(lines) == 4 and "l1=" not in lines[1] and "l1=" in lines[2]
+
+
+def test_the_epochs_one_read_is_the_reads_of_each_number(capsys):
+    """Two driver epochs on the graph path's plain version and eagerly: the
+    losses and the four statistics that select_best receives from the
+    epoch's one read are, bit for bit, the losses read alone and a separate
+    eval_epoch's at the epoch's params and seeds read number by number; both
+    dispatches choose the same best params and print the same epoch lines
+    but for their time."""
+    cfg, splits, spec, params = _tiny(num_epochs=1)
+    ts = torch.arange(float(T))
+    runs = {}
+    for dispatch in ("plain", "eager"):
+        init_state, _, epoch = svi.make_train_step(spec, ts, cfg.learning_rate, params, dispatch=dispatch)
+        eval_epoch = svi.make_eval_epoch(spec, ts, dispatch=dispatch)
+        stacks = {k: driver.device_batch(stacked_minibatches(splits[k], cfg.mini_batch_size, shuffle=False), "cpu")
+                  for k in ("val", "train")}
+        losses_alone, checked = [], []
+
+        def train_epoch(state, batches):
+            state, mets = epoch(state, batches)
+            losses_alone.append(torch.stack([mets["loss_main"], mets["loss_aux"]], dim=1).tolist())
+            return state, mets
+
+        def read_alone(params_now, seed, split, is_post):
+            fused = eval_epoch(params_now, seed, stacks[split], is_post)
+            n = max(float(fused["n"]), 1.0)
+            return ([float(fused["elbo_main"]), float(fused["elbo_aux"])], float(fused["l1"]) / n,
+                    [(k, float(v) / n) for k, v in fused["labels"].items()])
+
+        def select_best(epoch_i, val, train_s, best, params_now, losses):
+            assert losses == losses_alone[-1]
+            for split, stats in (("val", val), ("train", train_s)):
+                for mode, got in stats.items():
+                    ref = read_alone(params_now, fold_seed(4, epoch_i, f"{split}_{mode}"), split, mode == "post")
+                    assert (got.elbo, got.l1, list(got.label_metrics.items())) == ref
+                    checked.append((epoch_i, split, mode))
+            crit = sum(val["post"].elbo) * len(val["post"].elbo)
+            return {"params": params_now, "epoch": epoch_i, "criterion": crit} if best["criterion"] >= crit else best
+
+        capsys.readouterr()
+        _, best = driver.run_training_epochs(
+            spec=spec, state=init_state(params, 1), train_epoch=train_epoch, eval_epoch=eval_epoch, splits=splits,
+            config=cfg, rng=np.random.RandomState(3), eval_seed=4, select_best=select_best,
+        )
+        assert len(checked) == 2 * 4 and len(losses_alone) == 2
+        lines = [re.sub(r"\[[0-9.]+s\]$", "", ln) for ln in capsys.readouterr().out.splitlines()
+                 if ln.startswith("[Epoch ")]
+        runs[dispatch] = lines, best, losses_alone
+    (lines_p, best_p, losses_p), (lines_e, best_e, losses_e) = runs["plain"], runs["eager"]
+    assert len(lines_p) == 2 and lines_p == lines_e and losses_p == losses_e
+    assert best_p["epoch"] == best_e["epoch"] and best_p["criterion"] == best_e["criterion"]
+    for a, b in zip(tree_leaves(best_p["params"]), tree_leaves(best_e["params"])):
+        assert torch.equal(a, b)
