@@ -13,7 +13,7 @@ the run's seed, and the whole set is simulated in one batch there.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -105,14 +105,18 @@ def model_layout(obs: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch
     return ((obs - lo) / (hi - lo)).transpose(1, 2).contiguous()
 
 
-def splits(cfg: Dict, seed: int, device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The configuration's train/val/test splits on ``device``, normalized
-    by the train part (train and val), in the model layout."""
-    c, d = cfg["config"], cfg["data"]
+def splits(run, device) -> Tuple[Dict[str, Dict[str, np.ndarray]], np.ndarray]:
+    """The configuration's train/val/test splits, simulated on ``device``
+    from the run's seed, normalized by the train and val parts, in the model
+    layout, as host arrays; and the time grid."""
+    c, d = run.cfg["config"], run.cfg["data"]
     n_train, n_val, n_test = int(d["n_train"]), int(d["n_val"]), int(d["n_test"])
-    obs, labels = trajectories(n_train + n_val + n_test, seed, device, int(c["seq_len"]), float(c["delta_t"]),
-                               float(c["noise_std"]))
+    obs, labels = trajectories(n_train + n_val + n_test, run.seed_for("data"), device, int(c["seq_len"]),
+                               float(c["delta_t"]), float(c["noise_std"]))
     lo, hi = min_max(obs[:n_train + n_val])
     obs = model_layout(obs, lo, hi)
     cuts = {"train": (0, n_train), "val": (n_train, n_train + n_val), "test": (n_train + n_val, len(obs))}
-    return {name: {"observations": obs[a:b], **{k: v[a:b] for k, v in labels.items()}} for name, (a, b) in cuts.items()}
+    parts = {name: {"observations": obs[a:b], **{k: v[a:b] for k, v in labels.items()}}
+             for name, (a, b) in cuts.items()}
+    times = np.arange(0.0, c["seq_len"] * c["delta_t"], c["delta_t"], dtype=np.float32)
+    return {k: {n: v.cpu().numpy() for n, v in s.items()} for k, s in parts.items()}, times

@@ -22,6 +22,8 @@ from typing import Dict
 
 import numpy as np
 
+from port_bench import harness
+
 
 def _signal(header: str) -> str:
     m = re.search(r"\(([^)]*)\)", header)
@@ -93,13 +95,15 @@ def build_dataset(root: str, d: Dict) -> Dict[str, np.ndarray]:
     }
 
 
-def splits(root: str, cfg: Dict, split_seed: int):
-    """The fold ``config.split`` of ``config.folds`` (val) and the rest
-    (train), each a dict of float32 arrays with the labels aR, aS, C12, C6;
-    and the time grid."""
-    c, d = cfg["config"], cfg["data"]
-    data = build_dataset(root, d)
+def splits(run, device):
+    """The fold ``config.split`` of ``config.folds`` (val), drawn from the
+    run's seed, and the rest (train), each a dict of float32 host arrays with
+    the labels aR, aS, C12, C6; and the time grid. The files lie under the
+    checkout's root; ``device`` is not used."""
+    c, d = run.cfg["config"], run.cfg["data"]
+    data = build_dataset(harness.ROOT, d)
     n = len(data["observations"])
+    split_seed = run.seed_for("fold") & 0xFFFFFFFF
     chunks = np.array_split(np.random.RandomState(split_seed).permutation(n), int(c["folds"]))
     val = np.sort(chunks[int(c["split"]) - 1])
     train = np.setdiff1d(np.arange(n, dtype=int), val)

@@ -2,15 +2,17 @@
 
 A cell of ``BENCHMARK.json``'s ``workloads`` names a configuration (its file
 under ``port_bench/configs/``) and a traffic mix
-(``port_bench/traffic/<mix>.json``). The mix's ``loop`` names the general
-generator that drives the program (``port_bench/loops/<loop>.py``: the
-training driver's epochs, a stacked sweep, closed-loop scoring), and its
+(``port_bench/traffic/<mix>.json``). A configuration's ``dataset`` names its
+data source, ``port_bench/data/<dataset>.py``, whose ``splits(run, device)``
+makes or reads the splits from the run's seed. The mix's ``loop`` names the
+general generator that drives the program (``port_bench/loops/<loop>.py``:
+the training driver's epochs, a stacked sweep, closed-loop scoring), and its
 other keys are that generator's parameters. Each metric is read by its own
 file, ``port_bench/metrics/<metric>.py`` (or, for ``<quantity>.<part>``,
 the quantity's shared ``<quantity>.py``), whose ``read(run)`` returns a
 number or None; the limits that decide ``correct`` are the cell's own file,
-``port_bench/limits/<cell>.json``. A cell, a mix, a configuration or a
-metric is added as files alone.
+``port_bench/limits/<cell>.json``. A cell, a mix, a configuration, a data
+source or a metric is added as files alone.
 
 One run: the generator makes its inputs from ``--seed``, warms up every
 shape the cell uses (set-up, ``setup_s``: from the process's start to the
@@ -79,6 +81,14 @@ def limits(cell: str) -> Dict[str, float]:
     return {k: v["limit"] for k, v in load_json(path)["numbers"].items()} if os.path.exists(path) else {}
 
 
+def load_module(path: str, name: str):
+    """The module of the file ``path``, under the module name ``name``."""
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def reader(name: str):
     """The module of ``port_bench/metrics/<name>.py``; for a metric named
     ``<quantity>.<part>`` (``mfu.train``) without a file of its own, the
@@ -86,10 +96,7 @@ def reader(name: str):
     path = os.path.join(BENCH_DIR, "metrics", f"{name}.py")
     if not os.path.exists(path):
         path = os.path.join(BENCH_DIR, "metrics", f"{name.split('.')[0]}.py")
-    spec = importlib.util.spec_from_file_location(f"port_bench_metric_{name.replace('.', '_')}", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    return load_module(path, f"port_bench_metric_{name.replace('.', '_')}")
 
 
 def metrics_for(bench: Dict, cell: str, kind: str) -> List[Dict]:

@@ -5,30 +5,25 @@ before the reference runs."""
 from __future__ import annotations
 
 import gc
+import os
 import time
 from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from port_bench.data import cvs as cvs_data
-from port_bench.data import proc as proc_data
-from port_bench.harness import ROOT
+from port_bench import harness
 
 
 def splits(run, device) -> Tuple[Dict[str, Dict[str, np.ndarray]], np.ndarray]:
     """The configuration's splits as host arrays in the model layout, and
-    the time grid: CVS trajectories simulated on ``device`` from the run's
-    seed, or the proc plate reads with the fold drawn from it."""
-    cfg = run.cfg
-    if cfg["data"].get("generator") == "cvs":
-        parts = cvs_data.splits(cfg, run.seed_for("data"), device)
-        c = cfg["config"]
-        times = np.arange(0.0, c["seq_len"] * c["delta_t"], c["delta_t"], dtype=np.float32)
-        return {k: {n: v.cpu().numpy() for n, v in s.items()} for k, s in parts.items()}, times
-    if cfg["data"].get("reader") == "proc_csv":
-        return proc_data.splits(ROOT, cfg, run.seed_for("fold") & 0xFFFFFFFF)
-    raise ValueError(f"no data source in configuration {cfg['name']!r}")
+    the time grid, from its data source: ``port_bench/data/<dataset>.py``,
+    by the configuration's ``dataset`` key, whose ``splits(run, device)``
+    makes or reads them from the run's seed."""
+    path = os.path.join(harness.BENCH_DIR, "data", f"{run.cfg['dataset']}.py")
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"configuration {run.cfg['name']!r}: no data source {path}")
+    return harness.load_module(path, f"port_bench_data_{run.cfg['dataset']}").splits(run, device)
 
 
 class WarmUp:

@@ -18,10 +18,16 @@ do, until the first chunk end past ``--seconds``.
 
 Afterwards the reference follows each member through the same steps.
 
-Mix keys: ``members``, ``policy`` (the runner's selection policy),
-``chunk_epochs``, ``perm_epochs`` (the shuffles drawn in set-up, cycled),
-``followed_steps``, ``trace_epochs``, and the warm-up's ``warm_block_s``,
-``warm_agree`` and ``warm_max_s``.
+Each member's per-epoch aux multiplier and lr scale are the schedules of
+the configuration's ``config`` section, as ``sweep.py::prepare_member``
+makes them (constant where it sets no schedule keys), over the first
+``perm_epochs`` epochs and cycled with the shuffles; the followed steps take
+epoch 0's values.
+
+Mix keys: ``members``, ``policy`` (the runner's selection policy, one of
+:data:`POLICIES`), ``chunk_epochs``, ``perm_epochs`` (the shuffles drawn in
+set-up, cycled), ``followed_steps``, ``trace_epochs``, and the warm-up's
+``warm_block_s``, ``warm_agree`` and ``warm_max_s``.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ from port_bench.reference import compare, control
 from port_bench.reference import train as reference
 from port_bench.reference.model import Model
 
+# the runner's selection policies (``train/ensemble.py``) that a mix may
+# name, and whether each reads the members' val ELBO every epoch
+POLICIES = {"cvs": True, "proc": True, "challenge": False}
+
 
 def _perms(n: int, batch: int, epochs: int, rng: np.random.RandomState) -> np.ndarray:
     """(epochs, n_batches, batch) shuffles, each padded with row 0."""
@@ -54,6 +64,8 @@ def members_of(run, config, spec, splits, times, device):
     the run's seed: the weights of all members (one flat dict, a leading
     member axis), the members' records for ``prepare_run`` (each with its
     ``first`` minibatches, which the reference follows), and the mask."""
+    from structured_latent_odes_tpu_torch.train.ensemble import aux_mult_schedule, lr_scale_schedule
+
     mix, cfg = run.traffic, run.cfg
     S, E, k = int(mix["members"]), int(mix["perm_epochs"]), int(mix["followed_steps"])
     batch = int(config.mini_batch_size)
@@ -61,7 +73,8 @@ def members_of(run, config, spec, splits, times, device):
     n_train = len(splits["train"]["observations"])
     nb = -(-n_train // batch)
     mask = (np.arange(nb * batch) < n_train).astype(np.float32).reshape(nb, batch)
-    val_stack = _in_order(splits["val"], batch)
+    val_stack = _in_order(splits["val"], batch) if POLICIES[mix["policy"]] else None
+    aux_mult, lr_sched = aux_mult_schedule(config, E - 1), lr_scale_schedule(config, E - 1)
     members = []
     for m in range(S):
         rng = np.random.RandomState(run.seed_for(f"shuffle{m}") & 0xFFFFFFFF)
@@ -71,8 +84,7 @@ def members_of(run, config, spec, splits, times, device):
             "train_seed": run.seed_for(f"train{m}"), "eval_seed": run.seed_for(f"eval{m}"),
             "first": rng.permutation(n_train)[:k * batch].reshape(k, batch),
             "perms": _perms(n_train, batch, E, rng), "mask": mask,
-            "aux_mult": np.full(E, float(config.aux_loss_multiplier), np.float32), "lr_sched": None,
-            "refit_perms": None,
+            "aux_mult": aux_mult, "lr_sched": lr_sched, "refit_perms": None,
         })
     return flat, members, mask
 
@@ -154,6 +166,8 @@ def run(run) -> None:
     from structured_latent_odes_tpu_torch.utils.device import full_fp32
 
     mix, device, cfg = run.traffic, run.device, run.cfg
+    if mix["policy"] not in POLICIES:
+        raise ValueError(f"unknown policy {mix['policy']!r}; one of {sorted(POLICIES)}")
     run.mark("imports")
     full_fp32(deterministic=True)
     splits, times = common.splits(run, device)
@@ -169,11 +183,14 @@ def run(run) -> None:
     if not shared:
         raise ValueError("the sweep's members must share their data")
     run.mark("prepare_run")
-    on = {k_: {n: torch.as_tensor(v, device=device) for n, v in inputs[k_].items()}
+    on = {k_: None if inputs[k_] is None else {n: torch.as_tensor(v, device=device) for n, v in inputs[k_].items()}
           for k_ in ("train_splits", "val_stacks")}
     perms = torch.as_tensor(inputs["perms"], device=device)
     mask_t = torch.as_tensor(mask, device=device)
-    fills = {"aux_mult": float(config.aux_loss_multiplier)}
+    aux_mult, lr_sched = inputs["aux_mult"], inputs["lr_sched"]
+    fills = {"aux_mult": float(aux_mult[0, 0])}  # epoch 0's, as run_chunk fills them
+    if lr_sched is not None:
+        fills["lr_scale"] = float(lr_sched[0, 0])
     first = np.stack([m["first"] for m in members])
     state, prog = follow_first(run, runner, inputs["states"], torch.as_tensor(first, device=device),
                                on["train_splits"], fills)
@@ -182,7 +199,8 @@ def run(run) -> None:
     def chunk(carry, start: int, n: int):
         idx = [(start + j) % E for j in range(n)]
         return runner.run_chunk(carry, on["train_splits"], on["val_stacks"], perms[:, idx], mask_t,
-                                inputs["aux_mult"][:, idx], None, range(start, start + n))
+                                aux_mult[:, idx], None if lr_sched is None else lr_sched[:, idx],
+                                range(start, start + n))
 
     carry, _ = chunk(runner.init_carry(state, inputs["eval_seeds"]), 0, 2)  # captures every graph
     run.mark("two epochs (captures)")
@@ -196,7 +214,7 @@ def run(run) -> None:
     run.mark("warm-up (epochs/s " + " ".join(f"{r:.4g}" for r in warm.rates) + ")")
     start = epoch
     flops = per_trajectory(cfg, n_time)
-    n_val = len(splits["val"]["observations"])
+    n_val = len(splits["val"]["observations"]) if POLICIES[mix["policy"]] else 0
     failed = 0
     t0 = time.perf_counter()
     run.setup_s = t0 - run.t0

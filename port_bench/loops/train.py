@@ -20,8 +20,10 @@ first epoch end past ``--seconds``; its epoch lines go to a file.
 Afterwards the reference follows the same steps from the same weights and
 batches, and works out one eval epoch of the state they leave.
 
-Mix keys: ``selection`` ('cvs': the val posterior ELBO times the number of
-losses, ties improve; 'proc': the val posterior ELBO, strict),
+The followed steps take epoch 0's aux multiplier and lr scale where the
+configuration sets a schedule, as the driver feeds its epoch 0.
+
+Mix keys: ``selection`` (one of :data:`SELECTIONS`),
 ``eval_every``, ``eval_train_stats``, ``followed_steps``, ``trace_epochs``
 (the epochs a traced run profiles after its window), and the warm-up's
 ``warm_block_s``, ``warm_agree`` and ``warm_max_s`` (``common.WarmUp``).
@@ -47,29 +49,40 @@ class _WindowClosed(Exception):
     pass
 
 
+# the training drivers' selection policies: an epoch's criterion from its
+# val posterior statistics and its losses, and whether a tie improves
+SELECTIONS = {
+    "cvs": (lambda val, losses: sum(val["post"].elbo) * len(val["post"].elbo), True),  # training_cvs.py
+    "proc": (lambda val, losses: sum(val["post"].elbo), False),  # training_proc.py
+    "challenge": (lambda val, losses: float(np.mean(losses)) if losses else np.inf, False),  # training_challenge.py
+}
+
+
 def _selector(policy: str, failed: list):
+    if policy not in SELECTIONS:
+        raise ValueError(f"unknown selection {policy!r}; one of {sorted(SELECTIONS)}")
+    criterion, ties = SELECTIONS[policy]
+
     def select(epoch, val, train_s, best, params_now, epoch_losses):
         if not np.all(np.isfinite(epoch_losses)):
             failed.append(epoch)
-        crit = sum(val["post"].elbo)
-        if policy == "cvs":
-            crit *= len(val["post"].elbo)
-            better = best["criterion"] >= crit
-        else:
-            better = crit < best["criterion"]
+        crit = criterion(val, epoch_losses)
+        better = best["criterion"] >= crit if ties else crit < best["criterion"]
         return {"params": params_now, "epoch": epoch, "criterion": crit} if better else best
 
     return select
 
 
-def _rows(split, perm: np.ndarray, batch: int, steps: int):
+def _rows(split, perm: np.ndarray, batch: int, steps: int, fills):
     """``steps`` full minibatches of ``split`` in the order ``perm``, stacked
     as the driver stacks an epoch: (steps, batch, ...) with mask and
-    sample_id."""
+    sample_id, and a step's entry for each of ``fills`` (name -> value)."""
     sel = perm[:steps * batch]
     out = {k: v[sel].reshape((steps, batch) + v.shape[1:]) for k, v in split.items()}
     out["mask"] = np.ones((steps, batch), np.float32)
     out["sample_id"] = sel.astype(np.int32).reshape(steps, batch)
+    for name, value in fills.items():
+        out[name] = np.full((steps,), value, np.float32)
     return out
 
 
@@ -87,11 +100,13 @@ def _in_order(split, batch: int):
 
 def run(run) -> None:
     from structured_latent_odes_tpu_torch.train.backend import make_training_backend
-    from structured_latent_odes_tpu_torch.train.driver import run_training_epochs
+    from structured_latent_odes_tpu_torch.train.driver import epoch_aux_mult, epoch_lr_scale, run_training_epochs
     from structured_latent_odes_tpu_torch.train.svi import make_eval_epoch, own_state
     from structured_latent_odes_tpu_torch.utils.device import full_fp32
 
     mix, device = run.traffic, run.device
+    failed: list = []
+    select = _selector(mix["selection"], failed)
     log = open(run.log_path("epochs"), "w")
     with log, contextlib.redirect_stdout(log):
         run.mark("imports")
@@ -114,7 +129,9 @@ def run(run) -> None:
         # the first steps, followed by the reference afterwards; a throwaway
         # state takes the graphs' eager first calls and captures first
         k = int(mix["followed_steps"])
-        rows = _rows(splits["train"], rng.permutation(len(splits["train"]["observations"])), batch, k)
+        fills = {n: v for n, v in (("aux_mult", epoch_aux_mult(config, 0)), ("lr_scale", epoch_lr_scale(config, 0)))
+                 if v is not None}
+        rows = _rows(splits["train"], rng.permutation(len(splits["train"]["observations"])), batch, k, fills)
         val_rows = _in_order(splits["val"], batch)
         val_stack = put(val_rows)
         scratch = init_state(weights.to_tree(flat), train_seed)
@@ -133,8 +150,6 @@ def run(run) -> None:
                  if k_ != "labels"}
         run.mark("followed steps and eval check")
 
-        failed: list = []
-        select = _selector(mix["selection"], failed)
         driver = dict(spec=spec, train_epoch=train_epoch, eval_epoch=eval_epoch, splits=splits, rng=rng,
                       eval_seed=eval_seed, select_best=select, eval_train_stats=bool(mix["eval_train_stats"]),
                       eval_every=int(mix["eval_every"]), put_batch=put)

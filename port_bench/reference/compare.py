@@ -141,15 +141,18 @@ def training_gaps(prog: Dict, ref: Dict, init: Dict[str, Tensor]) -> Dict[str, f
 
 def nearest_training_gaps(prog: Dict, follow, init: Dict[str, Tensor]):
     """:func:`training_gaps` against one reference: of ``follow(flips)``
-    with its round-off-undecided quantile decisions (``reference.train.
-    undecided``) taken each way, the one that fits the program best, by the
-    largest of its numbers (the first, with no decision turned, on a tie).
-    An element whose target lies on a band within round-off is decided by
-    the rounding, on either side; its side changes its gradient by a whole
-    quantile weight but its loss by a round-off's worth, so a decision of
-    the last step followed shows in the params' change alone, and the fit is
-    taken over every number, not the losses alone. Every number is judged
-    against that one reference. Returns the gaps and the reference."""
+    with its round-off-undecided decisions (``reference.train.undecided``:
+    quantile bands and the decoder's ReLU gates) taken each way, the one
+    that fits the program best, by the largest of its numbers (the first,
+    with no decision turned, on a tie). An element whose target lies on a
+    band within round-off is decided by the rounding, on either side; its
+    side changes its gradient by a whole quantile weight but its loss by a
+    round-off's worth; a ReLU pre-activation within round-off of zero turns
+    its unit's gradient on or off and its value by a round-off's worth. So
+    a decision of the last step followed shows in the params' change alone,
+    and the fit is taken over every number, not the losses alone. Every
+    number is judged against that one reference. Returns the gaps and the
+    reference."""
     from port_bench.reference.train import undecided
 
     ref = follow(frozenset())

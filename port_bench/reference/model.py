@@ -38,7 +38,9 @@ LOG_2PI = math.log(2.0 * math.pi)
 CLIP = 1e-7
 # a target this near a quantile band may fall on either side of it in float32:
 # the program's bands differ from the reference's by about 1e-6 at most, over
-# the bands' scale (served bands at 16,411 CVS trajectories on an H100, PERF.md)
+# the bands' scale (served bands at 16,411 CVS trajectories on an H100, PERF.md);
+# so may a decoder ReLU's pre-activation this near zero, whose side turns its
+# unit's gradient on or off (a proc_sweep seed on an H100, PERF.md)
 NEAR = 3e-6
 
 # explicit Runge-Kutta tableaus (c, a, b)
@@ -61,12 +63,16 @@ class Model:
         self.prior = m["prior"]
         self.prior_input_order = list(m["prior_input_order"])
         self.aux_in_model = bool(m["aux_in_model"])
-        self.aux_mult = float(c["aux_loss_multiplier"])
+        # the label sites' multiplier at epoch 0, where the followed steps lie:
+        # a warm-up's start where one is set, else the constant (an anneal
+        # starts from it)
+        warm_up = c.get("aux_warmup_epochs") and c.get("aux_mult_start") is not None
+        self.aux_mult = float(c["aux_mult_start"] if warm_up else c["aux_loss_multiplier"])
         self.quantile_diff = float(c["quantile_diff"])
         self.pool = int(c["pool_size"])
         self.solver = c["solver"]
         self.lr = float(c["learning_rate"])
-        self.near = []  # the quantile decisions within round-off's reach, noted by elbo_main
+        self.near = []  # the decisions within round-off's reach (quantile bands, ReLU gates), noted by elbo_main
 
     def block_slice(self, name: str) -> slice:
         start = 0
@@ -118,30 +124,49 @@ class Model:
             return torch.softmax(out, dim=-1)
         return torch.exp(torch.clamp(out, -30.0, 15.0))  # a continuous label's loc
 
-    def initial_state(self, p, z: Tensor) -> Tensor:
-        h = torch.relu(z @ p["decoder/ode/latent_to_ode/0/W"].T + p["decoder/ode/latent_to_ode/0/b"])
+    def relu(self, x: Tensor, site: str, tag=None, flips=()) -> Tensor:
+        """relu(x). With a ``tag``, where a gradient is taken, each
+        pre-activation within :data:`NEAR` of zero, whose gate float32
+        round-off decides, is noted in ``self.near`` as (``tag``, ``site``,
+        element, distance); ``flips`` holds the (site, element) pairs whose
+        gate is taken the other way."""
+        if tag is not None and x.requires_grad:
+            with torch.no_grad():
+                dist = x.detach().abs().reshape(-1)
+                for i in torch.nonzero(dist < NEAR).reshape(-1).tolist():
+                    self.near.append((tag, site, i, float(dist[i])))
+        mine = [i for s, i in flips if s == site]
+        if not mine:
+            return torch.relu(x)
+        gate = (x > 0).reshape(-1).clone()
+        gate[mine] = ~gate[mine]
+        return torch.where(gate.reshape(x.shape), x, torch.zeros_like(x))
+
+    def initial_state(self, p, z: Tensor, tag=None, flips=()) -> Tensor:
+        h = self.relu(z @ p["decoder/ode/latent_to_ode/0/W"].T + p["decoder/ode/latent_to_ode/0/b"], "x0", tag, flips)
         return torch.sigmoid(h @ p["decoder/ode/latent_to_ode/1/W"].T + p["decoder/ode/latent_to_ode/1/b"])
 
-    def rates(self, p, t: Tensor, z: Tensor):
+    def rates(self, p, t: Tensor, z: Tensor, tag=None, flips=()):
         """Production a and degradation d at the times t ``(N,)``: each
         ``(B, N, D)``."""
         W, b = p["decoder/ode/dyn_hidden/W"], p["decoder/ode/dyn_hidden/b"]
-        h = torch.relu((z @ W[:, 1:].T + b)[:, None, :] + t[None, :, None] * W[:, 0])
+        h = self.relu((z @ W[:, 1:].T + b)[:, None, :] + t[None, :, None] * W[:, 0], "rates", tag, flips)
         a = torch.sigmoid(h @ p["decoder/ode/prod/W"].T + p["decoder/ode/prod/b"])
         d = torch.sigmoid(h @ p["decoder/ode/degr/W"].T + p["decoder/ode/degr/b"])
         return a, d
 
-    def solve(self, p, z: Tensor, ts: Tensor) -> Tensor:
+    def solve(self, p, z: Tensor, ts: Tensor, tag=None, flips=()) -> Tensor:
         """The state trajectory ``(B, T, D)``, x0 included: each step of the
-        tableau on dx/dt = a - d x."""
+        tableau on dx/dt = a - d x (``tag`` and ``flips`` for the ReLU
+        gates, :meth:`relu`)."""
         c, a_tab, b_tab = TABLEAUS[self.solver]
         h = ts[1:] - ts[:-1]
         stage_t = torch.stack([ts[:-1] + h * ci for ci in c], dim=1).reshape(-1)
-        a, d = self.rates(p, stage_t, z)
+        a, d = self.rates(p, stage_t, z, tag, flips)
         S = len(c)
         a = a.reshape(z.shape[0], -1, S, a.shape[-1])
         d = d.reshape(z.shape[0], -1, S, d.shape[-1])
-        x = self.initial_state(p, z)
+        x = self.initial_state(p, z, tag, flips)
         out = [x]
         for n in range(ts.shape[0] - 1):
             ks = []
@@ -155,9 +180,9 @@ class Model:
             out.append(x)
         return torch.stack(out, dim=1)
 
-    def decode(self, p, z: Tensor, ts: Tensor):
+    def decode(self, p, z: Tensor, ts: Tensor, tag=None, flips=()):
         """(solution, mu_75, mu_50, mu_25, std), the bands ``(B, K, T)``."""
-        sol = self.solve(p, z, ts)
+        sol = self.solve(p, z, ts, tag, flips)
         band = {q: (sol @ p[f"decoder/{q}/W"].T).transpose(1, 2) for q in ("q75", "q50", "q25")}
         std = (F.softplus(p["decoder/constant_std"]) + 1e-6).expand(band["q50"].shape)
         return sol, band["q75"], band["q50"], band["q25"], std
@@ -196,7 +221,8 @@ class Model:
         Each element whose target lies within :data:`NEAR` of a band is
         noted in ``self.near`` as (``tag``, band, element, distance);
         ``flips`` holds the (band, element) pairs of this call whose
-        decision is taken the other way."""
+        decision is taken the other way, and the decoder's ReLU gates'
+        (site, element) pairs likewise (:meth:`relu`)."""
         obs, sids = batch["observations"], batch["sample_id"]
         loc, scale = self.encode(p, obs)
         prior = self.prior_params(p, batch)
@@ -222,7 +248,7 @@ class Model:
             for label in self.labels:
                 terms = terms + self.aux_mult * self.label_logp(p, label, z[:, self.block_slice(label["block"])],
                                                                 batch[label["name"]])
-        _, mu_75, mu_50, mu_25, std = self.decode(p, z, ts)
+        _, mu_75, mu_50, mu_25, std = self.decode(p, z, ts, tag, flips)
         qd = self.quantile_diff
         for band, (mu, tau) in enumerate(((mu_50, 0.5), (mu_75, 0.5 + qd), (mu_25, 0.5 - qd))):
             d = obs - mu

@@ -78,8 +78,9 @@ def dual_steps(model: Model, params: Dict[str, Tensor], seed: int, first_step: i
     """The dual steps of one member from ``params`` over ``batches`` (one a
     step). Returns, per step, the two losses over the batch's count; the
     first moments after the first step; and the params after the last.
-    ``flips``: the quantile decisions taken the other way, as (("step",
-    i), band, element)."""
+    ``flips``: the round-off decisions taken the other way, as (("step",
+    i), band, element) for a quantile band and (("step", i), site, element)
+    for a ReLU gate."""
     main_mask, aux_mask = masks(model, params)
     adam = Adam(params, model.lr)
     losses, first_moments = [], None
@@ -102,8 +103,9 @@ def follow(model: Model, init: Dict[str, Tensor], seed: int, batches: List[Dict]
            eval_seed=None, eval_batches=None, flips=frozenset()):
     """:func:`dual_steps` from step 0, its losses as one list, and with
     ``eval_batches`` the statistics of an eval epoch of the params they
-    leave (``elbo_main``, ``elbo_aux``, ``l1``); ``near``, the quantile
-    decisions within round-off's reach (``Model.elbo_main``)."""
+    leave (``elbo_main``, ``elbo_aux``, ``l1``); ``near``, the decisions
+    within round-off's reach (``Model.elbo_main``: quantile bands and ReLU
+    gates)."""
     model.near = []
     out = dual_steps(model, init, seed, 0, batches, ts, flips)
     out["losses"] = sum(out["losses"], [])
@@ -116,7 +118,7 @@ def follow(model: Model, init: Dict[str, Tensor], seed: int, batches: List[Dict]
 
 def undecided(near, cap: int = 4):
     """Every way to take the ``cap`` nearest of the decisions ``near`` the
-    other way: the non-empty sets of (tag, band, element)."""
+    other way: the non-empty sets of (tag, band or site, element)."""
     nearest = [(tag, band, e) for tag, band, e, _ in sorted(near, key=lambda x: x[3])[:cap]]
     for r in range(1, len(nearest) + 1):
         yield from (frozenset(c) for c in itertools.combinations(nearest, r))

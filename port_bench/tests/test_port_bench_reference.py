@@ -62,6 +62,21 @@ def _batches(split, batch, steps, rng):
     return out
 
 
+@pytest.mark.parametrize("schedule", [
+    {},
+    {"aux_loss_multiplier": 460.0, "aux_mult_final": 46.0, "aux_anneal_epochs": 1500},
+    {"aux_mult_start": 4.6, "aux_warmup_epochs": 1500},
+    {"aux_mult_start": 4.6, "aux_warmup_epochs": 100, "aux_mult_final": 46.0, "aux_anneal_epochs": 50},
+])
+def test_the_aux_multiplier_is_the_ports_at_epoch_0(schedule):
+    from structured_latent_odes_tpu_torch.train.driver import epoch_aux_mult
+
+    cfg = config("cvs")
+    cfg["config"].update(schedule)
+    ports = epoch_aux_mult(common.port_config(cfg), 0)
+    assert Model(cfg).aux_mult == (cfg["config"]["aux_loss_multiplier"] if ports is None else ports)
+
+
 @pytest.mark.parametrize("name", ["cvs", "proc"])
 def test_three_dual_steps_match_the_port(name):
     from structured_latent_odes_tpu_torch.train.svi import make_train_step, own_state
@@ -118,6 +133,16 @@ def test_a_decision_taken_by_round_off_is_judged_either_way(monkeypatch):
     """A program whose step took one quantile decision the other way (a
     target on a band within round-off) reads as the reference: the
     comparison takes each undecided decision both ways."""
+    _judged_either_way(monkeypatch, lambda band: isinstance(band, int))
+
+
+def test_a_relu_gate_decided_by_round_off_is_judged_either_way(monkeypatch):
+    """A program whose step took one of the decoder's ReLU gates the other
+    way (a pre-activation within round-off of zero) reads as the reference."""
+    _judged_either_way(monkeypatch, lambda site: site in ("x0", "rates"))
+
+
+def _judged_either_way(monkeypatch, of_kind):
     from port_bench.reference import model as model_module
 
     cfg = config("cvs")
@@ -133,7 +158,8 @@ def test_a_decision_taken_by_round_off_is_judged_either_way(monkeypatch):
         return reference.follow(model, flat, 77, batches, ts, flips=flips)
 
     monkeypatch.setattr(model_module, "NEAR", 1e9)  # every decision noted: take the nearest of step 2's
-    tag, band, element, _ = min((n for n in follow()["near"] if n[0] == ("step", 1)), key=lambda n: n[3])
+    tag, band, element, _ = min((n for n in follow()["near"] if n[0] == ("step", 1) and of_kind(n[1])),
+                                key=lambda n: n[3])
     monkeypatch.setattr(model_module, "NEAR", 0.0)
     flipped = follow(frozenset({(tag, band, element)}))
     assert compare.training_gaps(flipped, follow(), flat)["loss_gap"] > 1e-7
@@ -148,4 +174,4 @@ def test_a_decision_taken_by_round_off_is_judged_either_way(monkeypatch):
         return out
 
     gaps, _ = compare.nearest_training_gaps(flipped, near_first, flat)
-    assert gaps["loss_gap"] == 0.0 and gaps["change_gap"] == 0.0
+    assert gaps["loss_gap"] == 0.0 and gaps["change_gap"] == 0.0 and gaps["change_gap_worst"] == 0.0
